@@ -128,6 +128,55 @@ def model_prediction_from_output(
     return ModelPrediction(pred_noise, x_start)
 
 
+def rollout_loss_weight(
+    conditioned_steps: int,
+    rollout_steps: int,
+    feature_size: int,
+    discount: float = 0.95,
+    device: str | torch.device = "cpu",
+) -> torch.Tensor:
+    """Per-step loss weight [T, F]: ones on the conditioned steps, then
+    ``discount ** (i + 1)`` on rollout step i."""
+    w_roll = discount ** torch.arange(1, rollout_steps + 1, dtype=torch.float32, device=device)
+    w = torch.cat([torch.ones(conditioned_steps, dtype=torch.float32, device=device), w_roll])
+    return w[:, None].expand(conditioned_steps + rollout_steps, feature_size)
+
+
+def diffusion_loss(
+    sched: DiffusionSchedule,
+    model_output: torch.Tensor,
+    x_start: torch.Tensor,
+    noise: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    objective: Objective = "pred_noise",
+    loss_type: Literal["l1", "l2"] = "l1",
+    loss_weight: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Weighted denoising loss, the mean over every element.
+
+    ``model_output`` and the target cover the full (cond + rollout) horizon;
+    the caller zeroes the conditioned part of ``noise``.
+    """
+    if objective == "pred_noise":
+        target = noise
+    elif objective == "pred_x0":
+        target = x_start
+    elif objective == "pred_v":
+        target = predict_v(sched, x_start, t, noise)
+    else:
+        raise ValueError(f"unknown objective {objective}")
+    if loss_type == "l1":
+        loss = (model_output - target).abs()
+    elif loss_type == "l2":
+        loss = (model_output - target).square()
+    else:
+        raise ValueError(f"invalid loss type {loss_type}")
+    if loss_weight is not None:
+        loss = loss * loss_weight
+    return loss.mean()
+
+
 def ddim_times(num_timesteps: int, sampling_timesteps: int) -> tuple[list[int], list[int]]:
     """DDIM time pairs (t, t_next), t descending, as Python ints."""
     times = np.linspace(-1, num_timesteps - 1, sampling_timesteps + 1).astype(np.int32)

@@ -120,3 +120,30 @@ def make_schedule(
         backward_delta_coef=f(np.sqrt(acp) * betas / (np.sqrt(1.0 - betas) * (1.0 - acp))),
         guidance_eta=f(betas / np.sqrt(acp_prev)),
     )
+
+
+def snr_loss_weight(schedule: DiffusionSchedule, objective: str = "pred_noise") -> torch.Tensor:
+    """Per-timestep SNR loss weights [T]."""
+    snr = schedule.snr
+    if objective == "pred_noise":
+        return torch.ones_like(snr)
+    if objective == "pred_x0":
+        return snr
+    if objective == "pred_v":
+        return snr / (snr + 1.0)
+    raise ValueError(f"unknown objective {objective}")
+
+
+def min_snr_loss_weight(
+    schedule: DiffusionSchedule, objective: str = "pred_noise", gamma: float = 5.0
+) -> torch.Tensor:
+    """Min-SNR-gamma loss weights [T]: the SNR clipped at ``gamma``."""
+    snr = schedule.snr
+    clipped = torch.clamp(snr, max=gamma)
+    if objective == "pred_noise":
+        return clipped / snr
+    if objective == "pred_x0":
+        return clipped
+    if objective == "pred_v":
+        return clipped / (snr + 1.0)
+    raise ValueError(f"unknown objective {objective}")

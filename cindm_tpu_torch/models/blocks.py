@@ -18,7 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_conv1d_gn_mish, fused_conv1d_gn_mish_reference, fused_rtb, fused_rtb_reference, mish
+from ..ops import (
+    fused_conv1d_gn_mish_differentiable,
+    fused_conv1d_gn_mish_reference,
+    fused_rtb_differentiable,
+    fused_rtb_reference,
+    mish,
+)
 from ..ops.fused_conv_gn import group_norm
 
 __all__ = [
@@ -122,8 +128,10 @@ class GroupNorm(nn.Module):
 class Conv1dBlock(nn.Module):
     """Conv1d(k, pad k//2) -> GroupNorm(8) -> Mish.
 
-    With ``use_kernels`` the block goes through ``ops.fused_conv1d_gn_mish``
-    (the CUDA kernel on CUDA tensors); otherwise through its plain version.
+    With ``use_kernels`` the block goes through
+    ``ops.fused_conv1d_gn_mish_differentiable`` (the CUDA kernel on CUDA
+    tensors, with a recompute backward under autograd); otherwise through its
+    plain version.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, n_groups: int = 8, *,
@@ -133,7 +141,7 @@ class Conv1dBlock(nn.Module):
         self.norm = GroupNorm(out_ch, n_groups)
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
-        fn = fused_conv1d_gn_mish if use_kernels else fused_conv1d_gn_mish_reference
+        fn = fused_conv1d_gn_mish_differentiable if use_kernels else fused_conv1d_gn_mish_reference
         return fn(x, self.conv.weight, self.conv.bias, self.norm.weight, self.norm.bias,
                   self.norm.num_groups, self.norm.eps)
 
@@ -142,7 +150,11 @@ class ResidualTemporalBlock(nn.Module):
     """Two Conv1dBlocks with an additive time embedding and a 1x1 residual.
 
     The time projection Dense(mish(t_emb)) runs outside the kernel; the rest
-    of the block is one ``ops.fused_rtb`` call with ``use_kernels``.
+    of the block is one ``ops.fused_rtb_differentiable`` call with
+    ``use_kernels``: the kernel alone under ``torch.no_grad()``, the
+    ``FusedRTB`` autograd Function when a gradient is wanted. The 1x1
+    residual's weight goes in as the view ``weight[0]``, so its gradient
+    flows back into the [1, C, O] parameter.
     """
 
     def __init__(self, in_ch: int, out_ch: int, embed_dim: int, kernel_size: int = 5, *,
@@ -159,7 +171,7 @@ class ResidualTemporalBlock(nn.Module):
         temb = self.time(mish(t_emb))
         b0, b1 = self.block0, self.block1
         res = self.residual
-        fn = fused_rtb if use_kernels else fused_rtb_reference
+        fn = fused_rtb_differentiable if use_kernels else fused_rtb_reference
         return fn(
             x, temb,
             b0.conv.weight, b0.conv.bias, b0.norm.weight, b0.norm.bias,

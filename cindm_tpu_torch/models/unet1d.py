@@ -55,7 +55,8 @@ class TemporalUnet1D(nn.Module):
     """Temporal U-Net over [B, horizon, transition_dim].
 
     On CUDA tensors its 16 ResidualTemporalBlocks run through the fused-RTB
-    kernel and the head Conv1dBlock through the Conv1d+GN+Mish kernel;
+    kernel and the head Conv1dBlock through the Conv1d+GN+Mish kernel, with a
+    recompute backward when autograd needs their gradient;
     ``forward(..., use_kernels=False)`` runs their plain versions instead.
     Weights are drawn from ``generator`` (a seed-0 CPU generator if None).
     """

@@ -9,8 +9,16 @@ Port of ``cindm_tpu/ops/fused_rtb.py``: the whole block
 
 in one launch of ``csrc/fused_rtb.cu`` for CUDA tensors, so neither
 intermediate nor the residual goes back to device memory. CPU tensors use
-``fused_rtb_reference``. The backward pass (the JAX package's custom VJP)
-belongs to the training slice; sampling never differentiates the denoiser.
+``fused_rtb_reference``.
+
+``fused_rtb`` itself has no autograd history: it raises when a gradient is
+wanted. ``fused_rtb_differentiable`` is the port of the JAX package's custom
+VJP (``_fused_rtb_cv``, ``cindm_tpu/ops/fused_rtb.py:247-276``): its forward
+is the kernel and its backward recomputes ``fused_rtb_reference`` on the
+saved inputs and differentiates that, as ``_fused_rtb_cv_bwd`` does. The
+backward therefore costs a plain forward plus a plain backward; a backward
+kernel that reuses the forward's GroupNorm statistics would save the
+recompute.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_conv_gn import fused_conv1d_gn_mish_reference
+from .fused_conv_gn import fused_conv1d_gn_mish_reference, recompute_grads, refuse_grad
 
 
 def fused_rtb_reference(
@@ -79,6 +87,8 @@ def fused_rtb(
     if wres is not None:
         shapes.update(wres=(wres, (C, O)), bres=(bres, vec))
     _build.check_inputs("fused_rtb", x.device, **shapes)
+    refuse_grad("fused_rtb", "fused_rtb_differentiable", x, temb, w1, b1, gs1, gb1, w2, b2,
+                gs2, gb2, wres, bres)
     if x.device.type == "cpu":
         return fused_rtb_reference(
             x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, eps
@@ -99,3 +109,63 @@ def fused_rtb(
 
 
 fused_rtb.launches = 0  # kernel launches; the CPU path does not count
+
+
+class FusedRTB(torch.autograd.Function):
+    """``fused_rtb`` with a gradient: the kernel forward, a recompute backward.
+
+    ``backward`` runs ``fused_rtb_reference`` under autograd on the saved
+    inputs and returns the cotangents of all twelve tensor arguments (``None``
+    for an absent residual); it launches no kernel of its own. On CUDA
+    tensors ``FusedRTB.launches`` counts the forward's kernel launches and
+    ``FusedRTB.backwards`` the backward passes; the CPU path counts neither.
+    """
+
+    launches = 0
+    backwards = 0
+
+    @staticmethod
+    def forward(ctx, x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, eps):
+        ctx.save_for_backward(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres)
+        ctx.groups, ctx.eps = groups, eps
+        out = fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, eps)
+        if x.device.type == "cuda":
+            FusedRTB.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = recompute_grads(
+            lambda *a: fused_rtb_reference(*a, ctx.groups, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:12], g,
+        )
+        if g.device.type == "cuda":
+            FusedRTB.backwards += 1
+        return (*grads, None, None)
+
+
+def fused_rtb_differentiable(
+    x: torch.Tensor,
+    temb: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    gs1: torch.Tensor,
+    gb1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    gs2: torch.Tensor,
+    gb2: torch.Tensor,
+    wres: torch.Tensor | None = None,
+    bres: torch.Tensor | None = None,
+    groups: int = 8,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """``fused_rtb`` that autograd can differentiate (through ``FusedRTB``).
+
+    Without a gradient to compute (under ``torch.no_grad()``, or no input
+    requires one) it is exactly ``fused_rtb``: one launch, nothing saved.
+    """
+    args = (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return FusedRTB.apply(*args, groups, eps)
+    return fused_rtb(*args, groups, eps)

@@ -1,5 +1,5 @@
 from .compose import EpsModel, make_composed_eps_model, pair_indices, resolve_fold_chunks, window_coverage
-from .diffusion1d import Diffusion1DConfig, sample, sample_total_steps
+from .diffusion1d import Diffusion1DConfig, p_losses, sample, sample_total_steps
 from .guidance import (
     confidence_interval_95,
     get_design_fn,
@@ -18,6 +18,7 @@ __all__ = [
     "get_eval_fn",
     "get_eval_fn_per_sample",
     "make_composed_eps_model",
+    "p_losses",
     "p_sample_loop",
     "p_sample_step",
     "pair_indices",

@@ -1,7 +1,6 @@
-"""Trajectory diffusion config and the sampling dispatcher.
+"""Trajectory diffusion config, the training loss and the sampling dispatcher.
 
-Port of ``cindm_tpu/sampling/diffusion1d.py`` (sampling side; the training
-loss ``p_losses`` comes with the training slice).
+Port of ``cindm_tpu/sampling/diffusion1d.py``.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from ..core import diffusion as dd
 from ..core.schedules import DiffusionSchedule, make_schedule
 from .compose import EpsModel, make_composed_eps_model
 from .sampler import GuidanceSpec, Randn, ddim_sample_loop, p_sample_loop
@@ -38,6 +38,54 @@ class Diffusion1DConfig:
 
     def make_schedule(self, device: str | torch.device = "cuda") -> DiffusionSchedule:
         return make_schedule(self.timesteps, self.beta_schedule, device=device)
+
+
+def p_losses(
+    cfg: Diffusion1DConfig,
+    sched: DiffusionSchedule,
+    eps_model: EpsModel,
+    x_start: torch.Tensor,  # [B, rollout_steps, F]
+    cond: Optional[torch.Tensor],  # [B, conditioned_steps, F] or None
+    *,
+    t: Optional[torch.Tensor] = None,  # [B] timesteps
+    noise: Optional[torch.Tensor] = None,  # like x_start
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Training loss.
+
+    Draws t ~ U[0, T) and standard normal noise (from ``generator``) unless
+    they are given, diffuses the rollout part, concatenates the clean cond on
+    the time axis, predicts noise over the full horizon with a zero-noise
+    target on the cond steps, and applies the discounted per-step weights.
+    """
+    B, R, F = x_start.shape
+    dev = x_start.device
+    if t is None:
+        t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=dev, dtype=x_start.dtype)
+    x = dd.q_sample(sched, x_start, t, noise)
+    x_start_full = x_start
+    if cfg.conditioned_steps != 0:
+        if cond is None or cond.shape[1] != cfg.conditioned_steps:
+            raise ValueError(f"p_losses: cond must have {cfg.conditioned_steps} steps")
+        x = torch.cat([cond, x], dim=1)
+        target_noise = torch.cat([torch.zeros_like(cond), noise], dim=1)
+        # pred_x0 / pred_v targets span the full horizon: the clean cond is
+        # the x0 target on the cond steps, matching the zero-noise target
+        x_start_full = torch.cat([cond, x_start], dim=1)
+    else:
+        target_noise = noise
+    model_out = eps_model(x, t)
+    if cfg.loss_type == "loss_type3":
+        from ..utils.extras import custom_l1_speed_loss
+
+        return custom_l1_speed_loss(model_out, target_noise)
+    weight = dd.rollout_loss_weight(cfg.conditioned_steps, R, F, cfg.loss_weight_discount, dev)
+    return dd.diffusion_loss(
+        sched, model_out, x_start_full, target_noise, t,
+        objective=cfg.objective, loss_type=cfg.loss_type, loss_weight=weight,
+    )
 
 
 def sample_total_steps(

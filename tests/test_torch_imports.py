@@ -1,5 +1,5 @@
 """The port stands alone: no file of cindm_tpu_torch/ nor chip_smoke.py
-imports JAX, Flax, ml_dtypes or the JAX package, directly or through another
+imports JAX, Flax, optax, orbax, ml_dtypes or the JAX package, directly or through another
 module."""
 
 import ast
@@ -12,8 +12,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "cindm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN_TEXT = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport flax\b|ml_dtypes|\bcindm_tpu\.")
-FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "ml_dtypes", "cindm_tpu")
+FORBIDDEN_TEXT = re.compile(r"\b(import|from) (jax|flax|optax|orbax)\b|ml_dtypes|\bcindm_tpu\.")
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "cindm_tpu")
 
 
 def test_port_has_files():
