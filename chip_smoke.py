@@ -9,11 +9,15 @@ composes. Eight phases; each prints one JSON line with its elapsed seconds
 after a ``torch.cuda.synchronize()``:
 
 1. device:   the card's name and nvidia-smi's name and power limit; TF32 off.
-2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``.
+2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
+             ptxas's register/spill lines and the tensor-core (HGMMA)
+             instructions cuobjdump finds in each kernel.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4), then timed with CUDA
-             events beside its bound on an H100.
+             events beside two bounds on an H100: fp32 on the CUDA cores
+             (``bound_ms``) and the kernels' own 3xTF32 on the tensor cores
+             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s).
 4. denoiser: the full-width TemporalUnet1D (dim 64, horizon 24) with seeded
              random weights, kernel path against plain path at batch 5,376.
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
@@ -54,9 +58,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3.
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
+# on the tensor cores (dense), HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+TF32_PASSES = 3  # the kernels' 3xTF32: every product is three tensor-core products
 
 FOLD_BATCH = 5376  # 3 windows x 28 body pairs x B=64: one composed denoiser call
 K = 5
@@ -123,9 +130,16 @@ def time_pair(torch, plain, kernel, reps: int = 10) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bounds(flops: float, nbytes: float) -> dict:
+    """The fp32 bound and the 3xTF32 tensor-core bound of one kernel call."""
+    fp32_ms, fp32_by = bound(flops, nbytes)
+    tc_ms, tc_by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+    return dict(bound_ms=fp32_ms, bound_by=fp32_by, bound_tc_ms=tc_ms, bound_tc_by=tc_by)
 
 
 def valid_taps(T: int, k: int) -> int:
@@ -180,10 +194,8 @@ def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
         taps = valid_taps(T, K)
         macs = batch * (taps * C * O + taps * O * O + (T * C * O if C != O else 0))
         nbytes = 4 * (x.numel() + temb.numel() + sum(v.numel() for v in p.values()) + batch * T * O)
-        bound_ms, bound_by = bound(2 * macs, nbytes)
         rtb_rows.append(dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                             kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by))
+                             kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes)))
         del x, temb, p, got, want
     C, O, T = HEAD_SHAPE
     x = torch.randn((batch, T, C), generator=g, device=dev)
@@ -197,10 +209,9 @@ def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
         lambda: fused_conv1d_gn_mish(*args),
     ) if cuda else (None, None)
     nbytes = 4 * (x.numel() + sum(a.numel() for a in args[1:]) + batch * T * O)
-    bound_ms, bound_by = bound(2 * batch * valid_taps(T, K) * C * O, nbytes)
     head_rows.append(dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                          kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by))
+                          kernel_ms=kernel_ms, plain_ms=plain_ms,
+                          **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes)))
     bad = [r for r in rtb_rows + head_rows if not (r["max_abs_err"] <= TOL and r["max_rel_err"] <= TOL)]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
@@ -506,8 +517,7 @@ def kernels_line(checks: dict, counts: dict) -> dict:
     out = []
     for name, rows in checks.items():
         source, replaces = meta[name]
-        bound_ms = sum(r["bound_ms"] for r in rows)
-        by = {r["bound_by"] for r in rows}
+        by = {r["bound_tc_by"] for r in rows}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],
@@ -516,8 +526,11 @@ def kernels_line(checks: dict, counts: dict) -> dict:
             # one denoiser forward's worth: the sum over this kernel's shapes
             "ms": sum(r["kernel_ms"] or 0.0 for r in rows),
             "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
-            "bound_ms": bound_ms,
+            # the kernels run 3xTF32 on the tensor cores: their operations at
+            # TF32's peak; the fp32 bound of the CUDA cores beside it
+            "bound_ms": sum(r["bound_tc_ms"] for r in rows),
             "bound_by": by.pop() if len(by) == 1 else "operations",
+            "bound_fp32_ms": sum(r["bound_ms"] for r in rows),
             "library_ms": None,
             "shapes": rows,
         })
@@ -579,9 +592,12 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     t0 = time.perf_counter()
     if cuda:
         _build.load()
+    # "ptxas": the stage kernel's registers, spills and ptxas's notes (-Xptxas -v);
+    # "sass_hgmma": its tensor-core (wgmma) instructions per kernel, from cuobjdump
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
-          "ptxas": _build.ptxas_report().splitlines() if cuda else []})
+          "ptxas": _build.ptxas_report().splitlines() if cuda else [],
+          "sass_hgmma": _build.sass_mma_counts() if cuda else "not measured"})
 
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, fold_batch, cuda)

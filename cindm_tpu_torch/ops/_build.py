@@ -12,18 +12,22 @@ temporary directory and moves the finished library into place with one
 atomic rename: no lock file exists that a cut-off build could leave behind.
 
 Nothing here runs at import: ``load()`` is called by the wrappers on their
-first CUDA launch, so CPU-only hosts import every module.
+first CUDA launch, so CPU-only hosts import every module. ``plan_stage``
+chooses the tile of each launch of the stage kernel in Python, where the
+CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -35,15 +39,87 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
-    # x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, out,
-    # B, T, C, O, K, G, eps, stream
-    "cindm_fused_rtb": [_P] * 13 + [_I] * 6 + [_F, _P],
-    # x, w, b, gs, gb, out, B, T, C, O, K, G, eps, stream
-    "cindm_fused_conv1d_gn_mish": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, scratch,
+    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, smem_conv1, smem_conv2, stream
+    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # x, w, b, gs, gb, out, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples,
+    # n_tile, smem, stream
+    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 3 + [_P],
 }
+
+# The tile of the implicit-GEMM stage (csrc/conv_gn_mish.cuh); these mirror
+# its constants and stage_smem_bytes(), and the launch refuses a plan whose
+# shared-memory bytes differ from its own count.
+TILE_ROWS = 192  # M: three warpgroups x 64 rows, whole samples only
+CONV_K = 5  # the stage's conv width (the projection is its K = 1 case)
+CHUNK = 8  # input channels per ring stage
+X_STRIDE = CHUNK + 4  # floats per staged input row
+X_STAGES = 4  # input stages in the ring, beside two weight stages
+SBO_BYTES = 256  # bytes between n8 blocks of a staged weight plane
+SMEM_MAX = 232448  # the H100's dynamic shared memory per block
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class StagePlan:
+    """The tile of one stage launch: ``samples`` whole samples (``samples * T``
+    of the 192 rows) by ``n_tile`` output channels, which hold whole
+    GroupNorm groups; ``smem_bytes`` of dynamic shared memory (a ring of
+    X_STAGES input and two weight stages, the tile, the statistics);
+    ``grid`` = (row tiles, channel tiles)."""
+
+    samples: int
+    n_tile: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+    def weight_bytes(self, C: int, K: int = CONV_K) -> int:
+        """Bytes of weights [K, C, O] laid out for this tile: per N tile and
+        chunk of input channels, the K taps' tf32 big and small planes."""
+        return self.grid[1] * -(-C // CHUNK) * 2 * K * (self.n_tile // 8) * SBO_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bool = False,
+               num_sms: int = H100_SMS) -> StagePlan:
+    """Tile plan for a Conv1d+GN+Mish stage over x [B, T, C] -> [B, T, O].
+
+    The N tile is 64 channels for O <= 64, else 128 when 128 holds whole
+    groups, falling back to 64 when 128 leaves SMs without a block or does
+    not hold whole groups. ``proj`` adds the tile that the 1x1 residual
+    projection needs while it reuses the ring."""
+    if K != CONV_K:
+        raise ValueError(f"the CUDA stage kernel takes K={CONV_K}, got K={K}")
+    if T > TILE_ROWS:
+        raise ValueError(f"the CUDA stage kernel takes T <= {TILE_ROWS}, got T={T}")
+    if O % G:
+        raise ValueError(f"O={O} not divisible by groups={G}")
+    og = O // G
+    fits = [nt for nt in (64, 128) if O <= nt or nt % og == 0]
+    if not fits:
+        raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
+    samples = TILE_ROWS // T
+    rows_tiles = -(-B // samples)
+
+    def smem(nt: int) -> int:
+        ring = X_STAGES * TILE_ROWS * X_STRIDE * 4 + 2 * 2 * CONV_K * (nt // 8) * SBO_BYTES
+        tile = TILE_ROWS * (nt + 4) * 4
+        stats = 2 * samples * (min(O, nt) // og) * 4
+        return max(ring, tile) + (tile if proj else 0) + stats + 16  # + two mbarriers
+
+    n_tile = 64 if O <= 64 or 128 not in fits else 128
+    if n_tile == 128 and 64 in fits and (rows_tiles * -(-O // 128) < num_sms
+                                         or smem(128) > SMEM_MAX):
+        n_tile = 64
+    plan = StagePlan(samples, n_tile, smem(n_tile), (rows_tiles, -(-O // n_tile)))
+    if plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"no tile of T={T} fits the shared memory of one block: {plan}")
+    assert samples >= 1 and samples * T <= TILE_ROWS, plan
+    assert O <= n_tile or n_tile % og == 0, plan
+    return plan
 
 _lib = None
 build_seconds = None  # wall time of the build done by this process, None if cached
@@ -61,12 +137,20 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str | None:
+    """A CUDA toolkit program on PATH or under $CUDA_HOME/bin (default /usr/local/cuda)."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin (default /usr/local/cuda)")
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = _cuda_tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin (default /usr/local/cuda)")
+    return nvcc
 
 
 def build() -> Path:
@@ -129,12 +213,33 @@ def load() -> ctypes.CDLL:
 
 
 def ptxas_report() -> str:
-    """Register / shared-memory / spill lines from the last build's log."""
+    """Register / shared-memory / spill lines (and ptxas's performance notes)
+    from the last build's log."""
     log = BUILD_ROOT / source_hash() / "build.log"
     if not log.exists():
         return ""
-    keep = ("Compiling entry", "registers", "spill")
+    keep = ("Compiling entry", "registers", "spill", "Performance")
     return "\n".join(l for l in log.read_text().splitlines() if any(k in l for k in keep))
+
+
+def sass_mma_counts() -> dict[str, int] | str:
+    """Tensor-core instructions (HGMMA: wgmma) per kernel in the built
+    library's SASS, as ``cuobjdump -sass`` lists them."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return "not measured: no cuobjdump"
+    out = subprocess.run([tool, "-sass", str(build())], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode:
+        return f"not measured: cuobjdump failed ({out.stderr.strip()[:200]})"
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def check_inputs(kernel: str, device: torch.device, **tensors) -> None:
@@ -152,10 +257,27 @@ def check_inputs(kernel: str, device: torch.device, **tensors) -> None:
 
 def check_channels(kernel: str, **channels: int) -> None:
     """Raise unless every channel count is a multiple of 4: the kernels read
-    rows of their inputs as float4."""
+    rows of their inputs and weights in 16-byte pieces."""
     for name, n in channels.items():
         if n % 4:
             raise ValueError(f"{kernel}: {name}={n} must be a multiple of 4 on CUDA")
+
+
+def check_aligned(kernel: str, **tensors: torch.Tensor | None) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (16-byte reads)."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def scratch(nbytes: int, device: torch.device) -> torch.Tensor:
+    """Device scratch for the weights a launch lays out (``nbytes``, a multiple of 16)."""
+    return torch.empty(nbytes // 4, dtype=torch.int32, device=device)
 
 
 def stream_of(t: torch.Tensor) -> int:

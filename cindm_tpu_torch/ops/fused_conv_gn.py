@@ -1,10 +1,12 @@
 """Fused Conv1d + GroupNorm + Mish (the Conv1dBlock body).
 
 Port of ``cindm_tpu/ops/fused_conv_gn.py``. ``fused_conv1d_gn_mish`` launches
-the hand-written CUDA kernel in ``csrc/fused_conv_gn.cu`` for CUDA tensors and
-uses ``fused_conv1d_gn_mish_reference`` for CPU tensors. Layout is
-channel-last: x [B, T, C], w [K, C, O] (the JAX package's layout, which the
-kernel reads directly), out [B, T, O].
+the hand-written CUDA kernel in ``csrc/fused_conv_gn.cu`` (one launch of the
+3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh``, tiled by
+``_build.plan_stage``) for CUDA tensors and uses
+``fused_conv1d_gn_mish_reference`` for CPU tensors. Layout is channel-last:
+x [B, T, C], w [K, C, O] (the JAX package's layout, which the kernel reads
+directly), out [B, T, O]. On CUDA, C and O must be multiples of 4 and K = 5.
 
 The kernel's output has no autograd history, so ``fused_conv1d_gn_mish``
 raises when a gradient is wanted; ``fused_conv1d_gn_mish_differentiable``
@@ -111,13 +113,17 @@ def fused_conv1d_gn_mish(
         return fused_conv1d_gn_mish_reference(x, w, b, gn_scale, gn_bias, groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv1d_gn_mish: unsupported device {x.device}")
-    _build.check_channels("fused_conv1d_gn_mish", C=C)
+    _build.check_channels("fused_conv1d_gn_mish", C=C, O=O)
+    _build.check_aligned("fused_conv1d_gn_mish", x=x, w=w, gn_scale=gn_scale, gn_bias=gn_bias)
+    plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=_build.num_sms(x.device))
     lib = _build.load()
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    scratch = _build.scratch(plan.weight_bytes(C), x.device)
     with torch.cuda.device(x.device):
         err = lib.cindm_fused_conv1d_gn_mish(
-            *map(_build.ptr, (x, w, b, gn_scale, gn_bias, out)),
-            B, T, C, O, K, groups, eps, _build.stream_of(x),
+            *map(_build.ptr, (x, w, b, gn_scale, gn_bias, out, scratch)),
+            scratch.numel() * 4, B, T, C, O, K, groups, eps, plan.samples, plan.n_tile,
+            plan.smem_bytes, _build.stream_of(x),
         )
     _build.raise_on_error("fused_conv1d_gn_mish", err)
     fused_conv1d_gn_mish.launches += 1

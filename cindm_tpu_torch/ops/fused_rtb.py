@@ -7,8 +7,11 @@ Port of ``cindm_tpu/ops/fused_rtb.py``: the whole block
     h   = Mish(GN(conv5(h) + b2))
     out = h + (x @ wres + bres | x)
 
-in one launch of ``csrc/fused_rtb.cu`` for CUDA tensors, so neither
-intermediate nor the residual goes back to device memory. CPU tensors use
+in one call of ``csrc/fused_rtb.cu`` for CUDA tensors: two launches of the
+3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh`` (tiled by
+``_build.plan_stage``), the first writing h [B, T, O] to device memory once
+and the second reading it, with the 1x1 residual projection inside the
+second. ``fused_rtb.launches`` counts calls. CPU tensors use
 ``fused_rtb_reference``.
 
 ``fused_rtb`` itself has no autograd history: it raises when a gradient is
@@ -96,19 +99,30 @@ def fused_rtb(
     if x.device.type != "cuda":
         raise ValueError(f"fused_rtb: unsupported device {x.device}")
     _build.check_channels("fused_rtb", C=C, O=O)
+    _build.check_aligned("fused_rtb", x=x, temb=temb, w1=w1, w2=w2, wres=wres, gs1=gs1,
+                         gb1=gb1, gs2=gs2, gb2=gb2)
+    sms = _build.num_sms(x.device)
+    plan1 = _build.plan_stage(B, T, C, O, groups, K, num_sms=sms)
+    plan2 = _build.plan_stage(B, T, O, O, groups, K, proj=wres is not None, num_sms=sms)
     lib = _build.load()
+    h = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    nbytes = plan1.weight_bytes(C) + plan1.weight_bytes(O) + (
+        plan1.weight_bytes(C, K=1) if wres is not None else 0)
+    scratch = _build.scratch(nbytes, x.device)
     with torch.cuda.device(x.device):
         err = lib.cindm_fused_rtb(
-            *map(_build.ptr, (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, out)),
-            B, T, C, O, K, groups, eps, _build.stream_of(x),
+            *map(_build.ptr, (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out,
+                              scratch)),
+            scratch.numel() * 4, B, T, C, O, K, groups, eps, plan1.samples, plan1.n_tile,
+            plan1.smem_bytes, plan2.smem_bytes, _build.stream_of(x),
         )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1
     return out
 
 
-fused_rtb.launches = 0  # kernel launches; the CPU path does not count
+fused_rtb.launches = 0  # kernel calls (two stage launches each); the CPU path does not count
 
 
 class FusedRTB(torch.autograd.Function):

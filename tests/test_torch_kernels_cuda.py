@@ -81,10 +81,32 @@ def test_fused_conv1d_gn_mish_kernel_matches_plain(dev, C, O, T):
 
 @pytest.mark.parametrize("C,O,T", [(512, 512, 3), (256, 128, 6), (64, 64, 24)], ids=lambda v: str(v))
 def test_fused_rtb_small_batch_matches_plain(dev, C, O, T):
-    """Two samples: at T=3 and T=6 the tile is shorter than a register pass,
-    so the kernel takes its any-length conv path; at T=24 the fixed one."""
+    """Two samples: a tile of 192 rows holds 2 of its 192/T samples, and
+    every other row of the tile is absent."""
     a = _args(C, O, 2, T, dev, seed=C + T)
     torch.testing.assert_close(fused_rtb(**a), fused_rtb_reference(**a), **TOL)
+
+
+# per flagship T, a block with the identity residual and one with the 1x1
+# projection; ragged batches leave the last tile of 192/T samples partly empty
+RAGGED_SHAPES = [(512, 512, 3), (1024, 512, 3), (256, 256, 6), (128, 256, 6),
+                 (128, 128, 12), (64, 128, 12), (64, 64, 24), (8, 64, 24)]
+
+
+@pytest.mark.parametrize("B", [1, 5, 500, 5375], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,O,T", RAGGED_SHAPES, ids=lambda v: str(v))
+def test_fused_rtb_ragged_batch_matches_plain(dev, C, O, T, B):
+    a = _args(C, O, B, T, dev, seed=C + O + T + B)
+    torch.testing.assert_close(fused_rtb(**a), fused_rtb_reference(**a), **TOL)
+
+
+@pytest.mark.parametrize("B", [1, 5, 500, 5375], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,O,T", RAGGED_SHAPES, ids=lambda v: str(v))
+def test_fused_conv1d_gn_mish_ragged_batch_matches_plain(dev, C, O, T, B):
+    a = _args(C, O, B, T, dev, seed=C * O + T + B)
+    args = (a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
+    torch.testing.assert_close(fused_conv1d_gn_mish(*args), fused_conv1d_gn_mish_reference(*args),
+                               **TOL)
 
 
 def test_kernels_reject_mixed_devices(dev):
@@ -99,6 +121,15 @@ def test_kernels_reject_channels_not_a_multiple_of_4(dev):
     with pytest.raises(ValueError, match="C=6"):
         fused_rtb(**a)
     with pytest.raises(ValueError, match="C=6"):
+        fused_conv1d_gn_mish(a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
+
+
+def test_kernels_reject_misaligned_inputs(dev):
+    a = _args(16, 32, 3, 6, dev, seed=3)
+    a["x"] = torch.empty(a["x"].numel() + 1, device=dev)[1:].view(a["x"].shape).copy_(a["x"])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_rtb(**a)
+    with pytest.raises(ValueError, match="16-byte boundary"):
         fused_conv1d_gn_mish(a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
 
 

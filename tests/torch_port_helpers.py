@@ -78,3 +78,39 @@ def write_traj_cache(path, n_sims=4, n_steps=800, n_bodies=2, seed=0):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.save(path, np.concatenate([pos, vel], -1).astype(np.float32))
     return path
+
+
+def tf32_rna(a):
+    """float32 -> float32 rounded to tf32 (10 mantissa bits, the low 13 bits
+    zero) to nearest with ties away from zero, as cvt.rna.tf32.f32 and the
+    CUDA stage kernel round: ±inf stay, the largest floats round to ±inf, a
+    NaN becomes the canonical NaN 0x7FFFFFFF."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    u = a.view(np.uint32).astype(np.uint64)
+    r = ((u + 0x1000) & 0xFFFFE000).astype(np.uint32)
+    r[np.isnan(a)] = 0x7FFFFFFF
+    return r.view(np.float32)
+
+
+def tf32_split(a):
+    """(big, small) with big = tf32_rna(a) and small = tf32_rna(a - big)."""
+    a = np.asarray(a, dtype=np.float32)
+    big = tf32_rna(a)
+    return big, tf32_rna(a - big)
+
+
+def conv_gn_mish_3xtf32(x, w, b, gs, gb, groups=8, eps=1e-5, passes=3):
+    """The CUDA stage kernel's arithmetic in plain torch on the CPU:
+    Conv1d(pad K//2) with every product a*w taken as small(a)*big(w) +
+    big(a)*small(w) + big(a)*big(w) (passes=3; passes=1 keeps big*big only,
+    single-pass TF32), each tf32 x tf32 product exact in fp32 as in the
+    tensor cores, then GroupNorm in fp32 and Mish. numpy in, torch out."""
+    from cindm_tpu_torch.ops.fused_conv_gn import conv1d_same, group_norm, mish
+
+    (xb, xs), (wb, ws) = tf32_split(x), tf32_split(w)
+    t = torch.from_numpy
+    y = conv1d_same(t(xb), t(wb), None)
+    if passes == 3:
+        y = conv1d_same(t(xs), t(wb), None) + conv1d_same(t(xb), t(ws), None) + y
+    return mish(group_norm(y + t(np.asarray(b, np.float32)), t(np.asarray(gs, np.float32)),
+                           t(np.asarray(gb, np.float32)), groups, eps))
