@@ -23,10 +23,17 @@ after a ``torch.cuda.synchronize()``:
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot.
-6. grad:     the 16 blocks' autograd Function (``FusedRTB``: kernel forward,
-             recompute backward) and the head's against plain autograd at
-             batch 512, timed; then one ``p_losses`` gradient of the
-             full-width denoiser at batch 512, kernel path against plain path
+6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
+             saving forward, the backward kernel on what it saved) and the
+             head's against plain autograd at batch 512 (entries beyond
+             rtol = atol = 1e-4 counted per cotangent), timed with CUDA
+             events beside the card's own time and the host's time to
+             issue one; each backward kernel alone against its plain
+             closed form on the same saved tensors (every cotangent's max
+             |d| <= 1e-4 of its max |plain|), both timed beside the
+             backward's bounds (3xTF32 and fp32, twice the forward's
+             FLOP); then one ``p_losses`` gradient of the full-width
+             denoiser at batch 512, kernel path against plain path
              (every parameter's max |dg| / max |g_plain| <= 1e-3), its launch
              counts, and one whole optimizer step timed on each path.
 7. train:    ``cindm_tpu_torch.cli.train_1d`` at the configuration that
@@ -130,6 +137,20 @@ def time_pair(torch, plain, kernel, reps: int = 10) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def host_ms(torch, fn, reps: int = 10) -> float:
+    """Host ms to issue one call of ``fn``: the clock stops when the last of
+    ``reps`` calls returns, before the card is waited for. Where it nears
+    the same call's CUDA-event time, the host bounds the call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -219,23 +240,31 @@ def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
 
 
 def reset_counts():
-    from cindm_tpu_torch.ops import FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish, fused_rtb
+    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
+                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
 
     fused_rtb.launches = 0
     fused_conv1d_gn_mish.launches = 0
+    fused_rtb_backward.launches = 0
+    fused_conv1d_gn_mish_backward.launches = 0
     FusedRTB.launches = 0
     FusedRTB.backwards = 0
+    FusedConv1dGNMish.launches = 0
     FusedConv1dGNMish.backwards = 0
 
 
 def read_counts(backwards: bool = False) -> dict:
-    from cindm_tpu_torch.ops import FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish, fused_rtb
+    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
+                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
 
     counts = {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches}
     if backwards:
         counts.update(FusedRTB_launches=FusedRTB.launches,
                       FusedRTB_backward_passes=FusedRTB.backwards,
-                      FusedConv1dGNMish_backward_passes=FusedConv1dGNMish.backwards)
+                      FusedConv1dGNMish_launches=FusedConv1dGNMish.launches,
+                      FusedConv1dGNMish_backward_passes=FusedConv1dGNMish.backwards,
+                      fused_rtb_backward=fused_rtb_backward.launches,
+                      fused_conv1d_gn_mish_backward=fused_conv1d_gn_mish_backward.launches)
     return counts
 
 
@@ -301,15 +330,23 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
 
 
 def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
-    """Phase 6a: the blocks' autograd Functions against plain autograd."""
+    """Phase 6a: the blocks' autograd Functions against plain autograd, and
+    each backward kernel alone against its plain closed form."""
     from cindm_tpu_torch.ops import (
+        fused_conv1d_gn_mish_backward,
+        fused_conv1d_gn_mish_backward_reference,
         fused_conv1d_gn_mish_differentiable,
         fused_conv1d_gn_mish_reference,
+        fused_rtb_backward,
+        fused_rtb_backward_reference,
         fused_rtb_differentiable,
         fused_rtb_reference,
     )
+    from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
+    from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
 
     g = torch.Generator(device=dev).manual_seed(4321)
+    rtb_names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
 
     def fwd_bwd(fn, a, cot):
         ts = {k: v.detach().requires_grad_(True) for k, v in a.items()}
@@ -323,15 +360,59 @@ def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
                       for x, y in zip(got, want))
         if not all(bool(torch.isfinite(x).all()) for x in got):
             raise AssertionError("Function output or gradient is not finite")
+        # entries beyond rtol = atol = TOL, for the output and each cotangent
+        beyond = {n: int(((x - y).abs() > TOL + TOL * y.abs()).sum())
+                  for n, x, y in zip(["out", *a], got, want)}
         plain_ms, kernel_ms = time_pair(
             torch, lambda: fwd_bwd(plain, a, cot), lambda: fwd_bwd(kernel, a, cot)
         ) if cuda else (None, None)
+        # the card's own time in one fwd+bwd (torch.profiler): what is left
+        # of kernel_ms is the host's
+        busy = (device_busy(torch, lambda: fwd_bwd(kernel, a, cot), kernel_ms)["busy_ms"]
+                if cuda else None)
+        device_ms = busy if isinstance(busy, float) else None  # None: the trace saw no device
+        host = host_ms(torch, lambda: fwd_bwd(kernel, a, cot)) if cuda else None
         # forward + backward: each input and the cotangent read once, the
         # output and each input's gradient written once; 3x the forward's FLOP
         n_in = sum(v.numel() for v in a.values())
-        bound_ms, bound_by = bound(3 * 2 * macs, 4 * (2 * n_in + 2 * cot.numel()))
-        return dict(max_abs_err=abs_err, max_rel_err=rel_err, kernel_ms=kernel_ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        nbytes = 4 * (2 * n_in + 2 * cot.numel())
+        bound_ms, bound_by = bound(3 * 2 * macs, nbytes)
+        tc_ms, tc_by = bound(TF32_PASSES * 3 * 2 * macs, nbytes, PEAK_TF32_FLOPS)
+        return dict(max_abs_err=abs_err, max_rel_err=rel_err, entries_beyond_tol=beyond,
+                    kernel_ms=kernel_ms,
+                    plain_ms=plain_ms, device_ms=device_ms, host_ms=host, bound_ms=bound_ms,
+                    bound_by=bound_by,
+                    bound_tc_ms=tc_ms, bound_tc_by=tc_by)
+
+    def backward_alone(kernel, plain, saved, cot, needs, macs):
+        """The backward kernel and its plain closed form on the same saved
+        tensors: every cotangent within TOL of the plain one's largest
+        entry; both timed; the backward's bounds (twice the forward's FLOP;
+        the saved tensors and the cotangent read once, the gradients written
+        once)."""
+        if not cuda:  # a CPU rehearsal has no backward kernel: the plain version stands in
+            kernel = plain
+        got, want = kernel(saved, cot, needs), plain(saved, cot, needs)
+        errs = []
+        for x, y in zip(got, want):
+            if y is None:
+                continue
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError("backward kernel gradient is not finite")
+            d = float((x - y).abs().max())
+            errs.append((d, d / max(float(y.abs().max()), 1e-30)))
+        plain_ms, kernel_ms = time_pair(
+            torch, lambda: plain(saved, cot, needs), lambda: kernel(saved, cot, needs)
+        ) if cuda else (None, None)
+        nbytes = 4 * (sum(t.numel() for t in saved if t is not None) + cot.numel()
+                      + sum(t.numel() for t in want if t is not None))
+        bound_ms, bound_by = bound(2 * 2 * macs, nbytes)
+        tc_ms, tc_by = bound(TF32_PASSES * 2 * 2 * macs, nbytes, PEAK_TF32_FLOPS)
+        return dict(backward_max_abs_err=max(e[0] for e in errs),
+                    backward_max_rel_err=max(e[1] for e in errs),
+                    backward_ms=kernel_ms, backward_plain_ms=plain_ms,
+                    backward_bound_ms=tc_ms, backward_bound_by=tc_by,
+                    backward_bound_fp32_ms=bound_ms, backward_bound_fp32_by=bound_by)
 
     rtb_rows = []
     for C, O, T in RTB_SHAPES:
@@ -341,20 +422,34 @@ def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
         cot = torch.randn((batch, T, O), generator=g, device=dev)
         taps = valid_taps(T, K)
         macs = batch * (taps * C * O + taps * O * O + (T * C * O if C != O else 0))
-        rtb_rows.append(dict(C=C, O=O, T=T, B=batch, **one(
-            fused_rtb_differentiable, fused_rtb_reference, a, cot, macs)))
+        row = dict(C=C, O=O, T=T, B=batch, **one(
+            fused_rtb_differentiable, fused_rtb_reference, a, cot, macs))
+        args = [a.get(n) for n in rtb_names]
+        with torch.no_grad():
+            saved = args + list(_fused_rtb(*args, 8, 1e-5, save=True)[1:])
+            row.update(backward_alone(fused_rtb_backward, fused_rtb_backward_reference, saved, cot,
+                                      [True] * 10 + [C != O] * 2, macs))
+        rtb_rows.append(row)
+        del a, cot, args, saved
     C, O, T = HEAD_SHAPE
     p = rand_block_params(torch, g, C, O, dev, proj=False)
     a = dict(x=torch.randn((batch, T, C), generator=g, device=dev), w=p["w1"], b=p["b1"],
              gn_scale=p["gs1"], gn_bias=p["gb1"])
     cot = torch.randn((batch, T, O), generator=g, device=dev)
-    head = [dict(C=C, O=O, T=T, B=batch, **one(
-        fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference, a, cot,
-        batch * valid_taps(T, K) * C * O))]
-    bad = [r for r in rtb_rows + head if not r["max_rel_err"] <= TOL]
+    macs = batch * valid_taps(T, K) * C * O
+    head = dict(C=C, O=O, T=T, B=batch, **one(
+        fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference, a, cot, macs))
+    with torch.no_grad():
+        args = list(a.values())
+        saved = args + list(_conv_gn_mish(*args, 8, 1e-5, save=True)[1:])
+        head.update(backward_alone(fused_conv1d_gn_mish_backward,
+                                   fused_conv1d_gn_mish_backward_reference, saved, cot, [True] * 5,
+                                   macs))
+    bad = [r for r in rtb_rows + [head]
+           if not (r["max_rel_err"] <= TOL and r["backward_max_rel_err"] <= TOL)]
     if bad:
-        raise AssertionError(f"Function gradients disagree with plain autograd beyond {TOL}: {bad}")
-    return {"fused_rtb_differentiable": rtb_rows, "fused_conv1d_gn_mish_differentiable": head}
+        raise AssertionError(f"gradients disagree with plain autograd or the closed form beyond {TOL}: {bad}")
+    return {"fused_rtb_differentiable": rtb_rows, "fused_conv1d_gn_mish_differentiable": [head]}
 
 
 def check_grad(torch, dev, batch: int, model, cuda: bool) -> dict:
@@ -395,7 +490,9 @@ def check_grad(torch, dev, batch: int, model, cuda: bool) -> dict:
     if worst > GRAD_TOL:
         raise AssertionError(f"gradient of {worst_name}: {worst} > {GRAD_TOL} of the plain path's")
     want = {"fused_rtb": 16, "fused_conv1d_gn_mish": 1, "FusedRTB_launches": 16,
-            "FusedRTB_backward_passes": 16, "FusedConv1dGNMish_backward_passes": 1}
+            "FusedRTB_backward_passes": 16, "FusedConv1dGNMish_launches": 1,
+            "FusedConv1dGNMish_backward_passes": 1,
+            "fused_rtb_backward": 16, "fused_conv1d_gn_mish_backward": 1}
     if cuda and counts != want:
         raise AssertionError(f"one training micro-step should count {want}, counted {counts}")
     rec = {"batch": batch, "loss_kernel": loss_k, "loss_plain": loss_p,
@@ -492,12 +589,18 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             first["launches"] == {"fused_rtb": 16 * n_steps, "fused_conv1d_gn_mish": n_steps,
                                   "FusedRTB_launches": 16 * n_steps,
                                   "FusedRTB_backward_passes": 16 * n_steps,
-                                  "FusedConv1dGNMish_backward_passes": n_steps}
+                                  "FusedConv1dGNMish_launches": n_steps,
+                                  "FusedConv1dGNMish_backward_passes": n_steps,
+                                  "fused_rtb_backward": 16 * n_steps,
+                                  "fused_conv1d_gn_mish_backward": n_steps}
             and second["launches"] == {"fused_rtb": 16 * (n2 + eval_steps),
                                        "fused_conv1d_gn_mish": n2 + eval_steps,
                                        "FusedRTB_launches": 16 * n2,
                                        "FusedRTB_backward_passes": 16 * n2,
-                                       "FusedConv1dGNMish_backward_passes": n2})
+                                       "FusedConv1dGNMish_launches": n2,
+                                       "FusedConv1dGNMish_backward_passes": n2,
+                                       "fused_rtb_backward": 16 * n2,
+                                       "fused_conv1d_gn_mish_backward": n2})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train phase checks failed: {failed}; runs {runs}; "
@@ -537,31 +640,52 @@ def kernels_line(checks: dict, counts: dict) -> dict:
     return {"kernels": out}
 
 
-def vjp_entry(rows: list[dict], launches: int, backward_passes: int) -> dict:
-    """The fused-RTB VJP's entry: kernel forward plus recompute backward over
-    the 16 block shapes at the training batch. Only the forward is a
-    hand-written kernel: ``launches`` counts its launches through ``FusedRTB``
-    in the training phase; the backward is plain PyTorch (autograd through
-    ``fused_rtb_reference``), counted apart as ``backward_passes``."""
-    by = {r["bound_by"] for r in rows}
-    return {
-        "name": "fused_rtb_differentiable", "route": "cuda",
-        "route_detail": "cuda forward + torch backward",
-        "source": "cindm_tpu_torch/ops/fused_rtb.py",
-        "forward_source": "cindm_tpu_torch/ops/csrc/fused_rtb.cu",
-        "backward": "recompute of fused_rtb_reference under torch.autograd (no hand-written kernel)",
-        "replaces": "cindm_tpu/ops/fused_rtb.py:267",
-        "launches": launches,
-        "backward_passes": backward_passes,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_rel_err": max(r["max_rel_err"] for r in rows),
-        "ms": sum(r["kernel_ms"] or 0.0 for r in rows),
-        "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": by.pop() if len(by) == 1 else "operations",
-        "library_ms": None,
-        "shapes": rows,
-    }
+def vjp_entries(blocks: dict, counts: dict) -> list[dict]:
+    """The autograd Functions' entries: the saving kernel forward plus the
+    backward kernel, fwd+bwd over the 16 block shapes (and the head) at the
+    training batch. ``launches`` counts the forward calls through
+    ``FusedRTB`` in the training phase and ``backward_launches`` the
+    backward kernel's calls there; ``backward_ms`` is the backward kernel
+    alone, beside its bounds (3xTF32 and fp32)."""
+    meta = [
+        ("fused_rtb_differentiable", "cindm_tpu/ops/fused_rtb.py:267", "cindm_tpu_torch/ops/fused_rtb.py",
+         "cindm_tpu_torch/ops/csrc/fused_rtb.cu", "FusedRTB_launches", "fused_rtb_backward"),
+        ("fused_conv1d_gn_mish_differentiable",
+         "none: the JAX package never differentiates cindm_tpu/ops/fused_conv_gn.py:112",
+         "cindm_tpu_torch/ops/fused_conv_gn.py", "cindm_tpu_torch/ops/csrc/fused_conv_gn.cu",
+         "FusedConv1dGNMish_launches", "fused_conv1d_gn_mish_backward"),
+    ]
+    out = []
+    for name, replaces, source, fwd_source, fwd_key, bwd_key in meta:
+        rows = blocks[name]
+        by = {r["bound_tc_by"] for r in rows}
+        bwd_by = {r["backward_bound_by"] for r in rows}
+        total = lambda k: sum(r[k] or 0.0 for r in rows)
+        out.append({
+            "name": name, "route": "cuda",
+            "route_detail": "cuda forward + cuda backward",
+            "source": source, "forward_source": fwd_source,
+            "backward_source": ["cindm_tpu_torch/ops/csrc/block_backward.cu",
+                                "cindm_tpu_torch/ops/csrc/conv_backward.cuh"],
+            "replaces": replaces,
+            "launches": counts[fwd_key],
+            "backward_launches": counts[bwd_key],
+            "max_abs_err": max(max(r["max_abs_err"], r["backward_max_abs_err"]) for r in rows),
+            "max_rel_err": max(max(r["max_rel_err"], r["backward_max_rel_err"]) for r in rows),
+            # fwd+bwd through the Function, summed over the shapes
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_tc_ms"),
+            "bound_by": by.pop() if len(by) == 1 else "operations",
+            "bound_fp32_ms": total("bound_ms"),
+            # the backward kernel alone, on the forward's saved tensors
+            "backward_ms": total("backward_ms"), "backward_plain_ms": total("backward_plain_ms"),
+            "backward_bound_ms": total("backward_bound_ms"),
+            "backward_bound_by": bwd_by.pop() if len(bwd_by) == 1 else "operations",
+            "backward_bound_fp32_ms": total("backward_bound_fp32_ms"),
+            "library_ms": None,
+            "shapes": rows,
+        })
+    return out
 
 
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
@@ -626,6 +750,14 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
           "power_limit_line": info["smi"], "block_tolerance": TOL, **grad,
           "blocks_fwd_bwd_kernel_ms": sum(r["kernel_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
           "blocks_fwd_bwd_plain_ms": sum(r["plain_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
+          "blocks_fwd_bwd_device_ms": (
+              sum(r["device_ms"] for r in blocks["fused_rtb_differentiable"])
+              if all(r["device_ms"] is not None for r in blocks["fused_rtb_differentiable"])
+              else "not measured"),
+          "blocks_fwd_bwd_host_ms": sum(r["host_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
+          "blocks_backward_kernel_ms": sum(r["backward_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
+          "blocks_backward_plain_ms": sum(r["backward_plain_ms"] or 0.0
+                                          for r in blocks["fused_rtb_differentiable"]),
           **blocks})
 
     t0 = time.perf_counter()
@@ -637,10 +769,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     line = kernels_line(checks, des["launches"])
     for entry in line["kernels"]:
         entry["launches_train"] = first["launches"][entry["name"]] + second["launches"][entry["name"]]
-    line["kernels"].append(vjp_entry(
-        blocks["fused_rtb_differentiable"],
-        *(first["launches"][k] + second["launches"][k]
-          for k in ("FusedRTB_launches", "FusedRTB_backward_passes"))))
+    train_counts = {k: first["launches"][k] + second["launches"][k] for k in first["launches"]}
+    line["kernels"].extend(vjp_entries(blocks, train_counts))
     info["kernels"] = line
     return info
 

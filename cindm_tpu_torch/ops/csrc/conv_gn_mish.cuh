@@ -33,6 +33,11 @@
 // this one. Three warpgroups each own 64 rows of the tile and issue 5 (3 at
 // T <= 3) taps x 3 passes of wgmma m64nNk8 per chunk.
 //
+// The saving instance (Args = SaveArgs) is the forward of the autograd
+// Functions: it also stores z = conv + bias and each (sample, group)'s mean
+// and rstd, which conv_backward.cuh reads instead of recomputing the stage.
+// The plain instances (Args = StageArgs) compile without it.
+//
 // L2 traffic: every block reads its N tile's weights once per 192 rows,
 // about 8 GB per denoiser forward at batch 5,376 in fp32 terms (16 GB as
 // big/small pairs), where the CUDA-core kernel this replaces read them
@@ -43,6 +48,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace cindm {
 
@@ -103,6 +109,17 @@ struct StageArgs {
   int B, T, C, O, G, Cres;
   float eps;
   int samples;        // whole samples per tile (samples * T <= 192)
+};
+
+// The saving instance's arguments: what the backward (conv_backward.cuh)
+// reads instead of recomputing the stage, the conv output plus bias before
+// the GroupNorm and its per-(sample, group) mean and 1/sqrt(var + eps).
+// A type of its own, so that the plain instances keep StageArgs as their
+// only parameter and compile as before.
+struct SaveArgs : StageArgs {
+  float* z;     // [B, T, O]
+  float* mean;  // [B, G]
+  float* rstd;  // [B, G]
 };
 
 // Bytes of w [K][C][O] laid out by stage_weights for N tiles of nt.
@@ -441,8 +458,11 @@ __device__ void tile_stats(const float* tile, int ns, int T, int gpt, int og, fl
   }
 }
 
-template <int NT, int KW>
-__global__ void __launch_bounds__(kThreads, 1) conv_gn_mish_stage(const StageArgs a) {
+// Args = SaveArgs: the saving instance, which also writes z, mean and rstd
+// for the backward (conv_backward.cuh); with StageArgs it compiles without.
+template <int NT, int KW, class Args>
+__global__ void __launch_bounds__(kThreads, 1) conv_gn_mish_stage(const Args a) {
+  constexpr bool kSave = !std::is_same<Args, StageArgs>::value;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const int b0 = blockIdx.x * a.samples;
@@ -491,6 +511,20 @@ __global__ void __launch_bounds__(kThreads, 1) conv_gn_mish_stage(const StageArg
   }
   __syncthreads();
   tile_stats<NT>(tile, ns, a.T, gpt, og, a.eps, mean, rstd);
+  if constexpr (kSave) {
+    // z and the statistics, before the projection rewrites the tile
+    __syncthreads();
+    for (int p = threadIdx.x; p < ns * gpt; p += kThreads) {
+      const size_t gi = static_cast<size_t>(b0 + p / gpt) * a.G + n0 / og + p % gpt;
+      a.mean[gi] = mean[p];
+      a.rstd[gi] = rstd[p];
+    }
+    const int c = 4 * (threadIdx.x % (NT / 4));
+    if (c < ncols)
+      for (int r = threadIdx.x / (NT / 4); r < nrows; r += kThreads / (NT / 4))
+        *reinterpret_cast<float4*>(a.z + static_cast<size_t>(row0 + r) * a.O + n0 + c) =
+            *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
+  }
 
   if (proj) {
     // The 1x1 projection: a second GEMM over the same rows in the registers
@@ -570,23 +604,24 @@ cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, ui
   return cudaGetLastError();
 }
 
-template <int NT, int KW>
-cudaError_t launch_nt(const StageArgs& a, size_t bytes, cudaStream_t stream) {
+template <int NT, int KW, class Args>
+cudaError_t launch_nt(const Args& a, size_t bytes, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      conv_gn_mish_stage<NT, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_gn_mish_stage<NT, KW, Args>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + a.samples - 1) / a.samples, (a.O + NT - 1) / NT);
-  conv_gn_mish_stage<NT, KW><<<grid, kThreads, bytes, stream>>>(a);
+  conv_gn_mish_stage<NT, KW, Args><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // One stage: lay the weights out (stage_weights into a.ws, a.wress), then
 // launch the stage kernel with the planner's tile: `samples` whole samples
 // per block, an N tile of `nt` channels, `smem_bytes` of dynamic shared
-// memory. Refuses (cudaErrorInvalidValue) a plan that breaks the tiling's
-// rules.
-inline cudaError_t launch_stage(const StageArgs& a, int K, int nt, int smem_bytes, void* stream) {
+// memory. With SaveArgs it launches the saving instance. Refuses
+// (cudaErrorInvalidValue) a plan that breaks the tiling's rules.
+template <class Args>
+cudaError_t launch_stage(const Args& a, int K, int nt, int smem_bytes, void* stream) {
   const bool proj = a.wres != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || K != kConvK || (nt != 64 && nt != 128) ||

@@ -26,15 +26,22 @@
 // as big/small pairs). The 1x1 residual projection is a second GEMM over
 // the same rows inside the second launch, in the registers its conv
 // accumulator vacated.
+//
+// cindm_fused_rtb_saving is the forward of the autograd Function: the same
+// two launches through the stage's saving instance, which also writes what
+// the backward (block_backward.cu) reads instead of recomputing the block:
+// z1 and z2 [B, T, O], the conv outputs plus bias before each GroupNorm,
+// and both GroupNorms' mean and rstd [B, G]. h is kept too.
 #include "conv_gn_mish.cuh"
 
-extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w1,
-                               const float* b1, const float* gs1, const float* gb1,
-                               const float* w2, const float* b2, const float* gs2,
-                               const float* gb2, const float* wres, const float* bres, float* h,
-                               float* out, void* scratch, long long scratch_bytes, int B, int T,
-                               int C, int O, int K, int G, float eps, int samples, int nt,
-                               int smem1, int smem2, void* stream) {
+namespace {
+
+int fused_rtb(const float* x, const float* temb, const float* w1, const float* b1,
+              const float* gs1, const float* gb1, const float* w2, const float* b2,
+              const float* gs2, const float* gb2, const float* wres, const float* bres, float* h,
+              float* out, float* z1, float* z2, float* mean1, float* rstd1, float* mean2,
+              float* rstd2, void* scratch, long long scratch_bytes, int B, int T, int C, int O,
+              int K, int G, float eps, int samples, int nt, int smem1, int smem2, void* stream) {
   if ((wres == nullptr) != (bres == nullptr) || (wres == nullptr && C != O) || nt <= 0)
     return cudaErrorInvalidValue;
   // scratch: w1, w2 and wres laid out by stage_weights, one after another
@@ -43,16 +50,53 @@ extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w
   const size_t n3 = wres != nullptr ? cindm::staged_weight_bytes(nt, C, O, 1) : 0;
   if (static_cast<long long>(n1 + n2 + n3) > scratch_bytes) return cudaErrorInvalidValue;
   char* ws = static_cast<char*>(scratch);
-  cindm::StageArgs a{};
+  cindm::SaveArgs a{};
   a.x = x; a.w = w1; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.out = h;
   a.ws = reinterpret_cast<uint32_t*>(ws);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
-  const cudaError_t err = cindm::launch_stage(a, K, nt, smem1, stream);
-  if (err != cudaSuccess) return err;
-  cindm::StageArgs b = a;
+  a.z = z1; a.mean = mean1; a.rstd = rstd1;
+  cindm::SaveArgs b = a;
   b.x = h; b.w = w2; b.b = b2; b.gs = gs2; b.gb = gb2; b.temb = nullptr; b.out = out;
   b.ws = reinterpret_cast<uint32_t*>(ws + n1);
   b.C = O; b.xres = x; b.wres = wres; b.bres = bres; b.Cres = C;
   b.wress = wres != nullptr ? reinterpret_cast<uint32_t*>(ws + n1 + n2) : nullptr;
-  return cindm::launch_stage(b, K, nt, smem2, stream);
+  b.z = z2; b.mean = mean2; b.rstd = rstd2;
+  const bool save = z1 != nullptr;
+  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, stream)
+                         : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
+                                               smem1, stream);
+  if (err != cudaSuccess) return err;
+  return save ? cindm::launch_stage(b, K, nt, smem2, stream)
+              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, stream);
+}
+
+}  // namespace
+
+extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w1,
+                               const float* b1, const float* gs1, const float* gb1,
+                               const float* w2, const float* b2, const float* gs2,
+                               const float* gb2, const float* wres, const float* bres, float* h,
+                               float* out, void* scratch, long long scratch_bytes, int B, int T,
+                               int C, int O, int K, int G, float eps, int samples, int nt,
+                               int smem1, int smem2, void* stream) {
+  return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, scratch, scratch_bytes, B, T, C, O,
+                   K, G, eps, samples, nt, smem1, smem2, stream);
+}
+
+extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const float* w1,
+                                      const float* b1, const float* gs1, const float* gb1,
+                                      const float* w2, const float* b2, const float* gs2,
+                                      const float* gb2, const float* wres, const float* bres,
+                                      float* h, float* out, float* z1, float* z2, float* mean1,
+                                      float* rstd1, float* mean2, float* rstd2, void* scratch,
+                                      long long scratch_bytes, int B, int T, int C, int O, int K,
+                                      int G, float eps, int samples, int nt, int smem1, int smem2,
+                                      void* stream) {
+  if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
+      mean2 == nullptr || rstd2 == nullptr)
+    return cudaErrorInvalidValue;
+  return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, z1, z2, mean1,
+                   rstd1, mean2, rstd2, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples, nt,
+                   smem1, smem2, stream);
 }

@@ -155,3 +155,90 @@ def test_alignment_rule_of_the_kernels():
     _build.check_aligned("fused_rtb", x=base[:64], wres=None)
     with pytest.raises(ValueError, match="x must start on a 16-byte boundary"):
         _build.check_aligned("fused_rtb", x=base[1:])
+
+
+def _backward_plans():
+    for C, O, T in RTB_SHAPES:
+        for B in (1, 5, 500, 512, 5376):
+            yield C, O, T, B, True
+    for B in (1, 5, 500, 512, 5376):
+        yield (*HEAD_SHAPE, B, False)
+
+
+@pytest.mark.parametrize("C,O,T,B,rtb", list(_backward_plans()), ids=lambda v: str(v))
+def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
+    """Every launch of the backward (gn_mish_bwd, the dgrad of conv2 with the
+    first GroupNorm's backward, the dgrad to x, wgrad's split-K) tiles
+    whole samples, whole groups where a GroupNorm reduces, covers every row
+    tile once, and fits the H100's shared memory."""
+    G, og = 8, O // 8
+    plan = _build.plan_backward(B, T, C, O, G, proj=C != O, rtb=rtb)
+    assert plan.samples == 192 // T and plan.row_tiles == -(-B // plan.samples)
+    for nt, smem in ((plan.nt_gn, plan.smem_gn), (plan.nt_d1, plan.smem_d1)):
+        assert nt in (64, 128) and 0 < smem <= _build.SMEM_MAX == 232448
+    assert O <= plan.nt_gn or plan.nt_gn % og == 0
+    gpt = min(O, plan.nt_gn) // og
+    assert plan.smem_gn == 2 * 192 * (plan.nt_gn + 4) * 4 + 16 * plan.samples * gpt + 16
+    if rtb:
+        assert plan.nt_d2 in (64, 128) and (O <= plan.nt_d2 or plan.nt_d2 % og == 0)
+        assert plan.smem_d2 <= _build.SMEM_MAX
+        assert plan.nt_d2 == _build.plan_stage(B, T, O, O, G).n_tile or plan.nt_d2 == 64
+    else:
+        assert plan.nt_d2 == plan.smem_d2 == 0
+    # wgrad: dw1 (C inputs, 5 taps), dw2 (O, 5), dwres (C, 1), each split over the row tiles
+    jobs = [(C, 5)] + ([(O, 5)] if rtb else []) + ([(C, 1)] if rtb and C != O else [])
+    assert [(ca, taps) for ca, taps, _ in plan.wgrad_jobs] == jobs
+    # the activations' tf32 big and small planes and the cotangent, 192 rows x (64 + 8)
+    assert plan.wgrad_smem == 3 * 192 * 72 * 4 <= _build.SMEM_MAX
+    blocks = wpart = 0
+    for (ca, taps, tiles), n, per in zip(plan.wgrad_jobs, plan.splits, plan.cps):
+        assert tiles == -(-ca // 64) * -(-O // 64)
+        assert n >= 1 and per >= 1 and (n - 1) * per < plan.row_tiles <= n * per
+        blocks += tiles * n
+        wpart += n * taps * ca * O * 4
+    assert plan.wgrad_blocks == blocks and plan.wpart_bytes == wpart
+    assert plan.colpart_bytes == (7 if rtb else 3) * plan.row_tiles * O * 4
+
+
+def test_plan_backward_sizes_the_staged_weights():
+    """w2 and w1 flipped and transposed, and wres^T, laid out for the dgrad
+    stages' N tiles; without dx only w2 (the head: nothing)."""
+    p = _build.plan_backward(512, 3, 1024, 512, 8, proj=True)
+    w2 = _build.staged_weight_bytes(p.nt_d2, 512, 512)
+    w1 = _build.staged_weight_bytes(p.nt_d1, 512, 1024)
+    wr = _build.staged_weight_bytes(p.nt_d1, 512, 1024, K=1)
+    assert p.wstage_bytes == w2 + w1 + wr
+    assert _build.plan_backward(512, 3, 1024, 512, 8, proj=True, want_dx=False).wstage_bytes == w2
+    assert _build.plan_backward(512, 24, 64, 64, 8, proj=False, rtb=False, want_dx=False).wstage_bytes == 0
+    # the first block's dx has 8 channels: a 64-wide tile with 8 live columns
+    assert _build.plan_backward(512, 24, 8, 64, 8, proj=True).nt_d1 == 64
+
+
+def test_backward_args_mirror_the_c_structure():
+    """BackwardArgs is 33 pointers, 3 sizes and 18 ints, in that order,
+    as BlockBwdArgs in csrc/block_backward.cu declares them."""
+    import ctypes
+    fields = _build.BackwardArgs._fields_
+    assert [t for _, t in fields[:33]] == [ctypes.c_void_p] * 33
+    assert [t for _, t in fields[33:36]] == [ctypes.c_longlong] * 3
+    assert ctypes.sizeof(_build.BackwardArgs) == 33 * 8 + 3 * 8 + 12 * 4 + 6 * 4
+    src = (_build.CSRC / "block_backward.cu").read_text()
+    body = src[src.index("struct BlockBwdArgs {"):src.index("};", src.index("struct BlockBwdArgs {"))]
+    import re
+    declared = re.findall(r"\b(?:const float|float|uint32_t)\*\s*(\w+);", body)
+    assert declared == [n for n, _ in fields[:33]]
+
+
+def test_carve_gives_aligned_disjoint_views_of_one_allocation():
+    """The wrappers' buffers come from one allocation per launch: every view
+    starts on a 16-byte boundary (the kernels move 16 bytes a thread) and
+    no two overlap."""
+    views = _build.carve(torch.device("cpu"), (3, 5), None, (7,), (2, 2, 2), (1,))
+    assert views[1] is None
+    live = [v for v in views if v is not None]
+    assert [tuple(v.shape) for v in live] == [(3, 5), (7,), (2, 2, 2), (1,)]
+    base = live[0].untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() == base for v in live)
+    assert all(v.data_ptr() % 16 == 0 for v in live) and all(v.is_contiguous() for v in live)
+    spans = sorted((v.data_ptr(), v.data_ptr() + 4 * v.numel()) for v in live)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

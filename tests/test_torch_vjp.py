@@ -27,8 +27,11 @@ from cindm_tpu_torch.ops import (
     fused_conv1d_gn_mish,
     fused_conv1d_gn_mish_differentiable,
     fused_rtb,
+    fused_rtb_backward_reference,
     fused_rtb_differentiable,
+    fused_rtb_forward_saving_reference,
     fused_rtb_reference,
+    mish,
 )
 from cindm_tpu_torch.sampling import Diffusion1DConfig, p_losses
 from torch_port_helpers import flax_grads, flax_params, keystr_flat, port_model
@@ -82,15 +85,24 @@ def test_fused_conv1d_gn_mish_vjp_matches_jax():
 
 def test_function_returns_grads_only_where_needed():
     """Only the inputs that require grad get one (the identity block passes
-    no residual: its two slots stay None), equal to plain autograd's."""
+    no residual: its two slots stay None), equal to the plain closed form's
+    (the backward the Function runs on CPU tensors) and, within GRAD_TOL, to
+    plain autograd's."""
     a, g = _rtb_inputs(8, 8, 2, 6, seed=6)
     ts = {n: torch.from_numpy(v) for n, v in a.items()}
     w1 = ts["w1"].clone().requires_grad_(True)
-    out = FusedRTB.apply(*({**ts, "w1": w1}.get(n) for n in RTB_NAMES), 8, 1e-5)
+    args = [{**ts, "w1": w1}.get(n) for n in RTB_NAMES]
+    out = FusedRTB.apply(*args, 8, 1e-5)
     out.backward(torch.from_numpy(g))
+    plain = [ts.get(n) for n in RTB_NAMES]
+    needs = [n == "w1" for n in RTB_NAMES]
+    closed = fused_rtb_backward_reference(
+        plain + list(fused_rtb_forward_saving_reference(*plain)[1:]), torch.from_numpy(g), needs)
+    assert all(v is None for v, n in zip(closed, needs) if not n)
     want, = torch.autograd.grad(fused_rtb_reference(**{**ts, "w1": w1}), w1, torch.from_numpy(g))
     assert ts["x"].grad is None
-    torch.testing.assert_close(w1.grad, want, rtol=0, atol=0)
+    torch.testing.assert_close(w1.grad, closed[2], rtol=0, atol=0)
+    np.testing.assert_allclose(w1.grad.numpy(), want.numpy(), **GRAD_TOL)
 
 
 def test_raw_wrappers_refuse_a_gradient():
@@ -120,7 +132,9 @@ def test_cpu_backward_counts_nothing():
 
 def test_residual_weight_gradient_reaches_the_parameter():
     """wres enters the block as the view residual.weight[0]; its gradient
-    must land in the [1, C, O] parameter, equal to the plain path's."""
+    must land in the [1, C, O] parameter, equal to the cotangent the
+    Function's backward (the closed form, on CPU tensors) returns for wres,
+    and within GRAD_TOL of the plain path's."""
     blk = ResidualTemporalBlock(16, 32, 8, generator=torch.Generator().manual_seed(2))
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((2, 6, 16)).astype(np.float32))
@@ -132,8 +146,17 @@ def test_residual_weight_gradient_reaches_the_parameter():
         grads.append({n: p.grad.clone() for n, p in blk.named_parameters()})
     assert grads[0]["residual.weight"].shape == (1, 16, 32)
     assert float(grads[0]["residual.weight"].abs().max()) > 0
+    with torch.no_grad():
+        temb = blk.time(mish(temb))
+        b0, b1, res = blk.block0, blk.block1, blk.residual
+        args = [x, temb, b0.conv.weight, b0.conv.bias, b0.norm.weight, b0.norm.bias,
+                b1.conv.weight, b1.conv.bias, b1.norm.weight, b1.norm.bias, res.weight[0], res.bias]
+        out, *saved = fused_rtb_forward_saving_reference(*args)
+        closed = fused_rtb_backward_reference(args + saved, 2 * out, [True] * 12)
+    torch.testing.assert_close(grads[0]["residual.weight"][0], closed[10], rtol=0, atol=0)
+    torch.testing.assert_close(grads[0]["residual.bias"], closed[11], rtol=0, atol=0)
     for n in grads[1]:
-        torch.testing.assert_close(grads[0][n], grads[1][n], rtol=0, atol=0, msg=n)
+        np.testing.assert_allclose(grads[0][n].numpy(), grads[1][n].numpy(), err_msg=n, **GRAD_TOL)
 
 
 @pytest.fixture(scope="module")
