@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the hand-written CUDA kernels: composed
-8-body guided inverse design, and training of the 2-body prior that design
-composes. Eight phases; each prints one JSON line with its elapsed seconds
-after a ``torch.cuda.synchronize()``:
+Drives the port's four paths through the hand-written CUDA kernels: composed
+8-body guided inverse design, training of the 2-body prior that design
+composes, the analysis of priors (time composition and classifier-free
+multibody composition), and the 1D baselines (forward surrogates trained,
+then designed with by CEM and backprop). Ten phases; each prints one JSON
+line with its elapsed seconds after a ``torch.cuda.synchronize()``:
 
 1. device:   the card's name and nvidia-smi's name and power limit; TF32 off.
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
@@ -17,9 +19,18 @@ after a ``torch.cuda.synchronize()``:
              max abs and max relative error <= 1e-4), then timed with CUDA
              events beside two bounds on an H100: fp32 on the CUDA cores
              (``bound_ms``) and the kernels' own 3xTF32 on the tensor cores
-             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s).
+             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s). Then the shapes of
+             the later paths: the Conv1d+GN+Mish kernel at every distinct
+             block of the forward model at horizon 24 and 2 (T down to 1,
+             C up to 1,024) at batch 1,000, its Function fwd+bwd against
+             plain autograd at batch 32 and x-only at batch 4 (every
+             gradient within 1e-4 of the plain one's largest entry), and
+             the fused-RTB kernel at the 1-body prior's C=4 block and the
+             horizon-70 direct model's T=70 and T=35 blocks.
 4. denoiser: the full-width TemporalUnet1D (dim 64, horizon 24) with seeded
-             random weights, kernel path against plain path at batch 5,376.
+             random weights, kernel path against plain path at batch 5,376;
+             its ms per sample at folded batches 1,344 to 10,752 (the
+             measurement behind ``sampling/compose.FOLD_TARGET``).
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot.
@@ -41,7 +52,26 @@ after a ``torch.cuda.synchronize()``:
              generated on the card, 30% collision windows), cut only in its
              step count: 40 steps with milestones at 20 and 40, then a resume
              to step 50 with one 25-step DDIM eval.
-8. summary:  the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+8. analysis: ``cindm_tpu_torch.cli.analysis_1d`` twice, on snapshots of
+             seeded random weights at full width: the multibody strategies
+             (8 bodies, the 2-body prior and a 1-body prior, batch 16, 16
+             simulations, cf 1.4, 10 Langevin steps) and the
+             time-composition strategies (a conditioned prior, 1 + 23
+             frames, n_composed 2, and a horizon-70 direct model), cut only
+             in the schedule (100 timesteps, t_switch 40, 25 DDIM steps):
+             records finite, seconds per strategy, launches, ULA pair-window
+             forwards per second.
+9. baselines: ``train_1d`` for forward_model, Unet_rollout_one, GNS,
+             GNS_cond_one and GNS_direct (batch 32, dim 64, 64 simulations
+             generated on the card, 10-20 steps), then
+             ``design_1d_baseline`` for backprop and CEM (N 1,000, Ne 100)
+             over Unet, Unet_single_step, GNS_autoregress and GNS_direct,
+             10 design steps each: the forward model's loss falls, every
+             design objective is finite; seconds per run, CEM's model
+             forwards per second.
+10. summary: the ``{"kernels": [...]}`` line (launches on the design path,
+             and per path in ``launches_train``, ``launches_analysis``,
+             ``launches_baselines``), the nvidia-smi line, and last
              ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -92,6 +122,34 @@ TRAIN_ARGS = [
 ]
 TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS, EVAL_SAMPLE_STEPS = 40, 20, 50, 25
 
+# The fold sizes the denoiser phase times (ms per sample) to set
+# sampling/compose.FOLD_TARGET: B = 16, 32, 64, 128 of the flagship fold.
+FOLD_BATCHES = (1344, 2688, 5376, 10752)
+# Path A, analysis_1d at scripts_paper/multibody_analysis.sh's configuration
+# (8 bodies, batch 16, 16 simulations, cf 1.4, 10 Langevin steps) and the
+# time-composition comparison on a conditioned prior; only the schedule is cut.
+ANALYSIS_BATCH, N_BODIES_MULTI, DIRECT_HORIZON = 16, 8, 70  # 70 = 1 + 3 x 23
+ANALYSIS_CUTS = ["--timesteps", "100", "--t_switch", "40", "--sample_steps", "25"]
+ANALYSIS_MULTI = ["--compose_multibodies", "8", "--batch_size", "16", "--n_sims", "16",
+                  "--cf_coefficient", "1.4", "--langevin_steps", "10"]
+ANALYSIS_TIME = ["--conditioned_steps", "1", "--rollout_steps", "23", "--n_composed", "2",
+                 "--batch_size", "16", "--n_sims", "16"]
+# Path B, scripts_paper/1d_baseline.sh: the forward surrogates trained at
+# batch 32, dim 64 on the CLI's default 64 simulations, cut in their step
+# counts; CEM (N 1000, Ne 100) and backprop (batch 4) design, cut in
+# --max_design_steps.
+BASELINE_BATCH, DESIGN_BATCH, CEM_N = 32, 4, 1000
+BASELINE_TRAIN = ["--dataset", "nbody-2", "--rollout_steps", "24", "--batch_size", "32",
+                  "--Unet_dim", "64", "--n_sims", "64"]
+BASELINE_STEPS = {"forward_model": 20, "Unet_rollout_one": 10, "GNS": 10, "GNS_cond_one": 10,
+                  "GNS_direct": 10}
+DESIGN_MODELS = {"Unet": "forward_model", "Unet_single_step": "Unet_rollout_one",
+                 "GNS_autoregress": "GNS_cond_one", "GNS_direct": "GNS_direct"}
+STEP_MODELS = ("Unet_single_step", "GNS_autoregress")  # rolled out one step a call
+DESIGN_STEPS = 10
+BASELINE_DESIGN = ["--n_bodies", "2", "--rollout_steps", "23", "--N", "1000", "--Ne", "100",
+                   "--Unet_dim", "64", "--max_design_steps", str(DESIGN_STEPS)]
+
 # (C_in, C_out, T) of the 16 ResidualTemporalBlocks of TemporalUnet1D(horizon
 # 24, transition_dim 8, dim 64), in call order, and of its head Conv1dBlock.
 RTB_SHAPES = [
@@ -116,24 +174,26 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def event_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_pair(torch, plain, kernel, reps: int = 10) -> tuple[float, float]:
     """Mean ms per call of plain and kernel, timed in turns plain, kernel,
     kernel, plain with CUDA events after a warm-up."""
-    def one(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     for fn in (plain, kernel):
         fn()
         fn()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = one(plain), one(kernel), one(kernel), one(plain)
+    p1, k1, k2, p2 = (event_ms(torch, fn, reps) for fn in (plain, kernel, kernel, plain))
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
@@ -169,6 +229,15 @@ def valid_taps(T: int, k: int) -> int:
     return sum(1 for t in range(T) for j in range(k) if 0 <= t + j - k // 2 < T)
 
 
+def weight_numel(w, T: int) -> int:
+    """Entries of a [k, C, O] conv weight that reach the output over T rows:
+    only the taps that land inside the sample for some row (at T=1 the
+    centre tap alone, at T=2 three), the rest multiply padding zeros."""
+    k = w.shape[0]
+    live = sum(1 for j in range(k) if any(0 <= t + j - k // 2 < T for t in range(T)))
+    return w.numel() // k * live
+
+
 def errors(torch, got, want) -> tuple[float, float]:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("kernel output is not finite")
@@ -190,53 +259,169 @@ def rand_block_params(torch, g, C, O, dev, proj: bool):
     return p
 
 
-def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
-    """Phase 3: every flagship block shape, kernel against plain, timed on CUDA."""
-    from cindm_tpu_torch.ops import (
-        fused_conv1d_gn_mish,
-        fused_conv1d_gn_mish_reference,
-        fused_rtb,
-        fused_rtb_reference,
-    )
+def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+    """One fused-RTB shape: kernel against plain, timed beside its bounds."""
+    from cindm_tpu_torch.ops import fused_rtb, fused_rtb_reference
 
-    g = torch.Generator(device=dev).manual_seed(1234)
-    rtb_rows, head_rows = [], []
-    for C, O, T in RTB_SHAPES:
-        x = torch.randn((batch, T, C), generator=g, device=dev)
-        temb = torch.randn((batch, O), generator=g, device=dev)
-        p = rand_block_params(torch, g, C, O, dev, proj=C != O)
-        got = fused_rtb(x, temb, **p)
-        want = fused_rtb_reference(x, temb, **p)
-        abs_err, rel_err = errors(torch, got, want)
-        plain_ms, kernel_ms = time_pair(
-            torch, lambda: fused_rtb_reference(x, temb, **p),
-            lambda: fused_rtb(x, temb, **p),
-        ) if cuda else (None, None)
-        taps = valid_taps(T, K)
-        macs = batch * (taps * C * O + taps * O * O + (T * C * O if C != O else 0))
-        nbytes = 4 * (x.numel() + temb.numel() + sum(v.numel() for v in p.values()) + batch * T * O)
-        rtb_rows.append(dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                             kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes)))
-        del x, temb, p, got, want
-    C, O, T = HEAD_SHAPE
+    x = torch.randn((batch, T, C), generator=g, device=dev)
+    temb = torch.randn((batch, O), generator=g, device=dev)
+    p = rand_block_params(torch, g, C, O, dev, proj=C != O)
+    abs_err, rel_err = errors(torch, fused_rtb(x, temb, **p), fused_rtb_reference(x, temb, **p))
+    plain_ms, kernel_ms = time_pair(
+        torch, lambda: fused_rtb_reference(x, temb, **p), lambda: fused_rtb(x, temb, **p),
+    ) if cuda else (None, None)
+    taps = valid_taps(T, K)
+    macs = batch * (taps * C * O + taps * O * O + (T * C * O if C != O else 0))
+    n_par = sum(weight_numel(v, T) if k in ("w1", "w2") else v.numel() for k, v in p.items())
+    nbytes = 4 * (x.numel() + temb.numel() + n_par + batch * T * O)
+    return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes))
+
+
+def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+    """One Conv1d+GN+Mish shape: kernel against plain, timed beside its bounds."""
+    from cindm_tpu_torch.ops import fused_conv1d_gn_mish, fused_conv1d_gn_mish_reference
+
     x = torch.randn((batch, T, C), generator=g, device=dev)
     p = rand_block_params(torch, g, C, O, dev, proj=False)
     args = (x, p["w1"], p["b1"], p["gs1"], p["gb1"])
-    got = fused_conv1d_gn_mish(*args)
-    want = fused_conv1d_gn_mish_reference(*args)
-    abs_err, rel_err = errors(torch, got, want)
+    abs_err, rel_err = errors(torch, fused_conv1d_gn_mish(*args),
+                              fused_conv1d_gn_mish_reference(*args))
     plain_ms, kernel_ms = time_pair(
-        torch, lambda: fused_conv1d_gn_mish_reference(*args),
-        lambda: fused_conv1d_gn_mish(*args),
+        torch, lambda: fused_conv1d_gn_mish_reference(*args), lambda: fused_conv1d_gn_mish(*args),
     ) if cuda else (None, None)
-    nbytes = 4 * (x.numel() + sum(a.numel() for a in args[1:]) + batch * T * O)
-    head_rows.append(dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                          kernel_ms=kernel_ms, plain_ms=plain_ms,
-                          **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes)))
+    nbytes = 4 * (x.numel() + weight_numel(args[1], T) + sum(a.numel() for a in args[2:])
+                  + batch * T * O)
+    return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes))
+
+
+def conv_grad_row(torch, g, dev, C: int, O: int, T: int, batch: int, x_only: bool,
+                  cuda: bool) -> dict:
+    """``FusedConv1dGNMish`` fwd+bwd against plain autograd at one shape: the
+    output and every gradient within TOL of the plain one's largest entry.
+    ``x_only``: the parameters need no gradient (design by backprop), so the
+    backward kernel runs its dx stage alone."""
+    from cindm_tpu_torch.ops import fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference
+
+    p = rand_block_params(torch, g, C, O, dev, proj=False)
+    a = dict(x=torch.randn((batch, T, C), generator=g, device=dev), w=p["w1"], b=p["b1"],
+             gn_scale=p["gs1"], gn_bias=p["gb1"])
+    cot = torch.randn((batch, T, O), generator=g, device=dev)
+
+    def fwd_bwd(fn):
+        ts = {k: v.detach().requires_grad_(k == "x" or not x_only) for k, v in a.items()}
+        out = fn(**ts)
+        wrt = [ts["x"]] if x_only else list(ts.values())
+        return [out.detach(), *torch.autograd.grad(out, wrt, cot)]
+
+    got, want = fwd_bwd(fused_conv1d_gn_mish_differentiable), fwd_bwd(fused_conv1d_gn_mish_reference)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError("Function output or gradient is not finite")
+    abs_err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    rel_err = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                  for x, y in zip(got, want))
+    plain_ms, kernel_ms = time_pair(
+        torch, lambda: fwd_bwd(fused_conv1d_gn_mish_reference),
+        lambda: fwd_bwd(fused_conv1d_gn_mish_differentiable)) if cuda else (None, None)
+    macs = batch * valid_taps(T, K) * C * O
+    # the weight's taps that reach the output are read; dw is written whole
+    n_read = sum(weight_numel(v, T) if k == "w" else v.numel() for k, v in a.items())
+    n_grad = a["x"].numel() if x_only else sum(v.numel() for v in a.values())
+    # forward, dgrad (and wgrad); each input, the cotangent, the output and
+    # each gradient moved once
+    flops = (2 if x_only else 3) * 2 * macs
+    nbytes = 4 * (n_read + 2 * cot.numel() + n_grad)
+    return dict(C=C, O=O, T=T, B=batch, x_only=x_only, max_abs_err=abs_err, max_rel_err=rel_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(flops, nbytes))
+
+
+def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
+    """Phase 3: every flagship block shape, kernel against plain, timed on CUDA."""
+    g = torch.Generator(device=dev).manual_seed(1234)
+    rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda) for C, O, T in RTB_SHAPES]
+    head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda)]
     bad = [r for r in rtb_rows + head_rows if not (r["max_abs_err"] <= TOL and r["max_rel_err"] <= TOL)]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
     return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows}
+
+
+def conv_block_shapes(torch, model, *inputs) -> list[tuple[int, int, int]]:
+    """Distinct (C, O, T) of the Conv1dBlocks one forward of ``model`` runs, in call order."""
+    from cindm_tpu_torch.models.blocks import Conv1dBlock
+
+    seen = []
+
+    def hook(mod, args):
+        x = args[0]
+        shape = (x.shape[-1], mod.conv.weight.shape[-1], x.shape[1])
+        if shape not in seen:
+            seen.append(shape)
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, Conv1dBlock)]
+    with torch.no_grad():
+        model(*inputs, use_kernels=False)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def rtb_times(model) -> list[int]:
+    """The time length each ResidualTemporalBlock of a TemporalUnet1D sees, in call order."""
+    T, out = model.horizon, []
+    for ind in range(model.num_res):
+        out += [T, T]
+        T //= 2 if model.down_flags[ind] else 1
+    out += [T, T]
+    for ind in range(model.num_res - 1):
+        out += [T, T]
+        T *= 2 if model.up_flags[ind] else 1
+    return out
+
+
+def check_slice5_kernels(torch, dev, cuda: bool) -> dict:
+    """Phase 3, the shapes of the analysis and baseline paths: the
+    Conv1d+GN+Mish kernel at every distinct block of the forward model at
+    horizon 24 and 2 (batch CEM_N), its Function fwd+bwd against plain
+    autograd (batch 32, and x-only at batch 4); the fused-RTB kernel at the
+    1-body prior's C=4 block (batch 8 x 16) and the direct model's T=70 and
+    T=35 blocks (batch 16). The shapes are listed on any device; the rows
+    are made only on CUDA, where the kernels run (on the CPU both sides of
+    every row would be the plain version)."""
+    from cindm_tpu_torch.baselines import Unet1DForwardModel
+    from cindm_tpu_torch.models import TemporalUnet1D
+
+    g = torch.Generator(device=dev).manual_seed(5678)
+    shapes = {}
+    for h in (24, 2):
+        m = Unet1DForwardModel(h, 8, dim=64).to(dev)
+        shapes[h] = conv_block_shapes(torch, m, torch.zeros((1, 1, 8), device=dev))
+    conv_shapes = list(dict.fromkeys(shapes[24] + shapes[2]))
+    direct = TemporalUnet1D(DIRECT_HORIZON, 8, dim=64)
+    direct_shapes = [(r.block0.conv.weight.shape[1], r.block0.conv.weight.shape[2], t)
+                     for r, t in zip(direct.rtbs, rtb_times(direct))]
+    rtb_shapes = [(4, 64, 24, N_BODIES_MULTI * ANALYSIS_BATCH)]
+    rtb_shapes += [(C, O, T, ANALYSIS_BATCH) for C, O, T in dict.fromkeys(direct_shapes)]
+    listed = {"forward_model_block_shapes": {"h24": shapes[24], "h2": shapes[2]},
+              "rtb_analysis_shapes": rtb_shapes}
+    if not cuda:
+        return {"conv_forward_model": [], "conv_function_forward_model": [], "rtb_analysis": [],
+                **listed}
+    conv = [conv_row(torch, g, dev, C, O, T, CEM_N, cuda) for C, O, T in conv_shapes]
+    grads = [conv_grad_row(torch, g, dev, C, O, T, b, x_only, cuda)
+             for C, O, T in conv_shapes
+             for b, x_only in ((BASELINE_BATCH, False), (DESIGN_BATCH, True))]
+    rtb = [rtb_row(torch, g, dev, C, O, T, b, cuda) for C, O, T, b in rtb_shapes]
+    # forward rows: max abs and max relative error; Function rows: every
+    # gradient within TOL of the plain one's largest entry (PERF.md section 2)
+    bad = [r for r in conv + rtb if not (r["max_abs_err"] <= TOL and r["max_rel_err"] <= TOL)]
+    bad += [r for r in grads if not r["max_rel_err"] <= TOL]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
+    return {"conv_forward_model": conv, "conv_function_forward_model": grads, "rtb_analysis": rtb,
+            **listed}
 
 
 def reset_counts():
@@ -292,6 +477,178 @@ def check_denoiser(torch, dev, batch: int, model, cuda: bool) -> dict:
             )
             rec.update(forward_kernel_ms=kernel_ms, forward_plain_ms=plain_ms)
     return rec
+
+
+def time_folds(torch, dev, model, cuda: bool) -> dict | str:
+    """ms per sample of the full-width forward (kernel path) at each of
+    FOLD_BATCHES, the folded batch of one composed denoiser call."""
+    if not cuda:
+        return "not measured"
+    g = torch.Generator(device=dev).manual_seed(98)
+    out = {}
+    with torch.no_grad():
+        for b in FOLD_BATCHES:
+            x = torch.randn((b, 24, 8), generator=g, device=dev)
+            t = torch.randint(0, 20, (b,), generator=g, device=dev)
+            model(x, t)  # warm-up
+            torch.cuda.synchronize()
+            out[str(b)] = event_ms(torch, lambda: model(x, t), reps=3) / b
+            del x, t
+    return out
+
+
+def write_snapshot(model, directory: str) -> str:
+    """``model``'s weights as a persisted_m0.npz snapshot (EMA, the JAX layout)."""
+    import numpy as np
+
+    from cindm_tpu_torch.models import flax_from_params
+
+    os.makedirs(directory, exist_ok=True)
+    flat = {"['ema_params']['params']" + k: v for k, v in flax_from_params(model).items()}
+    flat["['step']"] = np.asarray(0)
+    np.savez(os.path.join(directory, "persisted_m0.npz"), **flat)
+    return directory
+
+
+def finite_leaves(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(finite_leaves(v) for v in obj.values())
+    return isinstance(obj, (int, float)) and math.isfinite(obj)
+
+
+def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
+                 multi: list[str] = ANALYSIS_MULTI, timecomp: list[str] = ANALYSIS_TIME) -> dict:
+    """Path A: analysis_1d twice, from seeded random weights written as
+    snapshots: the multibody strategies (``model`` as the 2-body prior, a
+    1-body prior beside it) and the time-composition strategies (``model``
+    as the conditioned prior, a horizon-70 direct model)."""
+    from cindm_tpu_torch.cli.analysis_1d import main as analysis_main
+    from cindm_tpu_torch.models import TemporalUnet1D
+
+    dim = model.dim
+    scratch = os.path.join(REPO, ".cuda_build")
+    os.makedirs(scratch, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke-analysis-") as tmp:
+        pair = write_snapshot(model, os.path.join(tmp, "pair"))
+        one = write_snapshot(TemporalUnet1D(24, 4, dim=dim, generator=torch.Generator().manual_seed(1)),
+                             os.path.join(tmp, "one"))
+        direct = write_snapshot(
+            TemporalUnet1D(DIRECT_HORIZON, 8, dim=dim, generator=torch.Generator().manual_seed(2)),
+            os.path.join(tmp, "direct"))
+        base = ["--model_path", pair, "--Unet_dim", str(dim), "--device", str(dev), *cuts]
+        for name, extra in (("multibody", [*multi, "--uncond_model_path", one]),
+                            ("time_composition", [*timecomp, "--direct_model_path", direct])):
+            reset_counts()
+            timings = {}
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                record = analysis_main(base + extra, timings=timings)
+            if cuda:
+                torch.cuda.synchronize()
+            runs[name] = {"record": record, "seconds": time.perf_counter() - t0,
+                          "strategy_seconds": timings, "launches": read_counts(backwards=True)}
+    flag = lambda args, k: int(args[args.index(k) + 1])
+    T, t_switch = flag(cuts, "--timesteps"), flag(cuts, "--t_switch")
+    n, B = flag(multi, "--compose_multibodies"), flag(multi, "--batch_size")
+    calls = (T - 1 - t_switch) * flag(multi, "--langevin_steps") + t_switch + 1
+    ula_fwds = calls * n * (n - 1) // 2 * B
+    checks = {
+        "records_finite": all(finite_leaves(r["record"]) for r in runs.values()),
+        "strategies": sorted(runs["multibody"]["record"]["multibody_strategies"]) == sorted(
+            ["pairwise_compose", "cf_compose_ULA", "cf_compose_UHMC", "SimuSolver"])
+        and sorted(runs["time_composition"]["record"]["compose_strategies"]) == sorted(
+            ["EBMs_compose", "autoregress", "SimuSolver", "direct"]),
+    }
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["multibody"]["launches"]}
+    if cuda:
+        checks["launches"] = all(r["launches"]["fused_rtb"] > 0 and r["launches"]["fused_conv1d_gn_mish"] > 0
+                                 for r in runs.values())
+    # the samplers take no gradient through the priors: no autograd Function
+    # forward and no backward kernel runs in this phase
+    checks["no_gradient"] = all(v == 0 for k, v in launches.items()
+                                if k not in ("fused_rtb", "fused_conv1d_gn_mish"))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"analysis phase checks failed: {failed}; runs {runs}")
+    return {"runs": runs, "launches": launches, "checks": checks, "cuts": cuts,
+            "ula_pair_window_fwds": ula_fwds,
+            "ula_pair_window_fwds_per_s": ula_fwds / runs["multibody"]["strategy_seconds"]["cf_compose_ULA"]}
+
+
+def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN,
+                  steps: dict = BASELINE_STEPS, design_args: list[str] = BASELINE_DESIGN) -> dict:
+    """Path B: train_1d for the five baseline method types, then
+    design_1d_baseline for backprop and CEM over the four surrogates."""
+    import numpy as np
+
+    from cindm_tpu_torch.cli.design_1d_baseline import main as design_main
+    from cindm_tpu_torch.cli.train_1d import main as train_main
+
+    scratch = os.path.join(REPO, ".cuda_build")
+    os.makedirs(scratch, exist_ok=True)
+    reset_counts()
+    train, design = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke-baselines-") as tmp:
+        for mt, n in steps.items():
+            res = os.path.join(tmp, mt)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                train_main([*train_args, "--method_type", mt, "--device", str(dev),
+                            "--train_num_steps", str(n), "--save_and_sample_every", str(n),
+                            "--log_every", "1", "--dataset_path", os.path.join(tmp, "data"),
+                            "--results_folder", res])
+            if cuda:
+                torch.cuda.synchronize()
+            losses = np.load(os.path.join(res, "loss_curve.npy"))[:, 1]
+            train[mt] = {"seconds": time.perf_counter() - t0, "steps": n,
+                         "record": json.loads(out.getvalue().strip().splitlines()[-1]),
+                         "loss_first3_mean": float(losses[:3].mean()),
+                         "loss_last3_mean": float(losses[-3:].mean()),
+                         "losses_finite": bool(np.isfinite(losses).all()) and len(losses) == n}
+        n_design = int(design_args[design_args.index("--max_design_steps") + 1])
+        for method in ("backprop", "CEM"):
+            for mt, trained in DESIGN_MODELS.items():
+                t0 = time.perf_counter()
+                timings = {}
+                with contextlib.redirect_stdout(io.StringIO()):
+                    record = design_main([*design_args, "--design_method", method, "--method_type", mt,
+                                          "--model_path", os.path.join(tmp, trained),
+                                          "--device", str(dev)], timings=timings)
+                if cuda:
+                    torch.cuda.synchronize()
+                # the whole run, and the design loop alone (timings["design"],
+                # the card synchronized at both ends): the rates are the loop's
+                row = {"record": record, "seconds": time.perf_counter() - t0,
+                       "part_seconds": timings}
+                if method == "CEM":
+                    # model calls a rollout: one, or one per step for the step models
+                    rollout = int(design_args[design_args.index("--rollout_steps") + 1])
+                    n_pop = int(design_args[design_args.index("--N") + 1])
+                    fwds = n_design * n_pop * (rollout if mt in STEP_MODELS else 1)
+                    row.update(model_fwds=fwds, model_fwds_per_s=fwds / timings["design"])
+                else:
+                    row["seconds_per_iteration"] = timings["design"] / n_design
+                design[f"{method}/{mt}"] = row
+    counts = read_counts(backwards=True)
+    checks = {
+        "losses_finite": all(r["losses_finite"] for r in train.values()),
+        "forward_model_loss_falls": train["forward_model"]["loss_last3_mean"]
+        < train["forward_model"]["loss_first3_mean"],
+        "designs_finite": len(design) == 8
+        and all(math.isfinite(r["record"]["design_obj_simu"]) for r in design.values()),
+    }
+    if cuda:
+        checks["launches"] = (counts["fused_conv1d_gn_mish"] > 0 and counts["FusedConv1dGNMish_launches"] > 0
+                              and counts["fused_conv1d_gn_mish_backward"] > 0)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"baselines phase checks failed: {failed}; train {train}; design {design}")
+    cuts = {"train_num_steps": steps, "train_num_steps_script": "100,000-200,000",
+            "max_design_steps": n_design, "max_design_steps_script": 1000}
+    return {"train": train, "design": design, "launches": counts, "checks": checks,
+            "cuts": cuts, "seconds": time.perf_counter() - t_phase}
 
 
 def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: bool) -> dict:
@@ -611,21 +968,24 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             "data_generation_seconds": first["record"]["data_seconds"], "checks": checks}
 
 
-def kernels_line(checks: dict, counts: dict) -> dict:
+def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
     meta = {
         "fused_rtb": ("cindm_tpu_torch/ops/csrc/fused_rtb.cu", "cindm_tpu/ops/fused_rtb.py:179"),
         "fused_conv1d_gn_mish": ("cindm_tpu_torch/ops/csrc/fused_conv_gn.cu",
                                  "cindm_tpu/ops/fused_conv_gn.py:112"),
     }
+    extra = {"fused_rtb": ("shapes_analysis", slice5["rtb_analysis"]),
+             "fused_conv1d_gn_mish": ("shapes_forward_model", slice5["conv_forward_model"])}
     out = []
     for name, rows in checks.items():
         source, replaces = meta[name]
         by = {r["bound_tc_by"] for r in rows}
+        key, more = extra[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "max_rel_err": max(r["max_rel_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + more),
+            "max_rel_err": max(r["max_rel_err"] for r in rows + more),
             # one denoiser forward's worth: the sum over this kernel's shapes
             "ms": sum(r["kernel_ms"] or 0.0 for r in rows),
             "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
@@ -636,11 +996,14 @@ def kernels_line(checks: dict, counts: dict) -> dict:
             "bound_fp32_ms": sum(r["bound_ms"] for r in rows),
             "library_ms": None,
             "shapes": rows,
+            # the analysis and baseline paths' shapes, each timed beside its bounds
+            key: more,
         })
     return {"kernels": out}
 
 
-def vjp_entries(blocks: dict, counts: dict) -> list[dict]:
+def vjp_entries(blocks: dict, counts: dict, ana_counts: dict, base_counts: dict,
+                slice5: dict) -> list[dict]:
     """The autograd Functions' entries: the saving kernel forward plus the
     backward kernel, fwd+bwd over the 16 block shapes (and the head) at the
     training batch. ``launches`` counts the forward calls through
@@ -684,14 +1047,28 @@ def vjp_entries(blocks: dict, counts: dict) -> list[dict]:
             "backward_bound_fp32_ms": total("backward_bound_fp32_ms"),
             "library_ms": None,
             "shapes": rows,
+            "launches_analysis": ana_counts[fwd_key],
+            "backward_launches_analysis": ana_counts[bwd_key],
+            "launches_baselines": base_counts[fwd_key],
+            "backward_launches_baselines": base_counts[bwd_key],
         })
+    # the head Function at the forward model's shapes (batch 32; x-only at 4)
+    more = slice5["conv_function_forward_model"]
+    out[1]["shapes_forward_model"] = more
+    for k in ("max_abs_err", "max_rel_err"):
+        out[1][k] = max([out[1][k]] + [r[k] for r in more])
     return out
 
 
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
-                                                  EVAL_SAMPLE_STEPS)) -> dict:
+                                                  EVAL_SAMPLE_STEPS),
+        analysis_kw: dict | None = None, baselines_kw: dict | None = None) -> dict:
+    """Every phase; the keyword arguments shrink the later paths for a CPU
+    rehearsal (``analysis_kw`` / ``baselines_kw`` go to ``run_analysis`` /
+    ``run_baselines``)."""
+    analysis_kw, baselines_kw = analysis_kw or {}, baselines_kw or {}
     import torch
 
     from cindm_tpu_torch.models import TemporalUnet1D
@@ -725,16 +1102,18 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
 
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, fold_batch, cuda)
+    slice5 = check_slice5_kernels(torch, dev, cuda)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],
-          "tolerance": TOL, **checks})
+          "power_limit_line": info["smi"], "tolerance": TOL, **checks, **slice5})
 
     t0 = time.perf_counter()
     model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     den = check_denoiser(torch, dev, fold_batch, model, cuda)
+    den["fold_ms_per_sample"] = time_folds(torch, dev, model, cuda)
     sync()
     emit({"phase": "denoiser", "seconds": time.perf_counter() - t0, "device": info["name"],
-          "tolerance": DENOISER_TOL, **den})
+          "power_limit_line": info["smi"], "tolerance": DENOISER_TOL, **den})
 
     t0 = time.perf_counter()
     des = run_design(torch, dev, model, timesteps, design_args, cuda)
@@ -765,12 +1144,27 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     sync()
     emit({"phase": "train", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], **train})
+
+    t0 = time.perf_counter()
+    ana = run_analysis(torch, dev, model.eval(), cuda, **analysis_kw)
+    sync()
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t0, "device": info["name"],
+          "power_limit_line": info["smi"], **ana})
+
+    t0 = time.perf_counter()
+    base = run_baselines(torch, dev, cuda, **baselines_kw)
+    sync()
+    emit({"phase": "baselines", "seconds": time.perf_counter() - t0, "device": info["name"],
+          "power_limit_line": info["smi"], **base})
+
     first, second = train["runs"]
-    line = kernels_line(checks, des["launches"])
+    line = kernels_line(checks, des["launches"], slice5)
     for entry in line["kernels"]:
         entry["launches_train"] = first["launches"][entry["name"]] + second["launches"][entry["name"]]
+        entry["launches_analysis"] = ana["launches"][entry["name"]]
+        entry["launches_baselines"] = base["launches"][entry["name"]]
     train_counts = {k: first["launches"][k] + second["launches"][k] for k in first["launches"]}
-    line["kernels"].extend(vjp_entries(blocks, train_counts))
+    line["kernels"].extend(vjp_entries(blocks, train_counts, ana["launches"], base["launches"], slice5))
     info["kernels"] = line
     return info
 

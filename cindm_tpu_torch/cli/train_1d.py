@@ -24,11 +24,20 @@ bfloat16, the layout ``design_1d`` of either package reads) and one line per
 run in ``train_records.jsonl`` (steps, last loss, training samples/s, data
 seconds), which is also printed last.
 
-Only ``--method_type Diffusion`` is ported; the forward-model and GNS
-baselines come with the baselines slice, multi-GPU (``--n_devices``) with the
-multi-GPU slice. The JAX CLI's TPU heartbeat thread and XLA compile cache
-have no counterpart here, and ``--steps_per_launch`` (several micro-steps in
-one TPU launch) is accepted but has no effect.
+Every ``--method_type`` of the JAX CLI is ported: ``Diffusion`` (the prior),
+``forward_model`` (``Unet1DForwardModel`` over the whole window, L1 against
+it), ``Unet_rollout_one`` (a horizon-2 forward model trained through its own
+rollout), and the GNS family ``GNS`` (a real 4-frame history),
+``GNS_cond_one`` (one (pos, vel) frame) and ``GNS_direct`` (every
+acceleration from one call). The forward models' Conv1dBlocks run the
+Conv1d+GN+Mish kernel through ``ops.FusedConv1dGNMish``; GNS is plain
+PyTorch. The periodic eval (``--eval_every``) samples the Diffusion prior
+only, as in the JAX CLI.
+
+Multi-GPU (``--n_devices``) comes with the multi-GPU slice. The JAX CLI's TPU
+heartbeat thread and XLA compile cache have no counterpart here, and
+``--steps_per_launch`` (several micro-steps in one TPU launch) is accepted
+but has no effect.
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--collision_frac", type=float, default=0.0,
                    help="fraction of each batch drawn from collision-rich windows")
     p.add_argument("--gns_noise_std", type=float, default=6.7e-7,
-                   help="random-walk training noise of the GNS baselines (not ported yet)")
+                   help="random-walk training noise of the GNS baselines")
     p.add_argument("--steps_per_launch", type=int, default=1,
                    help="accepted for the JAX CLI's scripts and has no effect: "
                         "the port's host loop runs one micro-step per call")
@@ -98,10 +107,69 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_model_and_loss(args, n_bodies: int, horizon: int, generator: torch.Generator):
+    """(model, loss_fn(model, batch)) of ``args.method_type``; loss_fn is
+    None for Diffusion, whose step ``make_train_step`` builds. Weights are
+    drawn from a CPU generator seeded with ``args.seed``; the losses' draws
+    (the forward model's input noise, the GNS history noise) come from
+    ``generator``. A batch may carry the draw as ``batch['noise']``."""
+    feat = n_bodies * 4
+    init = torch.Generator().manual_seed(args.seed)
+    mt = args.method_type
+    if mt == "Diffusion":
+        from ..models import TemporalUnet1D
+
+        return TemporalUnet1D(horizon=horizon, transition_dim=feat, dim=args.Unet_dim,
+                              attention=True, generator=init), None
+    if mt == "forward_model":
+        from ..baselines import Unet1DForwardModel
+
+        model = Unet1DForwardModel(horizon=horizon, transition_dim=feat, dim=args.Unet_dim,
+                                   generator=init)
+
+        def loss_fn(model, batch):
+            # pred = model(first frame, noise), L1 against the whole window
+            x = batch["x"]
+            noise = batch.get("noise")
+            if noise is None:
+                noise = torch.randn(x.shape, generator=generator, device=x.device)
+            return (model(x[:, :1], noise) - x).abs().mean()
+
+        return model, loss_fn
+    if mt == "Unet_rollout_one":
+        from ..baselines import Unet1DForwardModel
+
+        # horizon 1 + 1, trained through its own autoregressive rollout
+        model = Unet1DForwardModel(horizon=2, transition_dim=feat, dim=args.Unet_dim,
+                                   generator=init)
+
+        def loss_fn(model, batch):
+            x = batch["x"]
+            c, preds = x[:, :1], []
+            for _ in range(x.shape[1] - 1):
+                c = model(c)[:, -1:]
+                preds.append(c)
+            return (torch.cat(preds, dim=1) - x[:, 1:]).abs().mean()
+
+        return model, loss_fn
+    from ..baselines import GNSConfig, GNSNet, make_gns_loss
+
+    if mt == "GNS":
+        gcfg, mode = GNSConfig(n_his=4, out_size=2), "autoregress"
+    elif mt == "GNS_cond_one":
+        gcfg, mode = GNSConfig(n_his=2, out_size=2), "cond_one"
+    elif mt == "GNS_direct":  # every rollout acceleration from one call
+        gcfg, mode = GNSConfig(n_his=2, out_size=2 * (horizon - 1)), "direct"
+    else:
+        raise ValueError(mt)
+    return GNSNet(gcfg, generator=init), make_gns_loss(
+        gcfg, n_bodies, mode, time_interval=args.time_interval, noise_std=args.gns_noise_std,
+        generator=generator)
+
+
 def main(argv=None):
     from ..core import make_schedule
     from ..data.nbody import NBodyDataset, NBodyDatasetConfig
-    from ..models import TemporalUnet1D
     from ..sampling import Diffusion1DConfig
     from ..sampling.sampler import generator_randn
     from ..train import (
@@ -109,21 +177,18 @@ def main(argv=None):
         TrainConfig,
         init_train_state,
         make_train_step,
+        make_train_step_from_loss,
         sampling_eval_1d,
     )
     from ..utils.device import resolve_device
     from ..utils.persist import save_npz
 
     args = build_parser().parse_args(argv)
-    if args.method_type != "Diffusion":
-        raise SystemExit(f"--method_type {args.method_type}: the 1D baselines are not ported "
-                         "yet (roadmap slice 4); only Diffusion is")
     if args.n_devices > 0:
         raise SystemExit("--n_devices > 0: multi-GPU training is not ported yet (roadmap slice 7)")
     dev = resolve_device(args.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     n_bodies = int(args.dataset.split("-")[1]) if "-" in args.dataset else args.n_bodies
-    feat = n_bodies * 4
     accum = max(args.gradient_accumulate_every, 1)
 
     dcfg_data = NBodyDatasetConfig(
@@ -155,10 +220,9 @@ def main(argv=None):
         loss_weight_discount=args.loss_weight_discount,
     )
     tcfg = TrainConfig(lr=args.lr, gradient_accumulate_every=args.gradient_accumulate_every)
-    model = TemporalUnet1D(
-        horizon=horizon, transition_dim=feat, dim=args.Unet_dim, attention=True,
-        generator=torch.Generator().manual_seed(args.seed),
-    ).to(dev)
+    draws = torch.Generator(device=dev).manual_seed(args.seed)
+    model, loss_fn = build_model_and_loss(args, n_bodies, horizon, draws)
+    model = model.to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Number of parameter: {n_params/1e6:.2f}M")
 
@@ -167,8 +231,10 @@ def main(argv=None):
     if args.resume and mngr.latest_milestone() is not None:
         state = mngr.load(template=state)
         print(f"resumed from step {state.step} (milestone {mngr.latest_milestone()})")
-    step = make_train_step(dcfg, sched, tcfg,
-                           generator=torch.Generator(device=dev).manual_seed(args.seed))
+    if loss_fn is None:
+        step = make_train_step(dcfg, sched, tcfg, generator=draws)
+    else:
+        step = make_train_step_from_loss(loss_fn, tcfg)
 
     def to_device(batch):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -223,7 +289,8 @@ def main(argv=None):
             print(f"step {opt_step}: loss {loss_f:.6f} (saved milestone {opt_step})", flush=True)
         else:
             print(f"step {opt_step}: loss {loss_f:.6f}", flush=True)
-        if ds_test is not None and args.eval_every > 0 and opt_step - last_evaled >= args.eval_every:
+        if (ds_test is not None and args.method_type == "Diffusion" and args.eval_every > 0
+                and opt_step - last_evaled >= args.eval_every):
             last_evaled = opt_step
             run_eval(opt_step)
         sync()

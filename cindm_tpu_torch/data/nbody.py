@@ -126,6 +126,27 @@ class NBodyDataset:
             batch["cond"] = frames(np.arange(-c.input_steps, 0) * itv)
         return batch
 
+    def get_gns_batch(self, indices: np.ndarray, n_his: int = 4, noise_std: float = 0.0,
+                      seed: int = 0) -> dict:
+        """A GNS-format batch: position histories ``poss`` [B, n, n_his, 2]
+        and targets ``tgt_poss`` [B, n, output_steps - n_his, 2], normalized
+        by /200, with ``particle_type`` zeros [B, n]; with ``noise_std > 0``
+        random-walk noise from a CPU generator seeded with ``seed`` is added
+        to the history."""
+        from ..utils.extras import random_walk_noise
+
+        x = self.get_batch(indices)["x"]  # [B, T, n*4] / 200
+        B, T, _ = x.shape
+        pos = x.reshape(B, T, self.cfg.n_bodies, 4)[..., :2].transpose(0, 2, 1, 3)
+        hist, tgt = pos[:, :, :n_his], pos[:, :, n_his:]
+        if noise_std > 0:
+            g = torch.Generator().manual_seed(seed)
+            noise = random_walk_noise(g, (B * self.cfg.n_bodies, n_his, 2), noise_std)
+            hist = hist + noise.numpy().reshape(hist.shape)
+        return {"poss": np.ascontiguousarray(hist, np.float32),
+                "tgt_poss": np.ascontiguousarray(tgt, np.float32),
+                "particle_type": np.zeros(hist.shape[:2], np.int32)}
+
     def collision_window_mask(self, threshold: float = 60.0) -> np.ndarray:
         """Boolean [len(self)]: windows whose bodies come within ``threshold``
         px of each other (ball radius 20, so 60 px is a close encounter).

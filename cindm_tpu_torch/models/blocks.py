@@ -1,4 +1,4 @@
-"""Denoiser building blocks (1D subset), channel-last [B, T, C].
+"""Denoiser building blocks (1D), channel-last [B, T, C].
 
 Port of the 1D part of ``cindm_tpu/models/blocks.py``. Weights are kept in
 the JAX package's layouts where a kernel reads them: Conv1d kernels are
@@ -33,9 +33,12 @@ __all__ = [
     "Conv1dBlock",
     "Dense",
     "Downsample1d",
+    "FullAttention",
     "GroupNorm",
+    "LinearAttention",
     "LinearAttentionTemporal",
     "PreNormResidual",
+    "RandomOrLearnedSinusoidalPosEmb",
     "ResidualTemporalBlock",
     "SinusoidalPosEmb",
     "Upsample1d",
@@ -95,6 +98,24 @@ class SinusoidalPosEmb(nn.Module):
         )
         args = t.to(torch.float32)[:, None] * freqs[None, :]
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier timestep features [B] -> [B, dim + 1]: t, sin and cos of
+    2 pi t w for ``dim // 2`` frequencies w ~ N(0, 1), learned unless
+    ``is_random`` (then they get no gradient)."""
+
+    def __init__(self, dim: int, is_random: bool = False, *, generator: torch.Generator):
+        super().__init__()
+        if dim % 2:
+            raise ValueError(f"dim must be even, got {dim}")
+        self.weights = nn.Parameter(torch.randn(dim // 2, generator=generator),
+                                    requires_grad=not is_random)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.to(torch.float32)[:, None]
+        freqs = t * self.weights[None, :] * (2 * math.pi)
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
 class ChannelLayerNorm(nn.Module):
@@ -207,6 +228,52 @@ class LinearAttentionTemporal(nn.Module):
         context = torch.einsum("bthd,bthe->bhde", split(k), split(v))
         out = torch.einsum("bthd,bhde->bthe", split(q), context)
         return self.out(out.reshape(B, T, self.heads * self.dim_head))
+
+
+class LinearAttention(nn.Module):
+    """Linear attention over the sequence axis of [B, N, C], with q softmaxed
+    per head over its channels, k over the sequence, and a ChannelLayerNorm
+    after the output projection."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.qkv = Dense(dim, hidden * 3, use_bias=False, generator=generator)
+        self.out = Dense(hidden, dim, generator=generator)
+        self.norm = ChannelLayerNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
+        split = lambda a: a.reshape(B, N, self.heads, self.dim_head)
+        q, k, v = map(split, self.qkv(x).chunk(3, dim=-1))
+        q = torch.softmax(q, dim=-1) * (self.dim_head ** -0.5)
+        k = torch.softmax(k, dim=1)
+        context = torch.einsum("bnhd,bnhe->bhde", k, v)
+        out = torch.einsum("bnhd,bhde->bnhe", q, context)
+        return self.norm(self.out(out.reshape(B, N, self.heads * self.dim_head)))
+
+
+class FullAttention(nn.Module):
+    """Softmax attention over the sequence axis of [B, N, C], written out as
+    einsums (no fused attention backend: its arithmetic differs)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.qkv = Dense(dim, hidden * 3, use_bias=False, generator=generator)
+        self.out = Dense(hidden, dim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
+        split = lambda a: a.reshape(B, N, self.heads, self.dim_head)
+        q, k, v = map(split, self.qkv(x).chunk(3, dim=-1))
+        sim = torch.einsum("bihd,bjhd->bhij", q * (self.dim_head ** -0.5), k)
+        out = torch.einsum("bhij,bjhd->bihd", torch.softmax(sim, dim=-1), v)
+        return self.out(out.reshape(B, N, self.heads * self.dim_head))
 
 
 class PreNormResidual(nn.Module):

@@ -1,4 +1,4 @@
-"""TemporalUnet1D, the n-body trajectory denoiser, and its Flax weight loader.
+"""TemporalUnet1D, the n-body trajectory denoiser, and the Flax weight loader.
 
 Port of ``cindm_tpu/models/unet1d.py``: ResidualTemporalBlock stacks with
 linear attention over time and horizon-aware down/upsampling. Layout is
@@ -7,6 +7,11 @@ channel-last [B, horizon, transition_dim].
 Submodules of each kind are kept in flat ``ModuleList``s in call order
 (``rtbs``, ``attns``, ``downs``, ``ups``), which is the order Flax numbers
 its auto-named children ``{Class}_{i}`` in; ``params_from_flax`` relies on it.
+
+``params_from_flax`` / ``flax_from_params`` move the weights of any port
+model that names its parameters' Flax key-paths in a ``flax_mapping()``
+method: TemporalUnet1D here, ``Unet1D``, ``Unet1DForwardModel`` and
+``GNSNet`` beside it.
 """
 
 from __future__ import annotations
@@ -137,6 +142,9 @@ class TemporalUnet1D(nn.Module):
         x = self.final_block(x, use_kernels)
         return self.final_conv(x)
 
+    def flax_mapping(self) -> Iterator[tuple[tuple[str, ...], str, Any]]:
+        return _flax_mapping(self)
+
 
 # ---------------------------------------------------------------------------
 # Flax parameters -> state_dict
@@ -164,6 +172,29 @@ def _conv_block(fp, pk):
     yield fp + ("GroupNorm_0", "GroupNorm_0", "bias"), pk + "norm.bias", None
 
 
+def _prenorm_attention(pre: str, attn: str, pk: str):
+    """The gain of PreNormResidual ``pre`` and the attention module ``attn``
+    it wraps, a sibling in Flax's naming (the parent builds it)."""
+    yield (pre, "ChannelLayerNorm_0", "g"), pk + "norm.g", None
+    yield from _dense((attn, "Dense_0"), pk + "fn.qkv.", bias=False)
+    yield from _dense((attn, "Dense_1"), pk + "fn.out.")
+    if attn.startswith("LinearAttention_"):
+        yield (attn, "ChannelLayerNorm_0", "g"), pk + "fn.norm.g", None
+
+
+class FlaxNames:
+    """Flax's auto-names in one scope: ``FlaxNames()("Dense")`` gives
+    Dense_0, then Dense_1, ...; one counter per class."""
+
+    def __init__(self):
+        self.count: dict[str, int] = {}
+
+    def __call__(self, cls: str) -> str:
+        i = self.count.get(cls, 0)
+        self.count[cls] = i + 1
+        return f"{cls}_{i}"
+
+
 def _flax_mapping(model: TemporalUnet1D) -> Iterator[tuple[tuple[str, ...], str, Any]]:
     """(Flax key-path, state_dict key, transform or None) for every parameter."""
     yield from _dense(("Dense_0",), "time_mlp.0.")
@@ -176,10 +207,8 @@ def _flax_mapping(model: TemporalUnet1D) -> Iterator[tuple[tuple[str, ...], str,
         if m.residual is not None:
             yield from _conv(fp + ("Conv1d_0",), pk + "residual.")
     for k in range(len(model.attns)):
-        yield (f"PreNormResidual_{k}", "ChannelLayerNorm_0", "g"), f"attns.{k}.norm.g", None
-        la = (f"LinearAttentionTemporal_{k}",)
-        yield from _dense(la + ("Dense_0",), f"attns.{k}.fn.qkv.", bias=False)
-        yield from _dense(la + ("Dense_1",), f"attns.{k}.fn.out.")
+        yield from _prenorm_attention(f"PreNormResidual_{k}", f"LinearAttentionTemporal_{k}",
+                                      f"attns.{k}.")
     for k in range(len(model.downs)):
         yield from _conv((f"Downsample1d_{k}", "Conv1d_0"), f"downs.{k}.conv.")
     for k in range(len(model.ups)):
@@ -200,8 +229,9 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...
     return flat
 
 
-def params_from_flax(tree: Mapping, model: TemporalUnet1D) -> dict[str, torch.Tensor]:
-    """State dict for ``model`` from the JAX package's TemporalUnet1D parameters.
+def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """State dict for ``model`` from the JAX package's parameters of the same
+    model (a TemporalUnet1D, Unet1D, Unet1DForwardModel or GNSNet).
 
     ``tree`` is the Flax parameter tree as numpy arrays: nested dicts, or a
     flat dict keyed by key-path strings such as ``"['Dense_0']['Dense_0']['kernel']"``
@@ -214,7 +244,7 @@ def params_from_flax(tree: Mapping, model: TemporalUnet1D) -> dict[str, torch.Te
         flat = {p[1:]: v for p, v in flat.items()}
     want = model.state_dict()
     out, missing, mismatched, used = {}, [], [], set()
-    for fp, pk, transform in _flax_mapping(model):
+    for fp, pk, transform in model.flax_mapping():
         if fp not in flat:
             missing.append(str(list(fp)))
             continue
@@ -229,7 +259,7 @@ def params_from_flax(tree: Mapping, model: TemporalUnet1D) -> dict[str, torch.Te
     unused = sorted(str(list(p)) for p in set(flat) - used)
     if missing or mismatched or unused:
         raise ValueError(
-            "Flax parameters do not match this TemporalUnet1D "
+            f"Flax parameters do not match this {type(model).__name__} "
             "(wrong --Unet_dim/--horizon?). "
             f"missing: {missing[:5] or 'none'}; shape mismatches: {mismatched[:5] or 'none'}; "
             f"unconsumed: {unused[:5] or 'none'}"
@@ -242,13 +272,13 @@ def _unflip_convT(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(w, (2, 0, 1))[::-1])
 
 
-def flax_from_params(model: TemporalUnet1D) -> dict[str, np.ndarray]:
+def flax_from_params(model: nn.Module) -> dict[str, np.ndarray]:
     """The model's parameters as the JAX package's Flax tree, flattened to
     key-path strings (``"['Dense_0']['Dense_0']['kernel']"``); the inverse
     of ``params_from_flax``."""
     sd = model.state_dict()
     out = {}
-    for fp, pk, transform in _flax_mapping(model):
+    for fp, pk, transform in model.flax_mapping():
         arr = sd[pk].detach().cpu().numpy()
         if transform is _flip_convT:
             arr = _unflip_convT(arr)

@@ -181,9 +181,11 @@ class BackwardPlan:
 
 
 def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool = True,
-                  want_dx: bool = True, num_sms: int = H100_SMS) -> BackwardPlan:
+                  want_dx: bool = True, num_sms: int = H100_SMS,
+                  want_w: bool = True) -> BackwardPlan:
     """Tile plan of the backward of a block C -> O (``rtb``: the fused RTB,
-    with a 1x1 projection if ``proj``; else the head Conv1d+GN+Mish)."""
+    with a 1x1 projection if ``proj``; else the head Conv1d+GN+Mish).
+    Without ``want_w`` wgrad does not run and its partials take no bytes."""
     if T > TILE_ROWS:
         raise ValueError(f"the CUDA backward takes T <= {TILE_ROWS}, got T={T}")
     if O % G:
@@ -224,7 +226,7 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
         splits.append(n)
         cps.append(per)
         blocks += tiles * n
-        wpart += n * taps * Ca * O * 4
+        wpart += n * taps * Ca * O * 4 if want_w else 0
     wstage = ((staged_weight_bytes(nt_d2, O, O) if rtb else 0)
               + (staged_weight_bytes(nt_d1, O, C) if want_dx else 0)
               + (staged_weight_bytes(nt_d1, O, C, K=1) if want_dx and rtb and proj else 0))
@@ -470,20 +472,22 @@ class _BackwardLayout:
 
 
 @functools.lru_cache(maxsize=None)
-def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, sms) -> _BackwardLayout:
-    plan = plan_backward(B, T, C, O, G, proj, rtb, want_dx, num_sms=sms)
+def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
+                     sms) -> _BackwardLayout:
+    plan = plan_backward(B, T, C, O, G, proj, rtb, want_dx, num_sms=sms, want_w=want_w)
     rows, vec, stats = (B, T, O), (O,), (B, G)
     shapes = dict(x=(B, T, C), w1=(K, C, O), gs1=vec, gb1=vec, g=rows, z1=rows, mean1=stats,
                   rstd1=stats, w2=(K, O, O), gs2=vec, gb2=vec, h=rows, z2=rows, mean2=stats,
                   rstd2=stats, wres=(C, O))
-    grads = dict(dw1=(K, C, O), db1=vec, dgs1=vec, dgb1=vec)
+    grads = dict(dw1=(K, C, O), db1=vec, dgs1=vec, dgb1=vec) if want_w else {}
     if want_dx:
         grads["dx"] = (B, T, C)
     if rtb:
-        grads.update(dw2=(K, O, O), db2=vec, dgs2=vec, dgb2=vec)
+        if want_w:
+            grads.update(dw2=(K, O, O), db2=vec, dgs2=vec, dgb2=vec)
         if want_dtemb:
             grads["dtemb"] = (B, O)
-        if proj:
+        if proj and want_w:
             grads.update(dwres=(C, O), dbres=vec)
     sizes = dict(dz1=B * T * O, dz2=B * T * O if rtb else 0, wstage=plan.wstage_bytes // 4,
                  wpart=plan.wpart_bytes // 4, colpart=plan.colpart_bytes // 4)
@@ -502,14 +506,17 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, sms) -> _
 
 
 def launch_backward(kernel: str, rtb: bool, inputs: dict, B: int, T: int, C: int, O: int,
-                    K: int, G: int, want_dx: bool, want_dtemb: bool) -> dict:
+                    K: int, G: int, want_dx: bool, want_dtemb: bool,
+                    want_w: bool = True) -> dict:
     """Run one backward entry (``cindm_<kernel>``) on CUDA tensors.
 
     ``inputs`` names the saved tensors and g as the fields of
     ``BackwardArgs`` (the head passes its conv as w1, z1, mean1, rstd1);
     returns the gradients it computed, by field name (dx only with
-    ``want_dx``, dtemb only with ``want_dtemb``). Checks every tensor and
-    allocates the gradients and the scratch; raises unless it is on CUDA."""
+    ``want_dx``, dtemb only with ``want_dtemb``, the weight, bias and
+    GroupNorm gradients only with ``want_w``: without it wgrad does not
+    run). Checks every tensor and allocates the gradients and the scratch;
+    raises unless it is on CUDA."""
     g = inputs["g"]
     dev = g.device
     if dev.type != "cuda":
@@ -517,7 +524,10 @@ def launch_backward(kernel: str, rtb: bool, inputs: dict, B: int, T: int, C: int
     if K != CONV_K:
         raise ValueError(f"{kernel}: the CUDA backward takes K={CONV_K}, got K={K}")
     proj = inputs.get("wres") is not None
-    lay = _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, num_sms(dev))
+    if not (want_w or want_dx or (rtb and want_dtemb)):
+        raise ValueError(f"{kernel}: no gradient wanted")
+    lay = _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
+                           num_sms(dev))
     check_inputs(kernel, dev, **{n: (t, lay.shapes[n]) for n, t in inputs.items() if t is not None})
     check_channels(kernel, C=C, O=O)
     lib = load()

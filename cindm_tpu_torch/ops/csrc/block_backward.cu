@@ -7,7 +7,9 @@
 // twice the forward's multiply-adds, 3xTF32 on the tensor cores) and their
 // design are in conv_backward.cuh. One call launches, in order:
 // stage_weights_t, gn_mish_bwd, dgrad_gn_stage (the block only),
-// dgrad_x_stage (when dx is wanted), wgrad and grad_reduce.
+// dgrad_x_stage (when dx is wanted), wgrad and grad_reduce (when the weight
+// gradients are wanted: dw1 not null; with dw1 null every weight, bias and
+// GroupNorm gradient pointer is null and only dx and dtemb are computed).
 #include "conv_backward.cuh"
 
 // Mirrors ops/_build.BackwardArgs field for field: pointers, then 64-bit
@@ -106,6 +108,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   using namespace cindm;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool want_dx = a.dx != nullptr;
+  const bool want_w = a.dw1 != nullptr;
   const bool proj = rtb && a.wres != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || a.samples != kTileRows / a.T || a.samples <= 0 ||
@@ -114,6 +117,9 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
       (rtb && ((a.nt_d2 != 64 && a.nt_d2 != 128) || !whole_groups(a.O, a.G, a.nt_d2) ||
                (!proj && a.C != a.O))))
     return cudaErrorInvalidValue;
+  if (!want_w && (a.db1 || a.dgs1 || a.dgb1 || a.dw2 || a.db2 || a.dgs2 || a.dgb2 || a.dwres ||
+                  a.dbres || !(want_dx || a.dtemb)))
+    return cudaErrorInvalidValue;  // all weight gradients or none, and something to compute
   const int row_tiles = (a.B + a.samples - 1) / a.samples;
   const int K = kConvK;
 
@@ -140,7 +146,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
       {rtb ? a.h : nullptr, a.dz2, a.O, K, a.dw2},
       {proj ? a.x : nullptr, a.g, a.C, 1, a.dwres},
   };
-  const int njobs = rtb ? (proj ? 3 : 2) : 1;
+  const int njobs = want_w ? (rtb ? (proj ? 3 : 2) : 1) : 0;
   size_t wpart_off = 0;
   int blocks = 0;
   ReduceArgs ra{};
@@ -169,7 +175,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   float* b_last = rtb ? a.db2 : a.db1;
   float* dsts[kColParts] = {gs_last, gb_last, b_last, proj ? a.dbres : nullptr,
                             a.dgs1, a.dgb1, a.db1};
-  for (int q = 0; q < (rtb ? kColParts : 3); ++q)
+  for (int q = 0; q < (want_w ? (rtb ? kColParts : 3) : 0); ++q)
     if (dsts[q] != nullptr) ra.job[ra.njobs++] = ReduceJob{a.colpart + q * pk, dsts[q], a.O, row_tiles};
 
   // 1. the weights of the dgrad stages, flipped and transposed
@@ -227,6 +233,8 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
                   : (t3 ? launch_dgrad_x<128, 3>(d, row_tiles, smem_d1, s)
                         : launch_dgrad_x<128, kConvK>(d, row_tiles, smem_d1, s)));
   }
+
+  if (!want_w) return cudaSuccess;
 
   // 5. the weight gradients' split partials
   CINDM_TRY(allow_smem(wgrad, wgrad_smem_bytes()));

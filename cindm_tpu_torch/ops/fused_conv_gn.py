@@ -227,7 +227,9 @@ def fused_conv1d_gn_mish_backward(
     """The head's backward kernel (``csrc/block_backward.cu``) on CUDA
     tensors: the cotangents of (x, w, b, gn_scale, gn_bias) from
     ``ConvGNMishSaved`` fields and the output's cotangent g; None where
-    ``needs`` is False (dx is then not computed). Raises on other devices;
+    ``needs`` is False (dx is then not computed; without any of the other
+    four, wgrad does not run: the x-only gradient of design by backprop).
+    Raises on other devices;
     ``fused_conv1d_gn_mish_backward_reference`` is the plain version."""
     s = ConvGNMishSaved(*saved)
     B, T, C = s.x.shape
@@ -237,7 +239,7 @@ def fused_conv1d_gn_mish_backward(
         "fused_conv1d_gn_mish_backward", False, dict(x=s.x, w1=s.w, gs1=s.gn_scale,
                                                      gb1=s.gn_bias, g=g, z1=s.z, mean1=s.mean,
                                                      rstd1=s.rstd),
-        B, T, C, O, K, G, want_dx=needs[0], want_dtemb=False)
+        B, T, C, O, K, G, want_dx=needs[0], want_dtemb=False, want_w=any(needs[1:]))
     fused_conv1d_gn_mish_backward.launches += 1
     return [grads.get(n) if want else None
             for n, want in zip(("dx", "dw1", "db1", "dgs1", "dgb1"), needs)]

@@ -221,7 +221,8 @@ def fused_rtb_backward(
     tensors: the cotangents of the twelve inputs from ``RTBSaved`` fields and
     the output's cotangent g, as ``fused_rtb_backward_reference`` returns
     them. dx (and its launch) and dtemb are computed only where ``needs``
-    asks. Raises on other devices."""
+    asks, the other ten only when ``needs`` asks for one of them (wgrad and
+    the reduction are then skipped). Raises on other devices."""
     s = RTBSaved(*saved)
     B, T, C = s.x.shape
     K, _, O = s.w1.shape
@@ -229,7 +230,8 @@ def fused_rtb_backward(
                   wres=s.wres, g=g, h=s.h, z1=s.z1, mean1=s.mean1, rstd1=s.rstd1, z2=s.z2,
                   mean2=s.mean2, rstd2=s.rstd2)
     grads = _build.launch_backward("fused_rtb_backward", True, inputs, B, T, C, O, K,
-                                   s.mean1.shape[1], want_dx=needs[0], want_dtemb=needs[1])
+                                   s.mean1.shape[1], want_dx=needs[0], want_dtemb=needs[1],
+                                   want_w=any(needs[2:]))
     fused_rtb_backward.launches += 1
     names = ("dx", "dtemb", "dw1", "db1", "dgs1", "dgb1", "dw2", "db2", "dgs2", "dgb2", "dwres",
              "dbres")

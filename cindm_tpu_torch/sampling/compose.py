@@ -41,10 +41,13 @@ def window_coverage(
     return cov
 
 
-# Target size of one denoiser call's folded (window, pair, batch) axis: the
-# B=64 flagship fold. The rule below is the JAX package's; this value was
-# measured on a TPU v5e and is not yet measured on the H100.
-FOLD_TARGET = 5376
+# Target size of one denoiser call's folded (window, pair, batch) axis. The
+# rule below is the JAX package's; the value is the card's. chip_smoke.py's
+# denoiser phase times the full-width TemporalUnet1D forward (kernel path)
+# per sample at folds of 1,344 / 2,688 / 5,376 / 10,752: 9.97 / 5.32 / 3.90
+# / 3.65 us on an NVIDIA H100 80GB HBM3 at 700.00 W. The time per sample still
+# falls at 10,752, the largest fold measured, so one call takes up to that.
+FOLD_TARGET = 10752
 
 
 def resolve_fold_chunks(n_fold: int, requested: int = 0) -> int:

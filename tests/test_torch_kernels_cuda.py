@@ -381,3 +381,98 @@ def test_backward_kernels_refuse_cpu_tensors(dev):
     out, *saved = fused_rtb_forward_saving_reference(*args)
     with pytest.raises(ValueError, match="CUDA"):
         fused_rtb_backward(args + list(saved), torch.ones_like(out), [True] * 12)
+
+
+# The later paths' shapes: the forward model's Conv1dBlocks at horizon 24
+# and 2 (T down to 1, C up to 1,024, the 8-channel stem), the 1-body prior's
+# 4-channel stem, the horizon-70 direct model's T=70 and T=35 blocks.
+FORWARD_MODEL_SHAPES = [(8, 64, 24), (8, 64, 2), (64, 64, 2), (64, 128, 1), (128, 256, 1),
+                        (512, 512, 1), (1024, 512, 1), (512, 256, 1), (256, 128, 2),
+                        (128, 64, 2), (1024, 512, 3), (64, 64, 24)]
+ANALYSIS_RTB_SHAPES = [(4, 64, 24), (8, 64, 70), (64, 64, 70), (64, 128, 35), (512, 512, 35),
+                       (1024, 512, 35), (128, 64, 35)]
+
+
+@pytest.mark.parametrize("B", [1000, 4, 999, 3], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,O,T", FORWARD_MODEL_SHAPES, ids=lambda v: str(v))
+def test_fused_conv1d_gn_mish_at_forward_model_shapes(dev, C, O, T, B):
+    a = _args(C, O, B, T, dev, seed=C + O + T + B)
+    args = (a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
+    torch.testing.assert_close(fused_conv1d_gn_mish(*args), fused_conv1d_gn_mish_reference(*args),
+                               **TOL)
+
+
+@pytest.mark.parametrize("B", [32, 4, 31], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,O,T", FORWARD_MODEL_SHAPES, ids=lambda v: str(v))
+def test_fused_conv1d_gn_mish_function_x_only_gradient(dev, C, O, T, B):
+    """Design by backprop: the parameters need no gradient, so the backward
+    kernel runs without wgrad and returns dx alone."""
+    a = _args(C, O, B, T, dev, seed=C * 3 + O + T + B)
+    w = (a["w1"], a["b1"], a["gs1"], a["gb1"])
+    g = torch.randn((B, T, O), generator=torch.Generator(device=dev).manual_seed(B), device=dev)
+    outs = []
+    for fn in (fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference):
+        x = a["x"].clone().requires_grad_(True)
+        out = fn(x, *w)
+        outs.append((out.detach(), *torch.autograd.grad(out, [x], g)))
+    n = fused_conv1d_gn_mish_backward.launches
+    x = a["x"].clone().requires_grad_(True)
+    fused_conv1d_gn_mish_differentiable(x, *w).backward(g)
+    torch.cuda.synchronize()
+    assert fused_conv1d_gn_mish_backward.launches == n + 1
+    (out_k, dx_k), (out_p, dx_p) = outs
+    torch.testing.assert_close(out_k, out_p, **TOL)
+    torch.testing.assert_close(dx_k, dx_p, **TOL)
+
+
+@pytest.mark.parametrize("C,O,T", FORWARD_MODEL_SHAPES, ids=lambda v: str(v))
+def test_fused_conv1d_gn_mish_function_gradients_at_forward_model_shapes(dev, C, O, T):
+    B = 32
+    a = _args(C, O, B, T, dev, seed=C + O * 5 + T)
+    a = {k: a[k] for k in ("x", "w1", "b1", "gs1", "gb1")}
+    g = torch.randn((B, T, O), generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    head = lambda x, w1, b1, gs1, gb1: fused_conv1d_gn_mish_differentiable(x, w1, b1, gs1, gb1)
+    plain = lambda x, w1, b1, gs1, gb1: fused_conv1d_gn_mish_reference(x, w1, b1, gs1, gb1)
+    out, got = _grads(head, a, g)
+    want_out, want = _grads(plain, a, g)
+    torch.testing.assert_close(out, want_out, **TOL)
+    for name, gt, gw in zip(a, got, want):
+        _assert_scaled(gt, gw, name)
+
+
+@pytest.mark.parametrize("B", [128, 16, 127, 15], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,O,T", ANALYSIS_RTB_SHAPES, ids=lambda v: str(v))
+def test_fused_rtb_at_analysis_shapes(dev, C, O, T, B):
+    a = _args(C, O, B, T, dev, seed=C + O + T + B)
+    torch.testing.assert_close(fused_rtb(**a), fused_rtb_reference(**a), **TOL)
+
+
+@pytest.mark.parametrize("C,O,T", [(4, 64, 24), (8, 64, 70), (64, 128, 35)], ids=lambda v: str(v))
+def test_fused_rtb_function_gradients_at_analysis_shapes(dev, C, O, T):
+    B = 33
+    a = _args(C, O, B, T, dev, seed=C + 2 * O + T)
+    g = torch.randn((B, T, O), generator=torch.Generator(device=dev).manual_seed(B), device=dev)
+    out, got = _grads(fused_rtb_differentiable, a, g)
+    want_out, want = _grads(fused_rtb_reference, a, g)
+    torch.testing.assert_close(out, want_out, **TOL)
+    for name, gt, gw in zip(a, got, want):
+        _assert_scaled(gt, gw, name)
+
+
+@pytest.mark.parametrize("C,O,T", [(1024, 512, 1), (8, 64, 2), (512, 512, 35)], ids=lambda v: str(v))
+def test_backward_kernels_without_weight_gradients(dev, C, O, T):
+    """needs asks for dx (and dtemb) only: wgrad and the reduction do not
+    run, and dx equals the closed form's."""
+    args, _, saved, g = _rtb_saved(C, O, 40, T, dev, seed=C + T)
+    got = fused_rtb_backward(args + saved, g, [True, True] + [False] * 10)
+    want = fused_rtb_backward_reference(args + saved, g, [True, True] + [False] * 10)
+    assert all(x is None for x in got[2:])
+    for name, gt, gw in zip(RTB_NAMES[:2], got[:2], want[:2]):
+        _assert_scaled(gt, gw, name)
+    head = [args[0], args[2], args[3], args[4], args[5]]
+    _, *hsaved = _conv_gn_mish(*head, 8, 1e-5, save=True)
+    hg = torch.randn((40, T, O), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    got = fused_conv1d_gn_mish_backward([*head, *hsaved], hg, [True] + [False] * 4)
+    want = fused_conv1d_gn_mish_backward_reference([*head, *hsaved], hg, [True] + [False] * 4)
+    assert all(x is None for x in got[1:])
+    _assert_scaled(got[0], want[0], "x")

@@ -64,10 +64,37 @@ def test_composed_eps_model_matches(mode, clip, fold_chunks):
 
 
 @pytest.mark.parametrize("n_fold,requested,want", [
-    (5376, 1, 1), (5376, 0, 1), (10752, 0, 2), (43008, 0, 8), (24, 3, 3), (24, 5, 1), (24, -1, 1),
+    (5376, 1, 1), (5376, 0, 1), (10752, 0, 1), (21504, 0, 2), (43008, 0, 4), (24, 3, 3),
+    (24, 5, 1), (24, -1, 1),
 ])
 def test_resolve_fold_chunks(n_fold, requested, want):
+    """Chunk counts at the port's FOLD_TARGET of 10,752 samples a call."""
     assert resolve_fold_chunks(n_fold, requested) == want
+
+
+@pytest.mark.parametrize("n_fold", [10752, 10755, 16128, 21504, 32259, 43008])
+def test_resolve_fold_chunks_follows_the_jax_rule(n_fold, monkeypatch):
+    """The JAX package picks its chunk count inside the composed model; with
+    its FOLD_TARGET set to the port's, the slice it hands the denoiser has
+    n_fold / resolve_fold_chunks(n_fold) samples."""
+    import cindm_tpu.sampling.compose as jc
+    from cindm_tpu_torch.sampling import compose as tc
+
+    monkeypatch.setattr(jc, "FOLD_TARGET", tc.FOLD_TARGET)
+    P, K = 3, 1  # 3 bodies, one window: n_fold = 3 * B
+    B = n_fold // P
+    assert P * B == n_fold
+    seen = []
+
+    def base(x, t):
+        seen.append(x.shape[0])
+        return x
+
+    m = jc.make_composed_eps_model(base, compose_n_bodies=3, n_composed=K - 1, compose_start_step=4,
+                                   single_model_step=2)
+    jax.eval_shape(m, jax.ShapeDtypeStruct((B, 2, 12), jnp.float32),
+                   jax.ShapeDtypeStruct((B,), jnp.int32))
+    assert seen == [P * B // resolve_fold_chunks(P * B)]
 
 
 def _design_fns(coef, tcc, mode):

@@ -355,11 +355,12 @@ def test_train_1d_flags_match_jax_cli():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--method_type", "GNS"], "slice 4"),
+    (["--method_type", "GNS", "--n_devices", "2"], "slice 7"),
     (["--n_devices", "2"], "slice 7"),
-    (["--method_type", "forward_model"], "slice 4"),
+    (["--method_type", "forward_model", "--n_devices", "1"], "slice 7"),
 ])
 def test_train_1d_refuses_what_is_not_ported(tmp_path, argv, match):
+    """Multi-GPU training, for every method type (the baselines are ported)."""
     with pytest.raises(SystemExit, match=match):
         train_1d.main(["--device", "cpu", "--results_folder", str(tmp_path), *argv])
 
