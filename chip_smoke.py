@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths through the hand-written CUDA kernels: composed
-8-body guided inverse design, training of the 2-body prior that design
-composes, the analysis of priors (time composition and classifier-free
-multibody composition), and the 1D baselines (forward surrogates trained,
-then designed with by CEM and backprop). Ten phases; each prints one JSON
+Drives the port's four 1D paths through the hand-written CUDA kernels:
+composed 8-body guided inverse design, training of the 2-body prior that
+design composes, the analysis of priors (time composition and
+classifier-free multibody composition), and the 1D baselines (forward
+surrogates trained, then designed with by CEM and backprop); then path C,
+multi-airfoil guided design with closed-loop BDIM scoring, which runs plain
+PyTorch (no TPU kernel lies on it). Thirteen phases; each prints one JSON
 line with its elapsed seconds after a ``torch.cuda.synchronize()``:
 
 1. device:   the card's name and nvidia-smi's name and power limit; TF32 off.
@@ -69,16 +71,41 @@ line with its elapsed seconds after a ``torch.cuda.synchronize()``:
              10 design steps each: the forward model's loss falls, every
              design objective is finite; seconds per run, CEM's model
              forwards per second.
-10. summary: the ``{"kernels": [...]}`` line (launches on the design path,
+10. unet2d:  the full-width Unet2D (dim 64, (1, 2), 21 channels) and
+             ForceUnet (dim 64, (1, 2, 4, 8)) with seeded weights on the card
+             against the port's CPU run of the same weights and inputs
+             (Unet2D at batch 4, ForceUnet at 24 with the input gradient of
+             force_objective; 1e-4, the gradient 1e-3 of the CPU's largest
+             entry); per reverse step of the design configuration (B*nb =
+             48): the Unet2D forward, the ForceUnet forward + input
+             gradient at 288 images, one whole guided step with its peak
+             memory, host time and device busy share.
+11. design2d: ``cindm_tpu_torch.cli.design_2d`` twice on snapshots of those
+             weights: (a) batch 16, 3 boundaries, region partition y over
+             0.2-0.8, station blobs to t = 30, standard-alpha, coeff 2e-4;
+             (b) 2 boundaries, 25 guided DDIM steps, init_sep 1,
+             lambda_separation 1; both on a 100-step schedule: raw output
+             finite [16, nb, 64, 64, 21], (a)'s mask channel exactly 0
+             outside each band, the record's keys the JAX CLI's and finite,
+             no 1D kernel launched; reverse steps/s, Unet2D fwds/s, the
+             seconds of sampling, post-processing and scoring.
+12. bdim:    16 designs x 3 airfoils from ``data/airfoil`` (one per band of
+             run (a)): the mask/offset round trip, closed-loop scoring at
+             the full protocol (n 64, 60 CG iterations, 300 + 100 steps;
+             finite forces, |mean drag| > 1e-3 per design), 2 designs over
+             20 steps on the card against the port's CPU solver (every
+             field within 1e-3 of its max magnitude), one step's card time,
+             host time and launches.
+13. summary: the ``{"kernels": [...]}`` line (launches on the design path,
              and per path in ``launches_train``, ``launches_analysis``,
-             ``launches_baselines``), the nvidia-smi line, and last
-             ``{"ok": true, "device": {...}}``.
+             ``launches_baselines``, ``launches_design2d``), the nvidia-smi
+             line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
 It exits non-zero at once when CUDA is unavailable or when it runs outside a
 checkout of the repository. Weights and inputs are drawn from seeded
 ``torch.Generator``s; nothing is read from or written to ``results/`` or
-``dataset/`` (the training run writes under ``.cuda_build/``).
+``dataset/`` (the training and design runs write under ``.cuda_build/``).
 """
 
 from __future__ import annotations
@@ -149,6 +176,35 @@ STEP_MODELS = ("Unet_single_step", "GNS_autoregress")  # rolled out one step a c
 DESIGN_STEPS = 10
 BASELINE_DESIGN = ["--n_bodies", "2", "--rollout_steps", "23", "--N", "1000", "--Ne", "100",
                    "--Unet_dim", "64", "--max_design_steps", str(DESIGN_STEPS)]
+
+# Path C, design_2d at scripts_paper/round5_queue2.sh:153-173's configuration
+# (batch 16, 3 boundaries, region partition y over 0.2-0.8, standard-alpha,
+# coeff 2e-4, closed-loop scoring), cut only in its schedule: 100 timesteps
+# (from 1,000). Run (a) also holds station blobs to t = 30, so both
+# inpaintings and their shared draw run; run (b) is the guided DDIM variant.
+DESIGN2D_CUTS = ["--timesteps", "100"]
+DESIGN2D_A = ["--batch_size", "16", "--num_boundaries", "3", "--design_guidance", "standard-alpha",
+              "--coeff_ratio", "2e-4", "--evaluate", "True", "--region_partition", "y",
+              "--region_band", "0.2", "0.8", "--station_until", "30"]
+DESIGN2D_B = ["--batch_size", "16", "--num_boundaries", "2", "--design_guidance", "standard-alpha",
+              "--coeff_ratio", "2e-4", "--evaluate", "True", "--ddim_steps", "25",
+              "--init_sep", "1.0", "--lambda_separation", "1.0"]
+DESIGN2D_BATCH, DESIGN2D_NB, DESIGN2D_FRAMES = 16, 3, 6
+# the JAX CLI's final record (cindm_tpu/cli/design_2d.py:252-268): these keys,
+# plus evaluate_designs' scalar scores when a design is valid
+DESIGN2D_RECORD_KEYS = {"valid_designs", "batch_size", "num_boundaries", "lambda_overlap",
+                        "lambda_separation", "init_sep", "station_until", "region_partition",
+                        "ddim_steps"}
+DESIGN2D_SCORE_KEYS = {"drag_min", "lift_max", "obj_min", "lift_over_drag_max", "cd_min", "cl_max"}
+UNET2D_TOL = 1e-4  # card vs the port's CPU run: max |d| / max |CPU output|
+FORCE_GRAD_TOL = 1e-3  # the same for the input gradient of force_objective
+# the parameter counts of results/airfoil_v3/persisted_m60000.npz and
+# results/force_v3/persisted_m8000.npz, the widths the repo trained
+UNET2D_PARAMS, FORCE_UNET_PARAMS = 3_108_501, 14_594_818
+# closed-loop scoring's protocol (cli/design_2d.py): BDIM at n 64, 60 CG
+# iterations, 300 warm-up and 100 recorded steps
+BDIM_N, BDIM_PROTOCOL = 64, (300, 100)
+BDIM_TOL, BDIM_CHECK_STEPS = 1e-3, 20  # card vs the port's CPU solver, 2 designs
 
 # (C_in, C_out, T) of the 16 ResidualTemporalBlocks of TemporalUnet1D(horizon
 # 24, transition_dim 8, dim 64), in call order, and of its head Conv1dBlock.
@@ -968,6 +1024,267 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             "data_generation_seconds": first["record"]["data_seconds"], "checks": checks}
 
 
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want| of a card result against a CPU one."""
+    return errors(torch, got.detach().cpu(), want.detach().cpu())[1]
+
+
+def flop_count(fn) -> int:
+    """FLOP of one call of ``fn`` (matmuls and convolutions, forward and
+    backward), counted by ``torch.utils.flop_counter`` from the shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def run_unet2d(torch, dev, cuda: bool, batch: int = DESIGN2D_BATCH, nb: int = DESIGN2D_NB,
+               force_designs: tuple[int, int] = (2, 2)):
+    """Phase 11: the full-width Unet2D and ForceUnet (seeded weights) on the
+    card against the port's own CPU run on the same weights and inputs
+    (Unet2D at batch 4; ForceUnet at batch 24, B 2 x nb 2 x 6 frames, with
+    the input gradient of force_objective); then, on the card, per reverse
+    step of the design configuration (B*nb = 48): the Unet2D forward, the
+    ForceUnet forward + input gradient at 288 images, one whole guided
+    step with its peak memory and device busy share. Returns (record,
+    (unet, force)) with the models on ``dev``."""
+    import copy
+
+    from cindm_tpu_torch.models import ForceUnet, Unet2D
+    from cindm_tpu_torch.sampling.diffusion2d import Diffusion2DConfig, nhwc_model, p_sample_2d
+    from cindm_tpu_torch.sampling.guidance2d import make_design_grad_fn
+    from cindm_tpu_torch.sampling.sampler import generator_randn
+
+    unet = Unet2D(dim=64, dim_mults=(1, 2), channels=21, generator=torch.Generator().manual_seed(10))
+    force = ForceUnet(dim=64, dim_mults=(1, 2, 4, 8), generator=torch.Generator().manual_seed(11))
+    params = {"Unet2D": sum(p.numel() for p in unet.parameters()),
+              "ForceUnet": sum(p.numel() for p in force.parameters())}
+    if params != {"Unet2D": UNET2D_PARAMS, "ForceUnet": FORCE_UNET_PARAMS}:
+        raise AssertionError(f"full-width parameter counts {params}")
+    unet_cpu, force_cpu = (copy.deepcopy(m).eval().requires_grad_(False) for m in (unet, force))
+    unet, force = (m.to(dev).eval().requires_grad_(False) for m in (unet, force))
+    g = torch.Generator().manual_seed(12)
+    x4 = torch.rand((4, 64, 64, 21), generator=g) * 2 - 1
+    t4 = torch.randint(0, 1000, (4,), generator=g)
+    with torch.no_grad():
+        unet_err = rel_err(torch, nhwc_model(unet)(x4.to(dev), t4.to(dev)),
+                           nhwc_model(unet_cpu)(x4, t4))
+    fb, fnb = force_designs
+    inp = torch.rand((fb * fnb * DESIGN2D_FRAMES, 4, 64, 64), generator=g) * 2 - 1
+    with torch.no_grad():
+        force_err = rel_err(torch, force(inp.to(dev)), force_cpu(inp))
+    xf = torch.rand((fb * fnb, 64, 64, 21), generator=g) * 2 - 1
+    grad = lambda m, d: make_design_grad_fn(m, fb, fnb, DESIGN2D_FRAMES, -1.0, 1.0,
+                                            lambda_overlap=0.0)(xf.to(d))
+    grad_err = rel_err(torch, grad(force, dev), grad(force_cpu, "cpu"))
+    rec = {"params": params, "unet2d_batch": 4, "unet2d_max_err_over_max_abs": unet_err,
+           "force_batch": inp.shape[0], "force_max_err_over_max_abs": force_err,
+           "force_objective_grad_max_err_over_max_abs": grad_err,
+           "tolerance": UNET2D_TOL, "grad_tolerance": FORCE_GRAD_TOL}
+    if unet_err > UNET2D_TOL or force_err > UNET2D_TOL or grad_err > FORCE_GRAD_TOL:
+        raise AssertionError(f"2D models on {dev} disagree with the CPU: {rec}")
+    if cuda:
+        Bnb = batch * nb
+        xs = (torch.rand((Bnb, 64, 64, 21), generator=g) * 2 - 1).to(dev)
+        ts = torch.full((Bnb,), 50, dtype=torch.long, device=dev)
+        eps = nhwc_model(unet)
+        design_fn = make_design_grad_fn(force, batch, nb, DESIGN2D_FRAMES, -1.0, 1.0)
+        cfg = Diffusion2DConfig(timesteps=100, coeff_ratio=2e-4)
+        sched = cfg.make_schedule(dev)
+        randn = generator_randn(torch.Generator(device=dev).manual_seed(13), dev)
+
+        def unet_fwd():
+            with torch.no_grad():
+                eps(xs, ts)
+
+        def step():
+            with torch.no_grad():
+                p_sample_2d(cfg, sched, eps, xs, 50, randn, batch=batch, num_boundaries=nb,
+                            design_fn=design_fn)
+
+        for fn in (unet_fwd, lambda: design_fn(xs), step):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = event_ms(torch, step, reps=3)
+        unet_ms = event_ms(torch, unet_fwd, reps=5)
+        force_ms = event_ms(torch, lambda: design_fn(xs), reps=3)
+        unet_flop, force_flop = flop_count(unet_fwd), flop_count(lambda: design_fn(xs))
+        rec.update(
+            design_batch=Bnb, force_images=Bnb * DESIGN2D_FRAMES,
+            unet2d_forward_ms=unet_ms, unet2d_forward_flop=unet_flop,
+            unet2d_forward_tflop_per_s=unet_flop / unet_ms / 1e9,
+            force_forward_grad_ms=force_ms, force_forward_grad_flop=force_flop,
+            force_forward_grad_tflop_per_s=force_flop / force_ms / 1e9,
+            guided_step_ms=step_ms,
+            guided_step_peak_bytes=torch.cuda.max_memory_allocated(dev),
+            guided_step_host_ms=host_ms(torch, step, reps=3),
+            guided_step_device=device_busy(torch, step, step_ms))
+    return rec, (unet, force)
+
+
+def run_design2d(torch, dev, cuda: bool, models, cuts: list[str] = DESIGN2D_CUTS) -> dict:
+    """Phase 12: path C, ``cindm_tpu_torch.cli.design_2d`` twice on snapshots
+    of the unet2d phase's weights: raw output finite and of its shape, run
+    (a)'s mask channel exactly 0 outside each region band, the record's keys
+    the JAX CLI's, the record finite, TF32 off after the CLI returns (it is
+    turned on before each run: the CLI sets its own precision); no kernel of
+    the 1D paths launched. ``cuts`` follow each run's flags, so they win."""
+    import numpy as np
+
+    from cindm_tpu_torch.cli.design_2d import build_parser, make_region_bands
+    from cindm_tpu_torch.cli.design_2d import main as design_main
+
+    unet, force = models
+    scratch = os.path.join(REPO, ".cuda_build")
+    os.makedirs(scratch, exist_ok=True)
+    out = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke-design2d-") as tmp:
+        mpath = write_snapshot(unet, os.path.join(tmp, "airfoil"))
+        fpath = write_snapshot(force, os.path.join(tmp, "force"))
+        for name, args in {"a": DESIGN2D_A, "b": DESIGN2D_B}.items():
+            raw = os.path.join(tmp, f"raw_{name}.npy")
+            argv = ["--model_path", mpath, "--force_model_path", fpath, "--device", str(dev),
+                    "--dump_raw", raw, *args, *cuts]
+            flags = vars(build_parser().parse_args(argv))
+            timings = {}
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                record = design_main(argv, timings=timings)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            sample = np.load(raw)
+            B, nb = flags["batch_size"], flags["num_boundaries"]
+            steps = flags["ddim_steps"] or flags["timesteps"]
+            keys = DESIGN2D_RECORD_KEYS | (DESIGN2D_SCORE_KEYS if record["valid_designs"] else set())
+            checks = {
+                "raw_finite": bool(np.isfinite(sample).all()),
+                "raw_shape": sample.shape == (B, nb, 64, 64, 21),
+                "record_keys": set(record) == keys,
+                "record_finite": all(math.isfinite(v) for v in record.values()
+                                     if not isinstance(v, str)),
+                "tf32_off": not (torch.backends.cuda.matmul.allow_tf32
+                                 or torch.backends.cudnn.allow_tf32),
+            }
+            if flags["region_partition"] == "y":
+                bands = make_region_bands(64, 64, nb, *flags["region_band"]).numpy()
+                mask = sample[..., -3]  # [B, nb, H, W]
+                checks["mask_zero_outside_bands"] = all(
+                    bool((mask[:, k][:, bands[k] == 0] == 0).all()) for k in range(nb))
+            failed = [k for k, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError(f"design2d run ({name}) checks failed: {failed}; {record}")
+            out[name] = {"record": record, "seconds": seconds, "part_seconds": timings,
+                         "reverse_steps": steps, "designs": B, "num_boundaries": nb,
+                         "reverse_steps_per_s": steps / timings["sampling"],
+                         "unet2d_fwds_per_s": steps * B * nb / timings["sampling"],
+                         "printed_tail": printed.getvalue().strip().splitlines()[-2:],
+                         "checks": checks}
+    counts = read_counts(backwards=True)
+    if any(counts.values()):
+        raise AssertionError(f"path C launched a kernel of the 1D paths: {counts}")
+    return {"runs": out, "launches": counts, "cuts": cuts, "timesteps_script": 1000}
+
+
+def band_designs(n_designs: int, nb: int, lo: float = 0.2, hi: float = 0.8, grid: int = 64,
+                 seed: int = 2024):
+    """``n_designs`` designs of ``nb`` airfoils from data/airfoil's sampler,
+    airfoil k centred in run (a)'s region band k and redrawn until it lies
+    inside that band, so that no two overlap."""
+    import numpy as np
+
+    from cindm_tpu_torch.data.airfoil import boundary_coords, sample_boundary_params
+
+    rng = np.random.default_rng(seed)
+    span = (hi - lo) * grid / nb
+    designs = []
+    for _ in range(n_designs):
+        polys = []
+        for k in range(nb):
+            r0 = lo * grid + k * span
+            c = (r0 + 0.5 * span) / grid
+            while True:
+                p = boundary_coords(sample_boundary_params(rng, grid, y_band=(c, c)))
+                if r0 <= p[:, 1].min() and p[:, 1].max() < r0 + span:
+                    break
+            polys.append(p)
+        designs.append(polys)
+    return designs
+
+
+def run_bdim(torch, dev, cuda: bool, n_designs: int = DESIGN2D_BATCH, nb: int = DESIGN2D_NB,
+             protocol: tuple[int, int] = BDIM_PROTOCOL, check_steps: int = BDIM_CHECK_STEPS) -> dict:
+    """Phase 13: closed-loop scoring of real airfoils (``band_designs``):
+    the mask/offset round trip (``boundary_mask_offset`` ->
+    ``reconstruct_boundary``), ``evaluate_designs`` at the full protocol
+    (finite forces, |mean drag| > 1e-3 for every design), 2 designs over
+    ``check_steps`` steps on the card against the port's CPU solver, and one
+    BDIM step's card time, host time and launches."""
+    import numpy as np
+
+    from cindm_tpu_torch.data.airfoil import boundary_mask_offset
+    from cindm_tpu_torch.physics import bdim
+    from cindm_tpu_torch.utils import evaluate_designs, reconstruct_boundary
+
+    designs = band_designs(n_designs, nb)
+    round_trip = sum(len(reconstruct_boundary(*boundary_mask_offset(p))) == 1
+                     for polys in designs for p in polys)
+    M = max(len(p) for polys in designs for p in polys)
+    coords = np.stack([np.stack([np.pad(p, ((0, M - len(p)), (0, 0)), mode="edge") for p in polys])
+                       for polys in designs]).astype(np.float32)
+    cfg = bdim.BDIMConfig(n=BDIM_N)
+    n_warmup, n_record = protocol
+    t0 = time.perf_counter()
+    scores = evaluate_designs(coords, cfg, n_warmup=n_warmup, n_record=n_record, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    forces = scores["forces"]
+    drag = forces[..., 0].sum(axis=2).mean(axis=1)
+
+    def steps(device):
+        c = torch.as_tensor(coords[:2], device=device)
+        consts, state = bdim.make_consts(cfg, c), bdim.init_state(cfg, 2, device)
+        with torch.no_grad():
+            for _ in range(check_steps):
+                state = bdim.bdim_step(cfg, consts, state)
+        return state
+
+    card, cpu = steps(dev), steps("cpu")
+    field_err = {name: rel_err(torch, a, b) for name, a, b in zip(card._fields, card, cpu)}
+    checks = {"forces_finite": bool(np.isfinite(forces).all()),
+              "drag_nonzero": bool((np.abs(drag) > 1e-3).all()),
+              "card_vs_cpu": all(e <= BDIM_TOL for e in field_err.values())}
+    rec = {"designs": n_designs, "boundaries": nb, "n": BDIM_N, "cg_iters": cfg.cg_iters,
+           "n_warmup": n_warmup, "n_record": n_record, "seconds": seconds,
+           "design_steps_per_s": n_designs * (n_warmup + n_record) / seconds,
+           "round_trip_one_polygon": round_trip, "round_trip_of": n_designs * nb,
+           "mean_drag": drag.tolist(), "scores": {k: v for k, v in scores.items() if np.ndim(v) == 0},
+           "check_steps": check_steps, "card_vs_cpu_max_err_over_max_abs": field_err,
+           "tolerance": BDIM_TOL, "checks": checks}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bdim phase checks failed: {failed}; {rec}")
+    if cuda:
+        c = torch.as_tensor(coords, device=dev)
+        consts, state = bdim.make_consts(cfg, c), bdim.init_state(cfg, n_designs, dev)
+
+        def step():
+            with torch.no_grad():
+                bdim.bdim_step(cfg, consts, state)
+
+        step()
+        torch.cuda.synchronize()
+        step_ms = event_ms(torch, step, reps=5)
+        rec.update(step_ms=step_ms, step_host_ms=host_ms(torch, step, reps=5),
+                   step_device=device_busy(torch, step, step_ms))
+    return rec
+
+
 def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
     meta = {
         "fused_rtb": ("cindm_tpu_torch/ops/csrc/fused_rtb.cu", "cindm_tpu/ops/fused_rtb.py:179"),
@@ -1064,31 +1381,33 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
                                                   EVAL_SAMPLE_STEPS),
-        analysis_kw: dict | None = None, baselines_kw: dict | None = None) -> dict:
+        analysis_kw: dict | None = None, baselines_kw: dict | None = None,
+        unet2d_kw: dict | None = None, design2d_kw: dict | None = None,
+        bdim_kw: dict | None = None) -> dict:
     """Every phase; the keyword arguments shrink the later paths for a CPU
-    rehearsal (``analysis_kw`` / ``baselines_kw`` go to ``run_analysis`` /
-    ``run_baselines``)."""
+    rehearsal (``analysis_kw`` / ``baselines_kw`` / ``unet2d_kw`` /
+    ``design2d_kw`` / ``bdim_kw`` go to ``run_analysis`` / ``run_baselines``
+    / ``run_unet2d`` / ``run_design2d`` / ``run_bdim``)."""
     analysis_kw, baselines_kw = analysis_kw or {}, baselines_kw or {}
     import torch
 
     from cindm_tpu_torch.models import TemporalUnet1D
     from cindm_tpu_torch.ops import _build
+    from cindm_tpu_torch.utils.device import resolve_device
 
-    dev = torch.device(device)
+    t0 = time.perf_counter()
+    dev = resolve_device(device)  # also turns TF32 off, as every entry point of the port does
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     info = {}
-
-    t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     info["smi"] = nvidia_smi_line() if cuda else "not measured"
     info["name"] = torch.cuda.get_device_name(0) if cuda else "cpu"
     sync()
     emit({"phase": "device", "seconds": time.perf_counter() - t0, "name": info["name"],
           "nvidia_smi": info["smi"], "count": torch.cuda.device_count() if cuda else 0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "allow_tf32": {"matmul": False, "cudnn": False}})
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
     if cuda:
@@ -1157,6 +1476,27 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     emit({"phase": "baselines", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], **base})
 
+    # path C (TF32 is off since the device phase: cuDNN would default to it;
+    # the design_2d CLI turns it off itself, which run_design2d checks)
+    t0 = time.perf_counter()
+    u2d, models2d = run_unet2d(torch, dev, cuda, **(unet2d_kw or {}))
+    sync()
+    emit({"phase": "unet2d", "seconds": time.perf_counter() - t0, "device": info["name"],
+          "power_limit_line": info["smi"], **u2d})
+
+    t0 = time.perf_counter()
+    d2d = run_design2d(torch, dev, cuda, models2d, **(design2d_kw or {}))
+    sync()
+    emit({"phase": "design2d", "seconds": time.perf_counter() - t0, "device": info["name"],
+          "power_limit_line": info["smi"], **d2d})
+    del models2d
+
+    t0 = time.perf_counter()
+    bd = run_bdim(torch, dev, cuda, **(bdim_kw or {}))
+    sync()
+    emit({"phase": "bdim", "seconds": time.perf_counter() - t0, "device": info["name"],
+          "power_limit_line": info["smi"], **bd})
+
     first, second = train["runs"]
     line = kernels_line(checks, des["launches"], slice5)
     for entry in line["kernels"]:
@@ -1165,6 +1505,18 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         entry["launches_baselines"] = base["launches"][entry["name"]]
     train_counts = {k: first["launches"][k] + second["launches"][k] for k in first["launches"]}
     line["kernels"].extend(vjp_entries(blocks, train_counts, ana["launches"], base["launches"], slice5))
+    # path C runs none of the kernels: the counters read over its two runs
+    d2 = d2d["launches"]
+    keys = {"fused_rtb": ("fused_rtb", None),
+            "fused_conv1d_gn_mish": ("fused_conv1d_gn_mish", None),
+            "fused_rtb_differentiable": ("FusedRTB_launches", "fused_rtb_backward"),
+            "fused_conv1d_gn_mish_differentiable": ("FusedConv1dGNMish_launches",
+                                                    "fused_conv1d_gn_mish_backward")}
+    for entry in line["kernels"]:
+        fwd, bwd = keys[entry["name"]]
+        entry["launches_design2d"] = d2[fwd]
+        if bwd:
+            entry["backward_launches_design2d"] = d2[bwd]
     info["kernels"] = line
     return info
 

@@ -10,8 +10,8 @@ its auto-named children ``{Class}_{i}`` in; ``params_from_flax`` relies on it.
 
 ``params_from_flax`` / ``flax_from_params`` move the weights of any port
 model that names its parameters' Flax key-paths in a ``flax_mapping()``
-method: TemporalUnet1D here, ``Unet1D``, ``Unet1DForwardModel`` and
-``GNSNet`` beside it.
+method: TemporalUnet1D here, ``Unet1D``, ``Unet1DForwardModel``,
+``GNSNet``, ``Unet2D`` and ``ForceUnet`` beside it.
 """
 
 from __future__ import annotations
@@ -155,6 +155,15 @@ def _flip_convT(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(w[::-1], (1, 2, 0)))
 
 
+def hwio_to_oihw(w: np.ndarray) -> np.ndarray:
+    """Flax Conv kernel [kh, kw, C_in, C_out] -> torch [C_out, C_in, kh, kw]."""
+    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+def _oihw_to_hwio(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
 def _dense(fp, pk, bias=True):
     yield fp + ("Dense_0", "kernel"), pk + "weight", None
     if bias:
@@ -231,7 +240,8 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...
 
 def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """State dict for ``model`` from the JAX package's parameters of the same
-    model (a TemporalUnet1D, Unet1D, Unet1DForwardModel or GNSNet).
+    model (a TemporalUnet1D, Unet1D, Unet1DForwardModel, GNSNet, Unet2D or
+    ForceUnet).
 
     ``tree`` is the Flax parameter tree as numpy arrays: nested dicts, or a
     flat dict keyed by key-path strings such as ``"['Dense_0']['Dense_0']['kernel']"``
@@ -276,11 +286,12 @@ def flax_from_params(model: nn.Module) -> dict[str, np.ndarray]:
     """The model's parameters as the JAX package's Flax tree, flattened to
     key-path strings (``"['Dense_0']['Dense_0']['kernel']"``); the inverse
     of ``params_from_flax``."""
+    inverse = {_flip_convT: _unflip_convT, hwio_to_oihw: _oihw_to_hwio}
     sd = model.state_dict()
     out = {}
     for fp, pk, transform in model.flax_mapping():
         arr = sd[pk].detach().cpu().numpy()
-        if transform is _flip_convT:
-            arr = _unflip_convT(arr)
+        if transform is not None:
+            arr = inverse[transform](arr)
         out["".join(f"['{p}']" for p in fp)] = arr
     return out
