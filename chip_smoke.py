@@ -8,9 +8,10 @@ composed 8-body guided inverse design, training of the 2-body prior that
 design composes, the analysis of priors (time composition and
 classifier-free multibody composition), and the 1D baselines (forward
 surrogates trained, then designed with by CEM and backprop); then path C,
-multi-airfoil guided design with closed-loop BDIM scoring, which runs plain
-PyTorch (no TPU kernel lies on it). Thirteen phases; each prints one JSON
-line with its elapsed seconds after a ``torch.cuda.synchronize()``:
+multi-airfoil guided design with closed-loop BDIM scoring, and the 2D
+training path and 2D baselines that feed it, which run plain PyTorch (no
+TPU kernel lies on them). Nineteen phases; each prints one JSON line with
+its elapsed seconds after a ``torch.cuda.synchronize()``:
 
 1. device:   the card's name and nvidia-smi's name and power limit; TF32 off.
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
@@ -96,9 +97,41 @@ line with its elapsed seconds after a ``torch.cuda.synchronize()``:
              20 steps on the card against the port's CPU solver (every
              field within 1e-3 of its max magnitude), one step's card time,
              host time and launches.
-13. summary: the ``{"kernels": [...]}`` line (launches on the design path,
+13. datagen: ``data/airfoil.generate_airfoil_sims`` on the card, 16
+             simulations at train_2d's test-data protocol (60 warm-up, 40
+             recorded steps; the cache the later phases read), design·steps/s;
+             2 simulations after 3 + 2 steps against the port's CPU run
+             (geometry exact, fields 1e-4 of their max, forces 1e-3); one
+             solver step at 16 designs and at ``SIM_CHUNK`` (card ms, host
+             ms, design·steps/s).
+14. train2d: ``cindm_tpu_torch.cli.train_2d`` at full width (Unet2D dim 64,
+             (1, 2), 21 channels, batch 48, on the card's data): 20 steps,
+             then a resume to 25 with ``--remat True``; losses finite,
+             milestones, snapshots; each run's first step apart from its
+             steady ms a step; one step at 48 with and without remat (ms,
+             samples/s, peak memory, busy share), the remat gradient within
+             1e-5 of the plain one with cuDNN's default algorithms and with
+             its deterministic ones (beside a second plain gradient: the
+             run-to-run spread), its recompute, its lower peak.
+15. train_force: ``cli.train_force`` (ForceUnet dim 64 (1, 2, 4, 8), batch
+             32, 50 steps): finite losses, the first step's seconds, steady
+             ms a step.
+16. closed_loop: ``cli.design_2d`` on what phases 14 and 15 wrote, on a
+             25-step schedule: the record's keys the JAX CLI's and finite.
+17. baselines2d: ``cli.train_baseline --algo fno`` and ``--algo lepde`` at
+             their defaults (the save -> reload check passes, the
+             experiment record has the JAX CLI's keys); FNO2d (modes 12,
+             width 32) and LE-PDE (latent 160) on the card against the CPU
+             (1e-4).
+18. design2d_baseline: ``cli.design_2d_baseline`` for GD and CEM over both
+             surrogates at 1 and 2 boundaries (5 design iterations, 40 + 10
+             scoring steps), and GD over FNO once at the full 300 + 100:
+             records with the JAX CLI's keys, finite; seconds of design and
+             scoring.
+19. summary: the ``{"kernels": [...]}`` line (launches on the design path,
              and per path in ``launches_train``, ``launches_analysis``,
-             ``launches_baselines``, ``launches_design2d``), the nvidia-smi
+             ``launches_baselines``, ``launches_design2d`` and, all 0, one
+             ``launches_<phase>`` for each of phases 13-18), the nvidia-smi
              line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -111,6 +144,7 @@ checkout of the repository. Weights and inputs are drawn from seeded
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -205,6 +239,39 @@ UNET2D_PARAMS, FORCE_UNET_PARAMS = 3_108_501, 14_594_818
 # iterations, 300 warm-up and 100 recorded steps
 BDIM_N, BDIM_PROTOCOL = 64, (300, 100)
 BDIM_TOL, BDIM_CHECK_STEPS = 1e-3, 20  # card vs the port's CPU solver, 2 designs
+
+# The 2D training path and the 2D baselines, on data the card simulates: 16
+# simulations at train_2d's test-data protocol (60 warm-up, 40 recorded
+# steps), one solver batch; 2 of them after 3 + 2 steps against the CPU.
+DATAGEN_SIMS, DATAGEN_PROTOCOL, DATAGEN_CHECK = 16, (60, 40), (2, 3, 2)
+DATAGEN_TOL, DATAGEN_FORCE_TOL = 1e-4, 1e-3  # per field: max |d| / max |CPU|
+# scripts_paper/2d_cindm.sh:8-20's prior (Unet2D dim 64 (1, 2), 21 channels,
+# cond 2 / pred 4 / ts 4, batch 48) on those 16 simulations (64 windows),
+# cut to 20 steps (milestones at 10, 20) and a resume to 25 with --remat True
+TRAIN2D_ARGS = ["--cond_frames", "2", "--pred_frames", "4", "--ts", "4", "--batch_size", "48",
+                "--n_sims", str(DATAGEN_SIMS), "--is_testdata", "True", "--device_data", "True"]
+TRAIN2D_STEPS = (20, 10, 25)  # steps, milestone interval, resumed to
+TRAIN2D_BATCH, REMAT_GRAD_TOL = 48, 1e-5  # per parameter: max |d| / max |plain|
+# train_force at its architecture (ForceUnet dim 64 (1, 2, 4, 8)), batch 32, 50 steps
+FORCE_ARGS = ["--batch_size", "32", "--train_num_steps", "50", "--n_sims", str(DATAGEN_SIMS),
+              "--dim", "64", "--dim_mults", "1", "2", "4", "8"]
+# design_2d from what train_2d and train_force wrote, on a 25-step schedule
+CLOSED_LOOP_ARGS = ["--timesteps", "25", "--batch_size", "4", "--num_boundaries", "1",
+                    "--n_warmup", "100", "--n_record", "20"]
+# scripts_paper/2d_baseline.sh's surrogates at train_baseline's defaults (on
+# the datagen phase's simulations); FNO2d modes 12 width 32 and LE-PDE latent
+# 160 on the card against the CPU at batch 4
+BASELINES2D_CHECK_BATCH, BASELINES2D_TOL = 4, 1e-4
+# design_2d_baseline: GD and CEM (N 128, Ne 16) over both surrogates, 1 and 2
+# boundaries, cut to 5 design iterations, test-data init states and 40 + 10
+# scoring steps; GD over FNO at 1 boundary also at the full 300 + 100
+D2B_CUTS = ["--optim_iter", "5", "--is_testdata", "True", "--n_warmup", "40", "--n_record", "10"]
+D2B_FULL = ["--optim_iter", "5", "--is_testdata", "True"]
+D2B_RECORD_KEYS = {"GD": {"design_method", "surrogate", "obj_first", "obj_last", "valid_designs",
+                          "batch_size", "num_boundaries"},
+                   "CEM": {"design_method", "surrogate", "obj_last", "valid_designs", "batch_size",
+                           "num_boundaries"}}
+EXPERIMENT_RECORD_KEYS = {"args", "history", "final", "time"}
 
 # (C_in, C_out, T) of the 16 ResidualTemporalBlocks of TemporalUnet1D(horizon
 # 24, transition_dim 8, dim 64), in call order, and of its head Conv1dBlock.
@@ -1285,6 +1352,426 @@ def run_bdim(torch, dev, cuda: bool, n_designs: int = DESIGN2D_BATCH, nb: int = 
     return rec
 
 
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its printing captured: (result, printed lines)."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = fn(*args, **kw)
+    return result, out.getvalue().strip().splitlines()
+
+
+def zero_launches(phase: str) -> dict:
+    """The 1D kernels' counters since the last reset; raises unless all 0
+    (the 2D paths run plain PyTorch)."""
+    counts = read_counts(backwards=True)
+    if any(counts.values()):
+        raise AssertionError(f"the {phase} phase launched a kernel of the 1D paths: {counts}")
+    return counts
+
+
+def run_datagen(torch, dev, cuda: bool, work: str, n_sims: int = DATAGEN_SIMS,
+                protocol: tuple[int, int] = DATAGEN_PROTOCOL,
+                check: tuple[int, int, int] = DATAGEN_CHECK) -> dict:
+    """Phase 13: ``generate_airfoil_sims`` on the card for ``n_sims``
+    simulations at train_2d's test-data protocol into ``work/data`` (the
+    cache every later 2D phase reads), then 2 simulations after a few steps
+    on the card against the port's CPU run (boundary, mask and offset
+    exact; each field within 1e-4 of its max magnitude, forces 1e-3)."""
+    import numpy as np
+
+    from cindm_tpu_torch.data.airfoil import SIM_CHUNK, AirfoilDatasetConfig, generate_airfoil_sims
+
+    reset_counts()
+    n_warmup, n_record = protocol
+    cfg = AirfoilDatasetConfig(n_warmup=n_warmup, time_stamps=n_record)
+    t0 = time.perf_counter()
+    data = generate_airfoil_sims(0, n_sims, cfg, cache_dir=os.path.join(work, "data"), device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sims, w, r = check
+    small = AirfoilDatasetConfig(n_warmup=w, time_stamps=r)
+    card, cpu = (generate_airfoil_sims(1, sims, small, device=d) for d in (dev, "cpu"))
+    rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    field_err = {name: rel(card["fields"][..., c], cpu["fields"][..., c])
+                 for c, name in enumerate(("vx", "vy", "p"))}
+    checks = {
+        "shapes": data["fields"].shape == (n_sims, n_record, 62, 62, 3)
+        and data["forces"].shape == (n_sims, n_record, 1, 2),
+        "finite": all(bool(np.isfinite(v).all()) for v in data.values()),
+        "geometry_exact": all(np.array_equal(card[k], cpu[k]) for k in ("boundary", "mask", "offset")),
+        "fields_card_vs_cpu": all(e <= DATAGEN_TOL for e in field_err.values()),
+        "forces_card_vs_cpu": rel(card["forces"], cpu["forces"]) <= DATAGEN_FORCE_TOL,
+    }
+    rec = {"sims": n_sims, "n_warmup": n_warmup, "n_record": n_record, "chunk": SIM_CHUNK,
+           "seconds": seconds, "design_steps_per_s": n_sims * (n_warmup + n_record) / seconds,
+           "check": {"sims": sims, "n_warmup": w, "n_record": r, "field_max_err_over_max_abs": field_err,
+                     "forces_max_err_over_max_abs": rel(card["forces"], cpu["forces"]),
+                     "tolerance": DATAGEN_TOL, "force_tolerance": DATAGEN_FORCE_TOL},
+           "checks": checks}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"datagen phase checks failed: {failed}; {rec}")
+    if cuda:
+        # the batch generate_airfoil_sims takes beside the JAX package's 16
+        rec["chunk_steps"] = [time_sim_chunk(torch, dev, d) for d in (16, SIM_CHUNK)]
+    rec["launches"] = zero_launches("datagen")
+    return rec
+
+
+def time_sim_chunk(torch, dev, designs: int) -> dict:
+    """One BDIM step of ``designs`` datagen boundaries (one airfoil each)
+    on the card: card ms (CUDA events), host ms, design·steps/s."""
+    import numpy as np
+
+    from cindm_tpu_torch.data.airfoil import AirfoilDatasetConfig, draw_boundaries
+    from cindm_tpu_torch.physics import bdim
+
+    acfg = AirfoilDatasetConfig()
+    cfg = bdim.BDIMConfig(n=acfg.grid)
+    coords = torch.as_tensor(draw_boundaries(np.random.default_rng(2), designs, acfg), device=dev)
+    consts, state = bdim.make_consts(cfg, coords[:, None]), bdim.init_state(cfg, designs, dev)
+
+    def step():
+        with torch.no_grad():
+            bdim.bdim_step(cfg, consts, state)
+
+    step()
+    torch.cuda.synchronize()
+    ms = event_ms(torch, step, reps=5)
+    return {"designs": designs, "step_ms": ms, "step_host_ms": host_ms(torch, step, reps=5),
+            "design_steps_per_s": designs * 1e3 / ms}
+
+
+def cached_sampler(dev, work: str, batch: int):
+    """The device sampler (``make_device_sampler``) over the datagen phase's
+    cached simulations, windowed as train_2d windows them."""
+    from cindm_tpu_torch.data.airfoil import AirfoilDataset, AirfoilDatasetConfig, generate_airfoil_sims
+
+    cfg = AirfoilDatasetConfig(time_stamps=DATAGEN_PROTOCOL[1], n_warmup=DATAGEN_PROTOCOL[0])
+    data = generate_airfoil_sims(0, DATAGEN_SIMS, cfg, cache_dir=os.path.join(work, "data"), device=dev)
+    return AirfoilDataset(data, cfg).make_device_sampler(batch, device=dev)
+
+
+def time_train2d_step(torch, dev, work: str, batch: int, remat: bool) -> dict:
+    """One optimizer step of the full-width Unet2D at ``batch`` on the card
+    (CUDA events over 5 steps, the garbage collector paused), its peak
+    memory and device busy share."""
+    from cindm_tpu_torch.models import Unet2D
+    from cindm_tpu_torch.sampling.diffusion2d import Diffusion2DConfig
+    from cindm_tpu_torch.train import TrainConfig, init_train_state, make_train_step_2d
+
+    draw = cached_sampler(dev, work, batch)
+    cfg = Diffusion2DConfig()
+    model = Unet2D(64, (1, 2), 21, remat=remat, generator=torch.Generator().manual_seed(20)).to(dev)
+    state = init_train_state(model, TrainConfig())
+    g = torch.Generator(device=dev).manual_seed(21)
+    step = make_train_step_2d(cfg, cfg.make_schedule(dev), TrainConfig(), generator=g)
+    b = draw(draw.arrays, g)
+    fn = lambda: step(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # the first step: cuDNN's plans for these shapes are chosen here
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the interpreter's full collections (one costs what ``collect_s`` reads,
+    # with the earlier phases' objects alive) stay out of the timed steps,
+    # as in timeit
+    t0 = time.perf_counter()
+    gc.collect()
+    collect_s = time.perf_counter() - t0
+    gc.disable()
+    try:
+        ms = event_ms(torch, fn, reps=5)
+    finally:
+        gc.enable()
+    return {"remat": remat, "batch": batch, "first_step_s": first_s, "step_ms": ms,
+            "full_collection_s": collect_s, "tracked_objects": len(gc.get_objects()),
+            "samples_per_s": batch * 1e3 / ms, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "device": device_busy(torch, fn, ms)}
+
+
+def remat_grad_err(torch, dev, work: str, batch: int) -> dict:
+    """The p_losses_2d gradient of the full-width Unet2D with remat against
+    without, same weights, batch and draws, with cuDNN's default algorithms
+    and with its deterministic ones; beside each, a second plain gradient
+    against the first (the spread of two identical runs). Each reading is
+    the worst parameter's max |d| / max |plain|. Also the forward calls the
+    first ResnetBlock2D makes in one remat gradient."""
+    import copy
+
+    from cindm_tpu_torch.models import Unet2D
+    from cindm_tpu_torch.sampling.diffusion2d import Diffusion2DConfig, nhwc_model, p_losses_2d
+
+    draw = cached_sampler(dev, work, batch)
+    g = torch.Generator(device=dev).manual_seed(22)
+    b = draw(draw.arrays, g)
+    t = torch.randint(0, 1000, (batch,), generator=g, device=dev)
+    noise, noise_cond = (torch.randn(b[k].shape, generator=g, device=dev) for k in ("x", "cond"))
+    cfg = Diffusion2DConfig()
+    sched = cfg.make_schedule(dev)
+    plain = Unet2D(64, (1, 2), 21, generator=torch.Generator().manual_seed(23)).to(dev)
+    remat = copy.deepcopy(plain)
+    remat.remat = True
+
+    def grads(m):
+        loss = p_losses_2d(cfg, sched, nhwc_model(m), b["x"], b["cond"], t=t, noise=noise,
+                           noise_cond=noise_cond)
+        return torch.autograd.grad(loss, list(m.parameters()))
+
+    def err(got, want):
+        return max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                   for a, c in zip(got, want))
+
+    calls = []
+    # a pre-hook: the recompute stops once it has what the backward needs,
+    # before a forward hook would fire
+    hook = remat.rbs[0].register_forward_pre_hook(lambda *a: calls.append(1))
+    gp, gr = grads(plain), grads(remat)
+    hook.remove()
+    rec = {"max_err_over_max_abs": err(gr, gp), "plain_vs_plain": err(grads(plain), gp),
+           "tolerance": REMAT_GRAD_TOL, "first_block_forward_calls": len(calls)}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gp = grads(plain)
+        rec["deterministic"] = {"max_err_over_max_abs": err(grads(remat), gp),
+                                "plain_vs_plain": err(grads(plain), gp)}
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return rec
+
+
+def run_train2d(torch, dev, cuda: bool, work: str, train_args: list[str] = TRAIN2D_ARGS,
+                steps: tuple[int, int, int] = TRAIN2D_STEPS, batch: int = TRAIN2D_BATCH) -> dict:
+    """Phase 14: on the card, one step with and without remat at ``batch``
+    (the first step's seconds; then ms, samples/s, peak memory, busy share)
+    and the remat gradient against the plain one; then
+    ``cindm_tpu_torch.cli.train_2d`` on the datagen phase's data,
+    ``steps[0]`` steps without remat (milestones every ``steps[1]``), then
+    ``--resume True --remat True`` to ``steps[2]``: finite losses,
+    milestones, the resume, snapshots."""
+    from cindm_tpu_torch.cli.train_2d import main as train_main
+    from cindm_tpu_torch.train import CheckpointManager
+
+    n_steps, every, resumed_to = steps
+    results = os.path.join(work, "airfoil")
+    base = [*train_args, "--device", str(dev), "--data_cache", os.path.join(work, "data"),
+            "--results_folder", results, "--save_and_sample_every", str(every), "--log_every", "1"]
+    reset_counts()
+    rec = {}
+    if cuda:
+        rec["step_plain"] = time_train2d_step(torch, dev, work, batch, remat=False)
+        rec["step_remat"] = time_train2d_step(torch, dev, work, batch, remat=True)
+        rec["remat_grad"] = remat_grad_err(torch, dev, work, batch)
+    runs = []
+    for extra in (["--train_num_steps", str(n_steps), "--remat", "False"],
+                  ["--train_num_steps", str(resumed_to), "--resume", "True", "--remat", "True"]):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, lines = quiet(train_main, base + extra)
+        if cuda:
+            torch.cuda.synchronize()
+        record = json.loads(lines[-1])
+        losses = [float(x.split("loss ")[1]) for x in lines if x.startswith("step ")]
+        runs.append({"seconds": time.perf_counter() - t0, "record": record, "losses": losses,
+                     "first_step_s": record["first_step_seconds"],
+                     "steady_ms_per_step": record["steady_ms_per_step"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else "not measured"})
+    first, second = runs
+    snaps = sorted(f for f in os.listdir(results) if f.startswith("persisted_m"))
+    checks = {
+        "losses_finite": all(math.isfinite(x) for r in runs for x in r["losses"])
+        and len(first["losses"]) == n_steps and len(second["losses"]) == resumed_to - n_steps,
+        "batch": first["record"]["batch_size"] == batch,
+        "milestones": CheckpointManager(results).all_milestones()
+        == list(range(every, resumed_to + 1, every)),
+        "resumed": second["record"]["start_step"] == n_steps and second["record"]["step"] == resumed_to,
+        "snapshots": snaps == [f"persisted_m{n_steps}.npz", f"persisted_m{resumed_to}.npz"],
+    }
+    rec.update(runs=runs, checks=checks)
+    if cuda:
+        checks["remat_grad"] = rec["remat_grad"]["max_err_over_max_abs"] <= REMAT_GRAD_TOL
+        checks["remat_grad_deterministic"] = (
+            rec["remat_grad"]["deterministic"]["max_err_over_max_abs"] <= REMAT_GRAD_TOL)
+        # once in the forward, once more when the backward recomputes it
+        checks["remat_recomputes"] = rec["remat_grad"]["first_block_forward_calls"] == 2
+        checks["remat_peak_lower"] = rec["step_remat"]["peak_bytes"] < rec["step_plain"]["peak_bytes"]
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train2d phase checks failed: {failed}; {rec}")
+    rec["launches"] = zero_launches("train2d")
+    return rec
+
+
+def run_train_force(torch, dev, cuda: bool, work: str, force_args: list[str] = FORCE_ARGS) -> dict:
+    """Phase 15: ``cindm_tpu_torch.cli.train_force`` on the datagen phase's
+    data: finite losses, ms a step, the milestone and snapshot."""
+    from cindm_tpu_torch.cli.train_force import main as force_main
+
+    results = os.path.join(work, "force")
+    reset_counts()
+    t0 = time.perf_counter()
+    _, lines = quiet(force_main, [*force_args, "--device", str(dev), "--results_folder", results,
+                                  "--data_cache", os.path.join(work, "data")])
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = json.loads(lines[-1])
+    losses = [float(x.split("loss ")[1]) for x in lines if x.startswith("step ")]
+    checks = {"losses_finite": bool(losses) and all(math.isfinite(x) for x in losses),
+              "files": {"model-1.pt", "persisted_m1.npz"} <= set(os.listdir(results))}
+    out = {"seconds": seconds, "record": rec, "losses": losses, "ms_per_step": rec["ms_per_step"],
+           "first_step_s": rec["first_step_seconds"], "steady_ms_per_step": rec["steady_ms_per_step"],
+           "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"train_force phase checks failed: {out}")
+    out["launches"] = zero_launches("train_force")
+    return out
+
+
+def run_closed_loop(torch, dev, cuda: bool, work: str, args: list[str] = CLOSED_LOOP_ARGS) -> dict:
+    """Phase 16: ``design_2d --model_path <train2d's folder>
+    --force_model_path <train_force's folder>``: what the port trains, the
+    port loads; the record has the JAX CLI's keys and is finite."""
+    from cindm_tpu_torch.cli.design_2d import main as design_main
+
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    record, lines = quiet(design_main, ["--model_path", os.path.join(work, "airfoil"),
+                                        "--force_model_path", os.path.join(work, "force"),
+                                        "--device", str(dev), *args], timings=timings)
+    if cuda:
+        torch.cuda.synchronize()
+    keys = DESIGN2D_RECORD_KEYS | (DESIGN2D_SCORE_KEYS if record["valid_designs"] else set())
+    checks = {"record_keys": set(record) == keys,
+              "record_finite": all(math.isfinite(v) for v in record.values() if not isinstance(v, str))}
+    out = {"seconds": time.perf_counter() - t0, "record": record, "part_seconds": timings,
+           "args": args, "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"closed-loop phase checks failed: {out}; {lines[-3:]}")
+    out["launches"] = zero_launches("closed_loop")
+    return out
+
+
+def run_baselines2d(torch, dev, cuda: bool, work: str, extra: list[str] | None = None,
+                    check_batch: int = BASELINES2D_CHECK_BATCH) -> dict:
+    """Phase 17: ``cindm_tpu_torch.cli.train_baseline --algo fno`` and
+    ``--algo lepde`` at their defaults on the datagen phase's simulations
+    (the save -> reload check passes, the experiment record has the JAX
+    CLI's keys and finite losses); then FNO2d (modes 12, width 32) and
+    LE-PDE (latent 160) at full width on the card against the port's CPU
+    run of the same weights and inputs."""
+    import copy
+
+    from cindm_tpu_torch.baselines import FNO2d, LEPDE, LEPDEConfig
+
+    from cindm_tpu_torch.cli.train_baseline import main as base_main
+
+    reset_counts()
+    runs = {}
+    for algo in ("fno", "lepde"):
+        folder = os.path.join(work, algo)
+        t0 = time.perf_counter()
+        _, lines = quiet(base_main, ["--algo", algo, "--device", str(dev), "--results_folder", folder,
+                                     "--data_cache", os.path.join(work, "data"), *(extra or [])])
+        if cuda:
+            torch.cuda.synchronize()
+        rec_file = [f for f in os.listdir(folder) if f.startswith("record_")]
+        with open(os.path.join(folder, rec_file[0])) as f:
+            record = json.load(f)
+        checks = {"unittest_model": any(x.startswith("unittest_model passed") for x in lines),
+                  "record_keys": set(record) == EXPERIMENT_RECORD_KEYS,
+                  "losses_finite": finite_leaves({k: v for k, v in record["final"].items()
+                                                  if v is not None})}
+        runs[algo] = {"seconds": time.perf_counter() - t0, "final": record["final"],
+                      "history": record["history"], "checks": checks}
+        if not all(checks.values()):
+            raise AssertionError(f"train_baseline --algo {algo} checks failed: {runs[algo]}; {lines[-3:]}")
+    g = torch.Generator().manual_seed(30)
+    u = torch.rand((check_batch, 3, 64, 64), generator=g) * 2 - 1
+    static = torch.rand((check_batch, 3, 64, 64), generator=g)
+    fno = FNO2d(6, 3, modes=12, width=32, generator=torch.Generator().manual_seed(31))
+    lepde = LEPDE(LEPDEConfig(latent_size=160), out_hw=64, generator=torch.Generator().manual_seed(32))
+    errs = {}
+    with torch.no_grad():
+        for name, m, fn in (("FNO2d", fno, lambda m, a, s: m(torch.cat([a, s], dim=1))),
+                            ("LEPDE", lepde, lambda m, a, s: m(a, s, 2))):
+            want = fn(m.eval(), u, static)
+            errs[name] = rel_err(torch, fn(copy.deepcopy(m).to(dev), u.to(dev), static.to(dev)), want)
+    out = {"runs": runs, "check_batch": check_batch, "card_vs_cpu_max_err_over_max_abs": errs,
+           "tolerance": BASELINES2D_TOL}
+    if any(e > BASELINES2D_TOL for e in errs.values()):
+        raise AssertionError(f"2D surrogates on {dev} disagree with the CPU: {out}")
+    out["launches"] = zero_launches("baselines2d")
+    return out
+
+
+def run_design2d_baseline(torch, dev, cuda: bool, work: str, cuts: list[str] = D2B_CUTS,
+                          full: list[str] = D2B_FULL) -> dict:
+    """Phase 18: ``cindm_tpu_torch.cli.design_2d_baseline``, GD and CEM over
+    the baselines2d phase's FNO and LE-PDE and train_force's ForceUnet, with
+    1 and 2 boundaries, under ``cuts``; GD over FNO at 1 boundary once more
+    under ``full`` (the full scoring protocol): every record has the JAX
+    CLI's keys (plus the scores when a design is valid) and is finite."""
+    from cindm_tpu_torch.cli.design_2d_baseline import main as d2b_main
+
+    reset_counts()
+    runs = []
+    plan = [(m, s, k, cuts) for m in ("GD", "CEM") for s in ("fno", "lepde") for k in (1, 2)]
+    plan.append(("GD", "fno", 1, full))
+    for method, surrogate, k, flags in plan:
+        timings = {}
+        t0 = time.perf_counter()
+        record, lines = quiet(d2b_main, [
+            "--design_method", method, "--surrogate", surrogate, "--num_boundaries", str(k),
+            "--surrogate_path", os.path.join(work, surrogate),
+            "--force_model_path", os.path.join(work, "force"),
+            "--data_dir", os.path.join(work, "d2b_data"), "--device", str(dev), *flags],
+            timings=timings)
+        if cuda:
+            torch.cuda.synchronize()
+        keys = D2B_RECORD_KEYS[method] | (DESIGN2D_SCORE_KEYS if record["valid_designs"] else set())
+        checks = {"record_keys": set(record) == keys,
+                  "record_finite": all(math.isfinite(v) for v in record.values()
+                                       if not isinstance(v, str))}
+        run = {"design_method": method, "surrogate": surrogate, "num_boundaries": k, "flags": flags,
+               "seconds": time.perf_counter() - t0, "part_seconds": timings, "record": record,
+               "checks": checks}
+        if not all(checks.values()):
+            raise AssertionError(f"design_2d_baseline run failed its checks: {run}; {lines[-3:]}")
+        runs.append(run)
+    return {"runs": runs, "launches": zero_launches("design2d_baseline")}
+
+
+def run_train2d_path(torch, dev, cuda: bool, info: dict, datagen: dict | None = None,
+                     train2d: dict | None = None, force: dict | None = None,
+                     closed_loop: dict | None = None, baselines2d: dict | None = None,
+                     design2d_baseline: dict | None = None) -> dict:
+    """Phases 13-18 in one scratch directory (the simulations, the trained
+    priors and surrogates pass from phase to phase through it); each prints
+    its line. Returns the 1D kernels' counters per phase (all 0)."""
+    scratch = os.path.join(REPO, ".cuda_build")
+    os.makedirs(scratch, exist_ok=True)
+    phases = [("datagen", run_datagen, datagen), ("train2d", run_train2d, train2d),
+              ("train_force", run_train_force, force), ("closed_loop", run_closed_loop, closed_loop),
+              ("baselines2d", run_baselines2d, baselines2d),
+              ("design2d_baseline", run_design2d_baseline, design2d_baseline)]
+    counts = {}
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke-2d-") as work:
+        for name, fn, kw in phases:
+            t0 = time.perf_counter()
+            rec = fn(torch, dev, cuda, work, **(kw or {}))
+            if cuda:
+                torch.cuda.synchronize()
+            emit({"phase": name, "seconds": time.perf_counter() - t0, "device": info["name"],
+                  "power_limit_line": info["smi"], **rec})
+            counts[name] = rec["launches"]
+    return counts
+
+
 def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
     meta = {
         "fused_rtb": ("cindm_tpu_torch/ops/csrc/fused_rtb.cu", "cindm_tpu/ops/fused_rtb.py:179"),
@@ -1383,11 +1870,12 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
                                                   EVAL_SAMPLE_STEPS),
         analysis_kw: dict | None = None, baselines_kw: dict | None = None,
         unet2d_kw: dict | None = None, design2d_kw: dict | None = None,
-        bdim_kw: dict | None = None) -> dict:
+        bdim_kw: dict | None = None, train2d_path_kw: dict | None = None) -> dict:
     """Every phase; the keyword arguments shrink the later paths for a CPU
     rehearsal (``analysis_kw`` / ``baselines_kw`` / ``unet2d_kw`` /
     ``design2d_kw`` / ``bdim_kw`` go to ``run_analysis`` / ``run_baselines``
-    / ``run_unet2d`` / ``run_design2d`` / ``run_bdim``)."""
+    / ``run_unet2d`` / ``run_design2d`` / ``run_bdim``; ``train2d_path_kw``
+    to ``run_train2d_path``)."""
     analysis_kw, baselines_kw = analysis_kw or {}, baselines_kw or {}
     import torch
 
@@ -1497,6 +1985,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     emit({"phase": "bdim", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], **bd})
 
+    path2d = run_train2d_path(torch, dev, cuda, info, **(train2d_path_kw or {}))
+
     first, second = train["runs"]
     line = kernels_line(checks, des["launches"], slice5)
     for entry in line["kernels"]:
@@ -1517,6 +2007,11 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         entry["launches_design2d"] = d2[fwd]
         if bwd:
             entry["backward_launches_design2d"] = d2[bwd]
+        # nor any of the 2D training path and 2D baselines (each phase raises otherwise)
+        for phase, counts in path2d.items():
+            entry[f"launches_{phase}"] = counts[fwd]
+            if bwd:
+                entry[f"backward_launches_{phase}"] = counts[bwd]
     info["kernels"] = line
     return info
 

@@ -52,16 +52,19 @@ def cem_design(
     randn: Randn,
     clamp_fn: Callable = clamp_nbody_cond,
     init_mean: Optional[torch.Tensor] = None,
+    batched: bool = False,
 ):
     """Cross-entropy method: per iteration draw N candidates ~ N(mean, std),
     clamp, score them in one batched rollout, refit (mean, std) to the Ne
     best (population std). Draws: the initial mean (unless ``init_mean``),
-    then one [N, *cond_shape] draw per iteration.
+    then one [N, *cond_shape] draw per iteration. ``batched=True`` means
+    ``design_fn`` scores a whole population [N, ...] -> [N] itself, for
+    models ``torch.func.vmap`` cannot batch (GroupNorm).
 
     Returns (best_cond [*cond_shape], its objective, a scalar tensor)."""
     mean = clamp_fn(randn(tuple(cond_shape))) if init_mean is None else init_mean
     std = torch.full_like(mean, cfg.init_std)
-    score = torch.func.vmap(design_fn)
+    score = design_fn if batched else torch.func.vmap(design_fn)
     with torch.no_grad():
         for _ in range(cfg.n_iterations):
             eps = randn((cfg.n_samples, *cond_shape))
@@ -71,7 +74,7 @@ def cem_design(
             mean = elites.mean(dim=0)
             std = elites.std(dim=0, correction=0) + 1e-6
         best = clamp_fn(mean)
-        return best, design_fn(rollout_fn(best[None])[0])
+        return best, score(rollout_fn(best[None]))[0]
 
 
 @dataclasses.dataclass(frozen=True)

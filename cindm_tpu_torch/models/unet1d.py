@@ -164,6 +164,16 @@ def _oihw_to_hwio(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
 
 
+def flip_convT2d(w: np.ndarray) -> np.ndarray:
+    """Flax ConvTranspose kernel [kh, kw, C_in, C_out] -> torch
+    ``conv_transpose2d`` weight [C_in, C_out, kh, kw], flipped along kh and kw."""
+    return np.ascontiguousarray(np.transpose(w[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _unflip_convT2d(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])
+
+
 def _dense(fp, pk, bias=True):
     yield fp + ("Dense_0", "kernel"), pk + "weight", None
     if bias:
@@ -240,8 +250,8 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...
 
 def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """State dict for ``model`` from the JAX package's parameters of the same
-    model (a TemporalUnet1D, Unet1D, Unet1DForwardModel, GNSNet, Unet2D or
-    ForceUnet).
+    model (a TemporalUnet1D, Unet1D, Unet1DForwardModel, GNSNet, Unet2D,
+    ForceUnet, FNO1d, FNO2d or LEPDE).
 
     ``tree`` is the Flax parameter tree as numpy arrays: nested dicts, or a
     flat dict keyed by key-path strings such as ``"['Dense_0']['Dense_0']['kernel']"``
@@ -286,7 +296,8 @@ def flax_from_params(model: nn.Module) -> dict[str, np.ndarray]:
     """The model's parameters as the JAX package's Flax tree, flattened to
     key-path strings (``"['Dense_0']['Dense_0']['kernel']"``); the inverse
     of ``params_from_flax``."""
-    inverse = {_flip_convT: _unflip_convT, hwio_to_oihw: _oihw_to_hwio}
+    inverse = {_flip_convT: _unflip_convT, hwio_to_oihw: _oihw_to_hwio,
+               flip_convT2d: _unflip_convT2d}
     sd = model.state_dict()
     out = {}
     for fp, pk, transform in model.flax_mapping():

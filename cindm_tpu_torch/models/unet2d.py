@@ -31,6 +31,7 @@ from typing import Iterator, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import ChannelLayerNorm, Dense, FullAttention, SinusoidalPosEmb, _uniform
 from .unet1d import FlaxNames, hwio_to_oihw
@@ -255,8 +256,11 @@ class _FlaxNamed(nn.Module):
 class Unet2D(_FlaxNamed):
     """DDPM 2D U-Net; ``forward(x [B, C, H, W], time [B]) -> [B, out, H, W]``.
 
-    ``remat`` is accepted for the JAX signature's sake and changes nothing:
-    sampling takes no gradient through the denoiser."""
+    ``remat=True`` checkpoints each ResnetBlock2D and each attention
+    residual (``torch.utils.checkpoint``, the JAX package's ``nn.remat``)
+    while grad is enabled: the backward pass keeps only the blocks' inputs
+    and recomputes their interiors, which lowers a training step's peak
+    memory. The parameters are the same either way."""
 
     def __init__(self, dim: int = 64, dim_mults: Sequence[int] = (1, 2), channels: int = 21,
                  out_dim: Optional[int] = None, resnet_block_groups: int = 8, remat: bool = False, *,
@@ -294,7 +298,13 @@ class Unet2D(_FlaxNamed):
         r = x
         t = self.time_pos(time)
         t = self.time_mlp[1](F.gelu(self.time_mlp[0](t)))
-        rb, pn = iter(self.rbs), iter(self.pns)
+        remat = self.remat and torch.is_grad_enabled()
+
+        def blocks(modules):
+            for m in modules:
+                yield (lambda *a, m=m: checkpoint(m, *a, use_reentrant=False)) if remat else m
+
+        rb, pn = blocks(self.rbs), blocks(self.pns)
         hs = []
         for down in self.downs:
             x = next(rb)(x, t)

@@ -4,6 +4,7 @@ from .diffusion2d import (
     asynchronous_clamp,
     ddim_sample_loop_2d,
     nhwc_model,
+    p_losses_2d,
     p_sample_loop_2d,
     sample_noise,
     share_states_over_boundaries,
@@ -38,6 +39,7 @@ __all__ = [
     "get_eval_fn_per_sample",
     "make_composed_eps_model",
     "p_losses",
+    "p_losses_2d",
     "p_sample_loop",
     "p_sample_step",
     "pair_indices",

@@ -14,7 +14,9 @@ in the order the JAX code splits its keys: ``sample_noise`` draws the
 state noise [B, 1, H, W, C-3] (broadcast over the boundaries) and then the
 boundary noise [B, nb, H, W, 3].
 
-``p_losses_2d`` is not ported yet (it belongs to 2D training).
+``p_losses_2d`` is the training loss over the same layout; its draws (t,
+then the noise, then the cond noise) come from a ``torch.Generator`` unless
+the caller passes them, as the parity tests do.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core import diffusion as dd
-from ..core.schedules import DiffusionSchedule, make_schedule
+from ..core.schedules import DiffusionSchedule, make_schedule, min_snr_loss_weight, snr_loss_weight
 from .sampler import Randn
 
 # design_fn returns the gradient of the design objective w.r.t. x
@@ -262,3 +264,57 @@ def ddim_sample_loop_2d(cfg: Diffusion2DConfig, sched: DiffusionSchedule, eps_mo
             img = (x_start if t_next < 0
                    else x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * noise)
     return img.reshape(batch, num_boundaries, H, W, C)
+
+
+def p_losses_2d(
+    cfg: Diffusion2DConfig,
+    sched: DiffusionSchedule,
+    eps_model: EpsModel2D,
+    x_start: torch.Tensor,  # [B, H, W, pred_frames*3 + 3]
+    cond: torch.Tensor,  # [B, H, W, cond_frames*3]
+    *,
+    t: Optional[torch.Tensor] = None,  # [B] timesteps
+    noise: Optional[torch.Tensor] = None,  # like x_start
+    noise_cond: Optional[torch.Tensor] = None,  # like cond
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Training loss. With ``diffuse_cond`` both the cond and the pred parts
+    are diffused and the target is the concatenated noise; else the clean
+    cond is concatenated and only the pred part of the output is scored.
+    Per-timestep SNR (or min-SNR) weights. Draws t ~ U[0, T), then the
+    noise, then (with ``diffuse_cond``) the cond noise, from ``generator``,
+    unless they are given."""
+    B = x_start.shape[0]
+    dev = x_start.device
+    if t is None:
+        t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=dev, dtype=x_start.dtype)
+    x = dd.q_sample(sched, x_start, t, noise)
+    if cfg.diffuse_cond:
+        if noise_cond is None:
+            noise_cond = torch.randn(cond.shape, generator=generator, device=dev, dtype=cond.dtype)
+        cond_t = dd.q_sample(sched, cond, t, noise_cond)
+        target = torch.cat([noise_cond, noise], dim=-1)
+    else:
+        cond_t = cond
+        target = noise
+    out = eps_model(torch.cat([cond_t, x], dim=-1), t)
+    if not cfg.diffuse_cond:
+        out = out[..., cond.shape[-1]:]
+    if cfg.objective == "pred_x0":
+        target = x_start
+    elif cfg.objective == "pred_v":
+        target = dd.predict_v(sched, x_start, t, noise)
+    elif cfg.objective != "pred_noise":
+        raise ValueError(cfg.objective)
+    if cfg.loss_type == "l1":
+        loss = (out - target).abs()
+    elif cfg.loss_type == "l2":
+        loss = (out - target).square()
+    else:
+        raise ValueError(cfg.loss_type)
+    loss = loss.reshape(B, -1).mean(dim=-1)
+    lw = (min_snr_loss_weight(sched, cfg.objective, cfg.min_snr_gamma) if cfg.min_snr_loss_weight
+          else snr_loss_weight(sched, cfg.objective))
+    return (loss * lw[t]).mean()

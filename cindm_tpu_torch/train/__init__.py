@@ -4,8 +4,10 @@ from .trainer import (
     Optimizer,
     TrainConfig,
     TrainState,
+    cosine_decay_schedule,
     init_train_state,
     make_train_step,
+    make_train_step_2d,
     make_train_step_from_loss,
     reference_lr_schedule,
 )
@@ -15,8 +17,10 @@ __all__ = [
     "Optimizer",
     "TrainConfig",
     "TrainState",
+    "cosine_decay_schedule",
     "init_train_state",
     "make_train_step",
+    "make_train_step_2d",
     "make_train_step_from_loss",
     "prediction_mae_1d",
     "reference_lr_schedule",

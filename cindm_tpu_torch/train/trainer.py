@@ -12,6 +12,9 @@ to the host:
   eps_root 0, bias correction at the 1-based count of applied updates;
 - ``scale_by_learning_rate(reference_lr_schedule)``: the learning rate at the
   0-based count of applied updates, StepLR(40000, 0.5) after step 600000;
+- the baselines' variant, global-norm clip then ``optax.adamw``: the same
+  Adam, then ``weight_decay * params`` added before the learning rate (a
+  constant or ``cosine_decay_schedule``) scales the update;
 - ``optax.MultiSteps(k)`` for gradient accumulation: a running mean of k
   micro-batch gradients, then one clip and Adam step; the parameters do not
   move on the other micro-steps;
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -35,6 +39,7 @@ from torch import nn
 
 from ..core.schedules import DiffusionSchedule
 from ..sampling.diffusion1d import Diffusion1DConfig, p_losses
+from ..sampling.diffusion2d import Diffusion2DConfig, nhwc_model, p_losses_2d
 
 ADAM_EPS = 1e-8  # optax.scale_by_adam's default; eps_root is 0
 
@@ -68,6 +73,16 @@ def reference_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with alpha 0: init * 0.5 * (1 + cos(pi *
+    min(count, decay_steps) / decay_steps))."""
+
+    def schedule(count: int) -> float:
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+
+    return schedule
+
+
 class Optimizer:
     """Global-norm clip, Adam and the learning-rate schedule, with optax's
     MultiSteps accumulation when ``gradient_accumulate_every > 1``.
@@ -76,11 +91,15 @@ class Optimizer:
     ``schedule_count`` the learning-rate schedule's; they move together, but
     a resume from a snapshot that carries no optimizer state seeds only the
     schedule's (``checkpoint.seed_schedule_count``), as the JAX package does.
+    ``weight_decay`` and ``schedule`` (the learning rate at a count; the
+    reference schedule by default) give the clip + AdamW variant.
     """
 
-    def __init__(self, cfg: TrainConfig, params: Sequence[torch.Tensor]):
+    def __init__(self, cfg: TrainConfig, params: Sequence[torch.Tensor], *,
+                 weight_decay: float = 0.0, schedule: Optional[Callable[[int], float]] = None):
         self.cfg = cfg
-        self.schedule = reference_lr_schedule(cfg)
+        self.schedule = schedule or reference_lr_schedule(cfg)
+        self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
@@ -127,6 +146,8 @@ class Optimizer:
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, ADAM_EPS)
         torch._foreach_div_(upd, den)
+        if self.weight_decay:  # add_decayed_weights
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
         # scale_by_learning_rate, then apply_updates
         torch._foreach_mul_(upd, -self.schedule(self.schedule_count))
         self.schedule_count += 1
@@ -158,9 +179,10 @@ class TrainState:
     step: int = 0
 
 
-def init_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
+def init_train_state(model: nn.Module, cfg: TrainConfig, **optimizer_kw) -> TrainState:
+    """The state of a fresh run; ``optimizer_kw`` go to ``Optimizer``."""
     ema = copy.deepcopy(model).requires_grad_(False)
-    return TrainState(model, ema, Optimizer(cfg, list(model.parameters())), 0)
+    return TrainState(model, ema, Optimizer(cfg, list(model.parameters()), **optimizer_kw), 0)
 
 
 def ema_decay_at(cfg: TrainConfig, step: int) -> float:
@@ -225,5 +247,25 @@ def make_train_step(
             batch["x"], batch.get("cond"),
             t=batch.get("t"), noise=batch.get("noise"), generator=generator,
         )
+
+    return make_train_step_from_loss(loss_fn, train_cfg)
+
+
+def make_train_step_2d(
+    diffusion_cfg: Diffusion2DConfig,
+    sched: DiffusionSchedule,
+    train_cfg: TrainConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+) -> Callable[[TrainState, dict], tuple[TrainState, torch.Tensor]]:
+    """2D-diffusion train step over batch = {'x': [B, H, W, pred*3+3],
+    'cond': [B, H, W, cond*3]} (channel-last, as the datasets give them) for
+    an NCHW model. ``t``, ``noise`` and ``noise_cond`` are drawn from
+    ``generator`` unless the batch carries them."""
+
+    def loss_fn(model: nn.Module, batch: dict) -> torch.Tensor:
+        return p_losses_2d(diffusion_cfg, sched, nhwc_model(model), batch["x"], batch["cond"],
+                           t=batch.get("t"), noise=batch.get("noise"),
+                           noise_cond=batch.get("noise_cond"), generator=generator)
 
     return make_train_step_from_loss(loss_fn, train_cfg)

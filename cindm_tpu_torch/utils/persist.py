@@ -7,8 +7,9 @@ A snapshot (``cindm_tpu/utils/persist.py:save_npz``) is one compressed
 listed in a JSON blob under ``__dtype_overrides__``; they are encoded
 (round to nearest even) and decoded here with numpy bit operations alone.
 
-``save_npz`` writes a port TrainState of a TemporalUnet1D in that layout, with
-Flax's parameter names and kernel layouts, so the JAX package's
+``save_npz`` writes a port TrainState of any model with a ``flax_mapping``
+(TemporalUnet1D, Unet2D, ForceUnet, ...) in that layout, with Flax's
+parameter names and kernel layouts, so the JAX package's
 ``load_npz(path, template)`` restores it; ``load_npz`` fills a port
 TrainState from a snapshot of either package.
 """
@@ -103,8 +104,8 @@ def _keypath(*parts: str) -> str:
 
 
 def save_npz(state, path: str, ema_only: bool = False, dtype: Optional[str] = None) -> str:
-    """Write ``{params, ema_params, step}`` of a TrainState of a TemporalUnet1D
-    to ``path`` in the JAX package's snapshot layout.
+    """Write ``{params, ema_params, step}`` of a TrainState to ``path`` in the
+    JAX package's snapshot layout.
 
     ``ema_only`` drops the raw ``params`` copy (a loader then restores
     ``params`` from ``ema_params``); ``dtype`` ("bfloat16", or a numpy float
@@ -135,7 +136,7 @@ def save_npz(state, path: str, ema_only: bool = False, dtype: Optional[str] = No
 
 
 def load_npz(path: str, state):
-    """Fill a TrainState of a TemporalUnet1D from a snapshot, in place.
+    """Fill a TrainState from a snapshot, in place.
 
     ``params`` come from the file's ``params`` (from its ``ema_params`` in an
     EMA-only snapshot), ``ema_params`` and ``step`` from the file where it has
