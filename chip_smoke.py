@@ -16,8 +16,10 @@ after a ``torch.cuda.synchronize()``:
 
 1. device:   the card's name and nvidia-smi's name and power limit; TF32 off.
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
-             ptxas's register/spill lines and the tensor-core (HGMMA)
-             instructions cuobjdump finds in each kernel.
+             ptxas's register/spill lines and the tensor-core instructions
+             cuobjdump finds in each kernel (HGMMA: wgmma; HMMA: mma.sync);
+             the backward's weight-gradient kernel ``wgrad`` must issue
+             wgmma, no mma.sync, and spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4), then timed with CUDA
@@ -50,7 +52,13 @@ after a ``torch.cuda.synchronize()``:
              FLOP); then one ``p_losses`` gradient of the full-width
              denoiser at batch 512, kernel path against plain path
              (every parameter's max |dg| / max |g_plain| <= 1e-3), its launch
-             counts, and one whole optimizer step timed on each path.
+             counts, and one whole optimizer step timed on each path; then
+             one backward pass of the 16 blocks and the head at batch 512
+             through ``cindm_tpu_torch.tools.backward_profile``: each of the
+             six backward kernels' device ms from torch.profiler beside its
+             bound, wgrad's fp32 bound and library yardstick
+             (``torch.nn.grad.conv1d_weight``, cuDNN fp32), and the plan's
+             bytes of weight-gradient partials.
 7. train:    ``cindm_tpu_torch.cli.train_1d`` at the configuration that
              trained the in-tree prior (batch 512, dim 64, 6,000 simulations
              generated on the card, 30% collision windows), cut only in its
@@ -1965,6 +1973,22 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
     return {**rec, "checks": checks}
 
 
+def check_wgrad_build(_build, sass) -> dict:
+    """wgrad's registers and spills from ptxas and its tensor-core
+    instructions from cuobjdump: it must issue wgmma (HGMMA) and no
+    mma.sync (HMMA), and spill nothing."""
+    res = _build.ptxas_kernel("5wgrad")  # both instances: wgrad<false>, and wgrad<true> for T = 3
+    counts = {k: v for k, v in sass.items() if "5wgrad" in k} if isinstance(sass, dict) else sass
+    if not isinstance(res, dict) or not res:
+        raise AssertionError(f"no ptxas report of wgrad: {res}")
+    if len(res) != 2 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in res.values()):
+        raise AssertionError(f"wgrad spills registers: {res}")
+    if isinstance(counts, dict) and not (counts and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                                         for c in counts.values())):
+        raise AssertionError(f"wgrad should issue wgmma and no mma.sync: {counts}")
+    return {"ptxas": res, "sass": counts}
+
+
 def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
     meta = {
         "fused_rtb": ("cindm_tpu_torch/ops/csrc/fused_rtb.cu", "cindm_tpu/ops/fused_rtb.py:179"),
@@ -2000,13 +2024,15 @@ def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
 
 
 def vjp_entries(blocks: dict, counts: dict, ana_counts: dict, base_counts: dict,
-                slice5: dict) -> list[dict]:
+                slice5: dict, bprof: dict | str) -> list[dict]:
     """The autograd Functions' entries: the saving kernel forward plus the
     backward kernel, fwd+bwd over the 16 block shapes (and the head) at the
     training batch. ``launches`` counts the forward calls through
     ``FusedRTB`` in the training phase and ``backward_launches`` the
     backward kernel's calls there; ``backward_ms`` is the backward kernel
-    alone, beside its bounds (3xTF32 and fp32)."""
+    alone, beside its bounds (3xTF32 and fp32); ``backward_kernels`` (the
+    blocks' entry) the six kernels of one backward pass of the 16 blocks
+    and the head, each beside its bound, wgrad beside its library call."""
     meta = [
         ("fused_rtb_differentiable", "cindm_tpu/ops/fused_rtb.py:267", "cindm_tpu_torch/ops/fused_rtb.py",
          "cindm_tpu_torch/ops/csrc/fused_rtb.cu", "FusedRTB_launches", "fused_rtb_backward"),
@@ -2049,6 +2075,7 @@ def vjp_entries(blocks: dict, counts: dict, ana_counts: dict, base_counts: dict,
             "launches_baselines": base_counts[fwd_key],
             "backward_launches_baselines": base_counts[bwd_key],
         })
+    out[0]["backward_kernels"] = bprof
     # the head Function at the forward model's shapes (batch 32; x-only at 4)
     more = slice5["conv_function_forward_model"]
     out[1]["shapes_forward_model"] = more
@@ -2075,6 +2102,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
 
     from cindm_tpu_torch.models import TemporalUnet1D
     from cindm_tpu_torch.ops import _build
+    from cindm_tpu_torch.tools import backward_profile
     from cindm_tpu_torch.utils.device import resolve_device
 
     t0 = time.perf_counter()
@@ -2094,12 +2122,15 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     t0 = time.perf_counter()
     if cuda:
         _build.load()
-    # "ptxas": the stage kernel's registers, spills and ptxas's notes (-Xptxas -v);
-    # "sass_hgmma": its tensor-core (wgmma) instructions per kernel, from cuobjdump
+    # "ptxas": the kernels' registers, spills and ptxas's notes (-Xptxas -v);
+    # "sass_hgmma": their tensor-core instructions per kernel (HGMMA: wgmma,
+    # HMMA: mma.sync), from cuobjdump; wgrad's alone beside them, checked
+    sass = _build.sass_mma_counts() if cuda else "not measured"
+    wgrad_build = check_wgrad_build(_build, sass) if cuda else "not measured"
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
           "ptxas": _build.ptxas_report().splitlines() if cuda else [],
-          "sass_hgmma": _build.sass_mma_counts() if cuda else "not measured"})
+          "sass_hgmma": sass, "wgrad": wgrad_build})
 
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, fold_batch, cuda)
@@ -2125,6 +2156,9 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     t0 = time.perf_counter()
     blocks = check_block_grads(torch, dev, train_batch, cuda)
     grad = check_grad(torch, dev, train_batch, model.train(), cuda)
+    # one backward pass of the 16 blocks and the head: each backward kernel's
+    # device ms beside its bound, wgrad's library yardstick, the partials
+    bprof = backward_profile.profile(torch, dev, train_batch) if cuda else "not measured (CPU)"
     sync()
     emit({"phase": "grad", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "block_tolerance": TOL, **grad,
@@ -2138,7 +2172,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
           "blocks_backward_kernel_ms": sum(r["backward_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
           "blocks_backward_plain_ms": sum(r["backward_plain_ms"] or 0.0
                                           for r in blocks["fused_rtb_differentiable"]),
-          **blocks})
+          "backward_kernels": bprof, **blocks})
 
     t0 = time.perf_counter()
     train = run_train(torch, dev, train_args, train_steps, cuda)
@@ -2194,7 +2228,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         entry["launches_analysis"] = ana["launches"][entry["name"]]
         entry["launches_baselines"] = base["launches"][entry["name"]]
     train_counts = {k: first["launches"][k] + second["launches"][k] for k in first["launches"]}
-    line["kernels"].extend(vjp_entries(blocks, train_counts, ana["launches"], base["launches"], slice5))
+    line["kernels"].extend(vjp_entries(blocks, train_counts, ana["launches"], base["launches"], slice5,
+                                       bprof))
     # path C runs none of the kernels: the counters read over its two runs
     d2 = d2d["launches"]
     keys = {"fused_rtb": ("fused_rtb", None),

@@ -25,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -132,10 +133,37 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bo
     return plan
 
 # The backward's tiles (csrc/conv_backward.cuh); they mirror its constants.
-WG_TILE = 64  # input and output channels of a wgrad block
-WG_STRIDE = WG_TILE + 8  # floats per staged wgrad row
-WG_BLOCKS_PER_JOB = 2 * H100_SMS  # wgrad splits its rows until a job has about this many blocks
+WG_TILE = 64  # input and output channels of a wgrad work item
+WG_ROWS = 64  # rows of one wgrad ring stage
+WG_ROWS_T3 = 48  # at T = 3: 16 whole samples, in position-major order
+WG_STAGES = 4  # stages in wgrad's ring
+WG_HALO = CONV_K // 2  # activation rows either side of a stage that its taps reach
+WG_MIN_STAGES = 4  # a split of a job's rows runs at least this many ring stages
 COL_PARTS = 7  # column partials of the block: dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
+
+
+def wgrad_smem_bytes() -> int:
+    """wgrad's ring, per stage two boxes of activation rows (the stage's 64
+    rows and a halo of 2 either side, 32 channels of 128 bytes a row, each
+    box in a slot of whole 1,024-byte swizzle periods) and the cotangent's
+    big and small planes of 64 channels per k8 step; 1,024 bytes to align
+    the ring; the full and empty barriers."""
+    box = -(-(WG_ROWS + 2 * WG_HALO) * 128 // 1024) * 1024
+    b_bytes = WG_ROWS // 8 * 2 * WG_TILE * 8 * 4
+    return 1024 + WG_STAGES * (2 * box + b_bytes) + 2 * WG_STAGES * 8
+
+
+def wgrad_stage_rows(T: int) -> int:
+    """Rows of one wgrad ring stage at sample length T."""
+    return WG_ROWS_T3 if T == 3 else WG_ROWS
+
+
+def wgrad_operand_bytes(R: int, O: int, T: int) -> int:
+    """Bytes of a cotangent [R, O] in wgrad's operand layout: per tile of 64
+    channels and group of 8 K positions a tf32 big and a small block of 512
+    words; at T = 3 the groups fill whole stages of 48 rows."""
+    groups = -(-R // WG_ROWS_T3) * (WG_ROWS_T3 // 8) if T == 3 else -(-R // 8)
+    return -(-O // WG_TILE) * groups * 2 * 512 * 4
 
 
 def _tile_bytes(nt: int) -> int:
@@ -158,9 +186,15 @@ class BackwardPlan:
     ``samples`` whole samples per row tile (``row_tiles`` of them), as in the
     forward; ``nt_gn``/``smem_gn`` tile ``gn_mish_bwd``; ``nt_d2``/``smem_d2``
     the dgrad of conv2 with the first GroupNorm's backward (the block only);
-    ``nt_d1``/``smem_d1`` the dgrad to x; ``splits``/``cps`` split wgrad's
-    rows per job (dw1, dw2, dwres) into ``splits`` runs of ``cps`` row
-    tiles. The byte counts size the scratch the wrapper allocates."""
+    ``nt_d1``/``smem_d1`` the dgrad to x. wgrad's work items are 64 x 64
+    channel tiles of a job (dw1, dw2, dwres) over a run of rows:
+    ``splits``/``sps`` cut each job's rows into ``splits`` runs of ``sps``
+    ring stages of ``wgrad_stage_rows(T)`` rows (1: one run over every row,
+    written to the gradient itself); ``wgrad_items`` items walked by a
+    persistent grid of ``wgrad_grid`` blocks. The byte counts size the scratch the wrapper
+    allocates: the staged weights, the split jobs' partials, the column
+    partials, and each cotangent in wgrad's operand layout (``wop_bytes``;
+    dz1, and dz2 and g for the block)."""
 
     samples: int
     row_tiles: int
@@ -172,12 +206,14 @@ class BackwardPlan:
     smem_d1: int
     wgrad_jobs: tuple[tuple[int, int, int], ...]  # (input channels, taps, tiles) per job
     splits: tuple[int, ...]
-    cps: tuple[int, ...]
+    sps: tuple[int, ...]
     wgrad_smem: int
-    wgrad_blocks: int
+    wgrad_items: int
+    wgrad_grid: int
     wstage_bytes: int
     wpart_bytes: int
     colpart_bytes: int
+    wop_bytes: int
 
 
 def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool = True,
@@ -216,24 +252,30 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     nt_d1 = 128 if C > 64 and row_tiles * -(-C // 128) >= num_sms else 64
     smem_d1 = _ring_bytes(nt_d1) + 16
     jobs = [(C, CONV_K)] + ([(O, CONV_K)] if rtb else []) + ([(C, 1)] if rtb and proj else [])
-    wgrad_jobs, splits, cps, blocks, wpart = [], [], [], 0, 0
-    for Ca, taps in jobs:
-        tiles = -(-Ca // WG_TILE) * -(-O // WG_TILE)
-        n = max(1, min(row_tiles, -(-WG_BLOCKS_PER_JOB // tiles)))
-        per = -(-row_tiles // n)
-        n = -(-row_tiles // per)
-        wgrad_jobs.append((Ca, taps, tiles))
+    wgrad_jobs = [(Ca, taps, -(-Ca // WG_TILE) * -(-O // WG_TILE)) for Ca, taps in jobs]
+    # Split a job's rows only where the items would leave SMs idle: with
+    # each SM's fair share of the work (tiles x taps x stages), a job is cut
+    # into as many splits as its item holds shares, none shorter than
+    # WG_MIN_STAGES stages.
+    stages = -(-B * T // wgrad_stage_rows(T))
+    share = sum(tiles * taps for _, taps, tiles in wgrad_jobs) * stages / num_sms
+    splits, sps, items, wpart = [], [], 0, 0
+    for Ca, taps, tiles in wgrad_jobs:
+        n = max(1, min(int(taps * stages / share), stages // WG_MIN_STAGES))
+        per = -(-stages // n)
+        n = -(-stages // per)
         splits.append(n)
-        cps.append(per)
-        blocks += tiles * n
-        wpart += n * taps * Ca * O * 4 if want_w else 0
+        sps.append(per)
+        items += tiles * n
+        wpart += n * taps * Ca * O * 4 if want_w and n > 1 else 0
     wstage = ((staged_weight_bytes(nt_d2, O, O) if rtb else 0)
               + (staged_weight_bytes(nt_d1, O, C) if want_dx else 0)
               + (staged_weight_bytes(nt_d1, O, C, K=1) if want_dx and rtb and proj else 0))
     plan = BackwardPlan(
         samples, row_tiles, nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, tuple(wgrad_jobs),
-        tuple(splits), tuple(cps), 3 * TILE_ROWS * WG_STRIDE * 4, blocks, wstage, wpart,
-        (COL_PARTS if rtb else 3) * row_tiles * O * 4)
+        tuple(splits), tuple(sps), wgrad_smem_bytes(), items, min(items, num_sms), wstage, wpart,
+        (COL_PARTS if rtb else 3) * row_tiles * O * 4,
+        wgrad_operand_bytes(B * T, O, T) if want_w else 0)
     if max(plan.smem_gn, plan.smem_d2, plan.smem_d1, plan.wgrad_smem) > SMEM_MAX:
         raise ValueError(f"a backward tile of T={T} does not fit the shared memory of one block: {plan}")
     return plan
@@ -249,11 +291,11 @@ class BackwardArgs(ctypes.Structure):
             "rstd1", "z2", "mean2", "rstd2",
             "dx", "dtemb", "dw1", "db1", "dgs1", "dgb1", "dw2", "db2", "dgs2", "dgb2", "dwres",
             "dbres",
-            "dz1", "dz2", "wstage", "wpart", "colpart")]
-        + [(n, _L) for n in ("wstage_bytes", "wpart_bytes", "colpart_bytes")]
+            "dz1", "dz2", "dz1w", "dz2w", "gw", "wstage", "wpart", "colpart")]
+        + [(n, _L) for n in ("wstage_bytes", "wpart_bytes", "colpart_bytes", "wop_bytes")]
         + [(n, _I) for n in ("B", "T", "C", "O", "G", "samples", "nt_gn", "smem_gn", "nt_d2",
-                             "smem_d2", "nt_d1", "smem_d1")]
-        + [("splits", _I * 3), ("cps", _I * 3)]
+                             "smem_d2", "nt_d1", "smem_d1", "wg_grid")]
+        + [("splits", _I * 3), ("sps", _I * 3)]
     )
 
 
@@ -360,9 +402,29 @@ def ptxas_report() -> str:
     return "\n".join(l for l in log.read_text().splitlines() if any(k in l for k in keep))
 
 
-def sass_mma_counts() -> dict[str, int] | str:
-    """Tensor-core instructions (HGMMA: wgmma) per kernel in the built
-    library's SASS, as ``cuobjdump -sass`` lists them."""
+def ptxas_kernel(name: str) -> dict | str:
+    """Registers and spill bytes of the kernels whose mangled name holds
+    ``name`` (e.g. ``5wgrad``), from the last build's ptxas report."""
+    out, fn = {}, None
+    for line in ptxas_report().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1) if name in m.group(1) else None
+            if fn:
+                out[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[fn]["registers"] = int(m.group(1))
+    return out or "not measured: no ptxas report"
+
+
+def sass_mma_counts() -> dict[str, dict[str, int]] | str:
+    """Tensor-core instructions per kernel in the built library's SASS, as
+    ``cuobjdump -sass`` lists them: HGMMA (wgmma) and HMMA (mma.sync)."""
     tool = _cuda_tool("cuobjdump")
     if tool is None:
         return "not measured: no cuobjdump"
@@ -374,9 +436,11 @@ def sass_mma_counts() -> dict[str, int] | str:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
     return counts
 
 
@@ -489,7 +553,9 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
             grads["dtemb"] = (B, O)
         if proj and want_w:
             grads.update(dwres=(C, O), dbres=vec)
-    sizes = dict(dz1=B * T * O, dz2=B * T * O if rtb else 0, wstage=plan.wstage_bytes // 4,
+    wop = plan.wop_bytes // 4
+    sizes = dict(dz1=B * T * O, dz2=B * T * O if rtb else 0, dz1w=wop, dz2w=wop if rtb else 0,
+                 gw=wop if rtb and proj else 0, wstage=plan.wstage_bytes // 4,
                  wpart=plan.wpart_bytes // 4, colpart=plan.colpart_bytes // 4)
     work, off = {}, 0
     for name, n in sizes.items():
@@ -498,10 +564,10 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
             off += -(-n // 4) * 4  # 16-byte boundaries
     args = BackwardArgs(
         wstage_bytes=plan.wstage_bytes, wpart_bytes=plan.wpart_bytes,
-        colpart_bytes=plan.colpart_bytes, B=B, T=T, C=C, O=O, G=G, samples=plan.samples,
-        nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2, smem_d2=plan.smem_d2,
-        nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, splits=(ctypes.c_int * 3)(*plan.splits),
-        cps=(ctypes.c_int * 3)(*plan.cps))
+        colpart_bytes=plan.colpart_bytes, wop_bytes=plan.wop_bytes, B=B, T=T, C=C, O=O, G=G,
+        samples=plan.samples, nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2,
+        smem_d2=plan.smem_d2, nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, wg_grid=plan.wgrad_grid,
+        splits=(ctypes.c_int * 3)(*plan.splits), sps=(ctypes.c_int * 3)(*plan.sps))
     return _BackwardLayout(shapes, grads, work, off, args)
 
 

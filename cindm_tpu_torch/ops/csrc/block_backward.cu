@@ -9,7 +9,8 @@
 // stage_weights_t, gn_mish_bwd, dgrad_gn_stage (the block only),
 // dgrad_x_stage (when dx is wanted), wgrad and grad_reduce (when the weight
 // gradients are wanted: dw1 not null; with dw1 null every weight, bias and
-// GroupNorm gradient pointer is null and only dx and dtemb are computed).
+// GroupNorm gradient pointer is null and only dx and dtemb are computed;
+// the GroupNorm kernels then write no operand layouts).
 #include "conv_backward.cuh"
 
 // Mirrors ops/_build.BackwardArgs field for field: pointers, then 64-bit
@@ -49,13 +50,17 @@ struct BlockBwdArgs {
   // scratch
   float* dz1;
   float* dz2;
+  float* dz1w;       // dz1, dz2 and g in wgrad's operand layout (wop_bytes each)
+  float* dz2w;
+  float* gw;
   uint32_t* wstage;  // weights laid out by stage_weights_t
-  float* wpart;      // wgrad's split partials, job after job
+  float* wpart;      // the partials of the gradients whose rows wgrad splits, job after job
   float* colpart;    // kColParts x row tiles x O column partials
-  long long wstage_bytes, wpart_bytes, colpart_bytes;
+  long long wstage_bytes, wpart_bytes, colpart_bytes, wop_bytes;
   int B, T, C, O, G, samples;
   int nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1;
-  int splits[cindm::kWgJobs], cps[cindm::kWgJobs];
+  int wg_grid;  // wgrad's persistent grid: at most one block an SM
+  int splits[cindm::kWgJobs], sps[cindm::kWgJobs];  // per job: row splits, ring stages a split
 };
 
 namespace {
@@ -95,6 +100,43 @@ cudaError_t launch_dgrad_x(const cindm::DgradArgs& a, int row_tiles, size_t byte
   cindm::dgrad_x_stage<NT, KW>
       <<<dim3(row_tiles, (a.Cout + NT - 1) / NT), cindm::kThreads, bytes, s>>>(a);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime once: the library
+// links no driver library.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// wgrad's view of an activation act [R, C]: boxes of kWgARows rows x
+// kWgABox channels (128 bytes) in the 128-byte swizzle; what a box reaches
+// past the tensor reads zeros.
+cudaError_t act_map(CUtensorMap* m, const float* act, int R, int C) {
+  EncodeTiled fn;
+  CINDM_TRY(encode_tiled(&fn));
+  const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(R)};
+  const cuuint64_t strides[1] = {cuuint64_t(C) * 4};
+  const cuuint32_t box[2] = {cindm::kWgABox, cindm::kWgARows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(act), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 size_t staged_t(int nt, int Cs, int Os, int K) { return cindm::staged_weight_bytes(nt, Cs, Os, K); }
@@ -138,36 +180,46 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
       static_cast<long long>((rtb ? kColParts : 3) * size_t(row_tiles) * a.O * 4) > a.colpart_bytes)
     return cudaErrorInvalidValue;
 
-  // wgrad's jobs, in the order of the plan's splits: dw1, dw2, dwres
+  // wgrad's jobs, in the order of the plan's splits: dw1, dw2, dwres; an
+  // unsplit job writes its gradient, a split one its partials
   WgradArgs wa{};
-  wa.B = a.B; wa.T = a.T; wa.samples = a.samples;
-  struct { const float* act; const float* dz; int Ca, taps; float* dst; } jobs[kWgJobs] = {
-      {a.x, a.dz1, a.C, K, a.dw1},
-      {rtb ? a.h : nullptr, a.dz2, a.O, K, a.dw2},
-      {proj ? a.x : nullptr, a.g, a.C, 1, a.dwres},
+  wa.R = a.B * a.T; wa.T = a.T; wa.Od = a.O; wa.rows = wgrad_stage_rows(a.T);
+  struct { const float* act; const float* op; int Ca, taps; float* dst; } jobs[kWgJobs] = {
+      {a.x, a.dz1w, a.C, K, a.dw1},
+      {rtb ? a.h : nullptr, a.dz2w, a.O, K, a.dw2},
+      {proj ? a.x : nullptr, a.gw, a.C, 1, a.dwres},
   };
   const int njobs = want_w ? (rtb ? (proj ? 3 : 2) : 1) : 0;
+  const int stages = (wa.R + wa.rows - 1) / wa.rows;
+  if (want_w && static_cast<long long>(wgrad_operand_words(wa.R, a.O, a.T) * 4) > a.wop_bytes)
+    return cudaErrorInvalidValue;
   size_t wpart_off = 0;
-  int blocks = 0;
+  int items = 0;
   ReduceArgs ra{};
   for (int j = 0; j < njobs; ++j) {
     WgradJob& jb = wa.job[j];
-    jb.act = jobs[j].act; jb.dz = jobs[j].dz; jb.Ca = jobs[j].Ca; jb.Od = a.O;
-    jb.taps = jobs[j].taps; jb.splits = a.splits[j]; jb.cps = a.cps[j];
-    if (jb.splits <= 0 || jb.cps <= 0 || jb.splits * jb.cps < row_tiles ||
-        (jb.splits - 1) * jb.cps >= row_tiles || jobs[j].dst == nullptr)
+    jb.act = jobs[j].act; jb.op = jobs[j].op; jb.Ca = jobs[j].Ca;
+    jb.taps = jobs[j].taps; jb.splits = a.splits[j]; jb.sps = a.sps[j];
+    if (jb.splits <= 0 || jb.sps <= 0 || jb.splits * jb.sps < stages ||
+        (jb.splits - 1) * jb.sps >= stages || jobs[j].dst == nullptr || jb.op == nullptr)
       return cudaErrorInvalidValue;
     jb.ctiles = (jb.Ca + kWgTile - 1) / kWgTile;
     jb.otiles = (a.O + kWgTile - 1) / kWgTile;
-    jb.block0 = blocks;
-    jb.part = a.wpart + wpart_off;
+    jb.item0 = items;
     const int n = jb.taps * jb.Ca * a.O;
-    ra.job[ra.njobs++] = ReduceJob{jb.part, jobs[j].dst, n, jb.splits};
-    wpart_off += size_t(jb.splits) * n;
-    blocks += jb.ctiles * jb.otiles * jb.splits;
+    if (jb.splits == 1) {
+      jb.out = jobs[j].dst;
+    } else {
+      jb.out = a.wpart + wpart_off;
+      ra.job[ra.njobs++] = ReduceJob{jb.out, jobs[j].dst, n, jb.splits};
+      wpart_off += size_t(jb.splits) * n;
+    }
+    items += jb.ctiles * jb.otiles * jb.splits;
   }
   wa.njobs = njobs;
-  if (static_cast<long long>(wpart_off * 4) > a.wpart_bytes) return cudaErrorInvalidValue;
+  wa.nitems = items;
+  if (static_cast<long long>(wpart_off * 4) > a.wpart_bytes || (want_w && a.wg_grid <= 0))
+    return cudaErrorInvalidValue;
   // column partials: [dgs, dgb, db, dbres] of the last GroupNorm, then [dgs, dgb, db] of the first
   const size_t pk = size_t(row_tiles) * a.O;
   float* gs_last = rtb ? a.dgs2 : a.dgs1;
@@ -181,14 +233,17 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   // 1. the weights of the dgrad stages, flipped and transposed
   char* ws = reinterpret_cast<char*>(a.wstage);
   StageJobT sj[3] = {};
-  int nsj = 0;
-  if (rtb) sj[nsj++] = StageJobT{a.w2, reinterpret_cast<uint32_t*>(ws), K, a.O, a.O, a.nt_d2, n_w2 / 4};
-  if (want_dx) sj[nsj++] = StageJobT{a.w1, reinterpret_cast<uint32_t*>(ws + n_w2), K, a.O, a.C, a.nt_d1, n_w1 / 4};
-  if (n_wr) sj[nsj++] = StageJobT{a.wres, reinterpret_cast<uint32_t*>(ws + n_w2 + n_w1), 1, a.O, a.C, a.nt_d1, n_wr / 4};
+  int nsj = 0, sblocks = 0;
+  auto add_t = [&](const float* w, size_t off, int k, int cs, int os, int nt) {
+    sj[nsj++] = StageJobT{w, reinterpret_cast<uint32_t*>(ws + off), k, cs, os, nt, sblocks};
+    sblocks += stage_t_blocks(k, cs, os, nt);
+  };
+  if (rtb) add_t(a.w2, 0, K, a.O, a.O, a.nt_d2);
+  if (want_dx) add_t(a.w1, n_w2, K, a.O, a.C, a.nt_d1);
+  if (n_wr) add_t(a.wres, n_w2 + n_w1, 1, a.O, a.C, a.nt_d1);
+  for (int q = nsj; q < 3; ++q) sj[q].block0 = sblocks;  // absent jobs start past the grid
   if (nsj > 0) {
-    const size_t total = (n_w2 + n_w1 + n_wr) / 4;
-    const size_t nb = (total + 255) / 256;
-    stage_weights_t<<<nb < 4096 ? nb : 4096, 256, 0, s>>>(sj[0], sj[1], sj[2]);
+    stage_weights_t<<<sblocks, kStageTThreads, 0, s>>>(sj[0], sj[1], sj[2]);
     CINDM_TRY(cudaGetLastError());
   }
 
@@ -198,6 +253,8 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   gn.gs = rtb ? a.gs2 : a.gs1; gn.gb = rtb ? a.gb2 : a.gb1;
   gn.dz = rtb ? a.dz2 : a.dz1;
   gn.part = a.colpart; gn.dtemb = nullptr; gn.colsum = proj ? 1 : 0;
+  gn.dzw = want_w ? (rtb ? a.dz2w : a.dz1w) : nullptr;
+  gn.gw = want_w && proj ? a.gw : nullptr;
   gn.B = a.B; gn.T = a.T; gn.O = a.O; gn.G = a.G; gn.samples = a.samples; gn.row_tiles = row_tiles;
   CINDM_TRY(a.nt_gn == 64 ? launch_gn<64>(a.g, gn, row_tiles, smem_gn, s)
                           : launch_gn<128>(a.g, gn, row_tiles, smem_gn, s));
@@ -210,6 +267,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
     GnBwd g1 = gn;
     g1.z = a.z1; g1.mean = a.mean1; g1.rstd = a.rstd1; g1.gs = a.gs1; g1.gb = a.gb1;
     g1.dz = a.dz1; g1.part = a.colpart + 4 * pk; g1.dtemb = a.dtemb; g1.colsum = 0;
+    g1.dzw = want_w ? a.dz1w : nullptr; g1.gw = nullptr;
     const bool t3 = a.T <= 3;
     CINDM_TRY(a.nt_d2 == 64
                   ? (t3 ? launch_dgrad_gn<64, 3>(d, g1, row_tiles, smem_d2, s)
@@ -236,12 +294,19 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
 
   if (!want_w) return cudaSuccess;
 
-  // 5. the weight gradients' split partials
-  CINDM_TRY(allow_smem(wgrad, wgrad_smem_bytes()));
-  wgrad<<<blocks, kWgThreads, wgrad_smem_bytes(), s>>>(wa);
+  // 5. the weight gradients, or the partials of the split ones. The tensor
+  // maps are encoded here, after this thread's first launches: the encoder
+  // needs the context current, which a thread that has launched nothing yet
+  // (autograd's worker, say) may not have.
+  const auto kernel = a.T == 3 ? wgrad<true> : wgrad<false>;
+  CINDM_TRY(allow_smem(kernel, wgrad_smem_bytes()));
+  CUtensorMap maps[kWgJobs] = {};
+  for (int j = 0; j < njobs; ++j) CINDM_TRY(act_map(&maps[j], wa.job[j].act, wa.R, wa.job[j].Ca));
+  kernel<<<items < a.wg_grid ? items : a.wg_grid, kWgThreads, wgrad_smem_bytes(), s>>>(
+      wa, maps[0], maps[1], maps[2]);
   CINDM_TRY(cudaGetLastError());
 
-  // 6. every gradient from its partials
+  // 6. the split gradients and the column sums from their partials
   int nmax = 0;
   for (int j = 0; j < ra.njobs; ++j) nmax = ra.job[j].n > nmax ? ra.job[j].n : nmax;
   const int nb = (nmax + 255) / 256;

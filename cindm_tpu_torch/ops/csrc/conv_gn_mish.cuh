@@ -162,8 +162,9 @@ __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kXStages - 3) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+// An mbarrier whose phase completes after `count` arrivals (and the bytes they expect).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 // One thread: expect `bytes` on the barrier and copy them, contiguous, from

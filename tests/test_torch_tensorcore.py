@@ -157,12 +157,31 @@ def test_alignment_rule_of_the_kernels():
         _build.check_aligned("fused_rtb", x=base[1:])
 
 
+# the cuda tests' shapes off the flagship grid, the forward model's
+# Conv1dBlocks (batch 32 in training) and the analysis paths' blocks
+ODD_SHAPES = [(12, 16, 5), (24, 24, 7), (16, 40, 48)]
+FORWARD_MODEL_SHAPES = [(8, 64, 24), (8, 64, 2), (64, 64, 2), (64, 128, 1), (128, 256, 1),
+                        (512, 512, 1), (1024, 512, 1), (512, 256, 1), (256, 128, 2),
+                        (128, 64, 2), (1024, 512, 3), (64, 64, 24)]
+ANALYSIS_RTB_SHAPES = [(4, 64, 24), (8, 64, 70), (64, 64, 70), (64, 128, 35), (512, 512, 35),
+                       (1024, 512, 35), (128, 64, 35)]
+
+
 def _backward_plans():
     for C, O, T in RTB_SHAPES:
         for B in (1, 5, 500, 512, 5376):
             yield C, O, T, B, True
     for B in (1, 5, 500, 512, 5376):
         yield (*HEAD_SHAPE, B, False)
+    for C, O, T in ODD_SHAPES:
+        yield C, O, T, 37, True
+        yield C, O, T, 37, False
+    for C, O, T in FORWARD_MODEL_SHAPES:
+        for B in (32, 31, 1000):
+            yield C, O, T, B, False
+    for C, O, T in ANALYSIS_RTB_SHAPES:
+        for B in (33, 128):
+            yield C, O, T, B, True
 
 
 @pytest.mark.parametrize("C,O,T,B,rtb", list(_backward_plans()), ids=lambda v: str(v))
@@ -185,18 +204,32 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
         assert plan.nt_d2 == _build.plan_stage(B, T, O, O, G).n_tile or plan.nt_d2 == 64
     else:
         assert plan.nt_d2 == plan.smem_d2 == 0
-    # wgrad: dw1 (C inputs, 5 taps), dw2 (O, 5), dwres (C, 1), each split over the row tiles
+    # wgrad: dw1 (C inputs, 5 taps), dw2 (O, 5), dwres (C, 1), 64 x 64 channel tiles
+    # over runs of whole ring stages that cover every row once
     jobs = [(C, 5)] + ([(O, 5)] if rtb else []) + ([(C, 1)] if rtb and C != O else [])
     assert [(ca, taps) for ca, taps, _ in plan.wgrad_jobs] == jobs
-    # the activations' tf32 big and small planes and the cotangent, 192 rows x (64 + 8)
-    assert plan.wgrad_smem == 3 * 192 * 72 * 4 <= _build.SMEM_MAX
-    blocks = wpart = 0
-    for (ca, taps, tiles), n, per in zip(plan.wgrad_jobs, plan.splits, plan.cps):
+    # four stages of 64 activation rows with a halo of 2 either side in two
+    # boxes of 128 bytes a row (9 swizzle periods of 1,024 bytes each), and 8
+    # k8 steps of the cotangent's big and small planes of 64 channels; 1,024
+    # bytes of alignment and 8 barriers
+    assert plan.wgrad_smem == 1024 + 4 * (2 * 9 * 1024 + 8 * 2 * 64 * 8 * 4) + 64 <= _build.SMEM_MAX
+    stages = -(-B * T // (48 if T == 3 else 64))  # ring stages: whole samples at T = 3
+    items = wpart = 0
+    for (ca, taps, tiles), n, per in zip(plan.wgrad_jobs, plan.splits, plan.sps):
         assert tiles == -(-ca // 64) * -(-O // 64)
-        assert n >= 1 and per >= 1 and (n - 1) * per < plan.row_tiles <= n * per
-        blocks += tiles * n
-        wpart += n * taps * ca * O * 4
-    assert plan.wgrad_blocks == blocks and plan.wpart_bytes == wpart
+        assert n >= 1 and per >= 1 and (n - 1) * per < stages <= n * per
+        assert n == 1 or per >= 4  # a split runs at least four stages
+        covered = [0] * stages
+        for sp in range(n):
+            for st in range(sp * per, min(stages, (sp + 1) * per)):
+                covered[st] += 1
+        assert covered == [1] * stages
+        items += tiles * n
+        wpart += n * taps * ca * O * 4 if n > 1 else 0
+    assert plan.wgrad_items == items and plan.wpart_bytes == wpart
+    assert plan.wgrad_grid == min(items, 132)
+    groups = -(-B * T // 48) * 6 if T == 3 else -(-B * T // 8)
+    assert plan.wop_bytes == -(-O // 64) * groups * 2 * 512 * 4
     assert plan.colpart_bytes == (7 if rtb else 3) * plan.row_tiles * O * 4
 
 
@@ -215,18 +248,24 @@ def test_plan_backward_sizes_the_staged_weights():
 
 
 def test_backward_args_mirror_the_c_structure():
-    """BackwardArgs is 33 pointers, 3 sizes and 18 ints, in that order,
+    """BackwardArgs is 36 pointers, 4 sizes and 19 ints, in that order,
     as BlockBwdArgs in csrc/block_backward.cu declares them."""
     import ctypes
     fields = _build.BackwardArgs._fields_
-    assert [t for _, t in fields[:33]] == [ctypes.c_void_p] * 33
-    assert [t for _, t in fields[33:36]] == [ctypes.c_longlong] * 3
-    assert ctypes.sizeof(_build.BackwardArgs) == 33 * 8 + 3 * 8 + 12 * 4 + 6 * 4
+    assert [t for _, t in fields[:36]] == [ctypes.c_void_p] * 36
+    assert [t for _, t in fields[36:40]] == [ctypes.c_longlong] * 4
+    assert [n for n, _ in fields[36:40]] == ["wstage_bytes", "wpart_bytes", "colpart_bytes",
+                                             "wop_bytes"]
+    assert [n for n, _ in fields[-3:]] == ["wg_grid", "splits", "sps"]
+    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 13 * 4 + 6 * 4 + 4  # + padding
     src = (_build.CSRC / "block_backward.cu").read_text()
     body = src[src.index("struct BlockBwdArgs {"):src.index("};", src.index("struct BlockBwdArgs {"))]
     import re
     declared = re.findall(r"\b(?:const float|float|uint32_t)\*\s*(\w+);", body)
-    assert declared == [n for n, _ in fields[:33]]
+    assert declared == [n for n, _ in fields[:36]]
+    ints = re.findall(r"\bint ([^;]*);", body)
+    assert [n.strip().split("[")[0] for line in ints for n in line.split(",")] == [
+        n for n, _ in fields[40:]]
 
 
 def test_carve_gives_aligned_disjoint_views_of_one_allocation():
