@@ -18,8 +18,9 @@ after a ``torch.cuda.synchronize()``:
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
              ptxas's register/spill lines and the tensor-core instructions
              cuobjdump finds in each kernel (HGMMA: wgmma; HMMA: mma.sync);
-             the backward's weight-gradient kernel ``wgrad`` must issue
-             wgmma, no mma.sync, and spill nothing.
+             the backward's weight-gradient kernel ``wgrad`` and its two
+             dgrads (``dgrad_gn_stage``, ``dgrad_x_stage``, every instance)
+             must issue wgmma, no mma.sync, and spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4), then timed with CUDA
@@ -49,7 +50,9 @@ after a ``torch.cuda.synchronize()``:
              closed form on the same saved tensors (every cotangent's max
              |d| <= 1e-4 of its max |plain|), both timed beside the
              backward's bounds (3xTF32 and fp32, twice the forward's
-             FLOP); then one ``p_losses`` gradient of the full-width
+             FLOP), and run twice: every cotangent bit-identical (the
+             kernels reduce in fixed orders, the dgrads' cluster partials
+             included); then one ``p_losses`` gradient of the full-width
              denoiser at batch 512, kernel path against plain path
              (every parameter's max |dg| / max |g_plain| <= 1e-3), its launch
              counts, and one whole optimizer step timed on each path; then
@@ -57,8 +60,10 @@ after a ``torch.cuda.synchronize()``:
              through ``cindm_tpu_torch.tools.backward_profile``: each of the
              six backward kernels' device ms from torch.profiler beside its
              bound, wgrad's fp32 bound and library yardstick
-             (``torch.nn.grad.conv1d_weight``, cuDNN fp32), and the plan's
-             bytes of weight-gradient partials.
+             (``torch.nn.grad.conv1d_weight``, cuDNN fp32), the dgrads'
+             (``torch.nn.grad.conv1d_input``, the convolution only) and
+             their launches one by one (shape, grid, cluster size, ms), and
+             the plan's bytes of weight-gradient partials.
 7. train:    ``cindm_tpu_torch.cli.train_1d`` at the configuration that
              trained the in-tree prior (batch 512, dim 64, 6,000 simulations
              generated on the card, 30% collision windows), cut only in its
@@ -900,6 +905,9 @@ def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
         if not cuda:  # a CPU rehearsal has no backward kernel: the plain version stands in
             kernel = plain
         got, want = kernel(saved, cot, needs), plain(saved, cot, needs)
+        again = kernel(saved, cot, needs)  # a second pass: equal bit for bit
+        if not all((x is None and y is None) or bool(torch.equal(x, y)) for x, y in zip(got, again)):
+            raise AssertionError("two backward passes on the same inputs differ")
         errs = []
         for x, y in zip(got, want):
             if y is None:
@@ -915,7 +923,7 @@ def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
                       + sum(t.numel() for t in want if t is not None))
         bound_ms, bound_by = bound(2 * 2 * macs, nbytes)
         tc_ms, tc_by = bound(TF32_PASSES * 2 * 2 * macs, nbytes, PEAK_TF32_FLOPS)
-        return dict(backward_max_abs_err=max(e[0] for e in errs),
+        return dict(backward_repeats_bit_for_bit=True, backward_max_abs_err=max(e[0] for e in errs),
                     backward_max_rel_err=max(e[1] for e in errs),
                     backward_ms=kernel_ms, backward_plain_ms=plain_ms,
                     backward_bound_ms=tc_ms, backward_bound_by=tc_by,
@@ -1973,20 +1981,24 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
     return {**rec, "checks": checks}
 
 
-def check_wgrad_build(_build, sass) -> dict:
-    """wgrad's registers and spills from ptxas and its tensor-core
-    instructions from cuobjdump: it must issue wgmma (HGMMA) and no
-    mma.sync (HMMA), and spill nothing."""
-    res = _build.ptxas_kernel("5wgrad")  # both instances: wgrad<false>, and wgrad<true> for T = 3
-    counts = {k: v for k, v in sass.items() if "5wgrad" in k} if isinstance(sass, dict) else sass
-    if not isinstance(res, dict) or not res:
-        raise AssertionError(f"no ptxas report of wgrad: {res}")
-    if len(res) != 2 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in res.values()):
-        raise AssertionError(f"wgrad spills registers: {res}")
-    if isinstance(counts, dict) and not (counts and all(c["HGMMA"] > 0 and c["HMMA"] == 0
-                                                         for c in counts.values())):
-        raise AssertionError(f"wgrad should issue wgmma and no mma.sync: {counts}")
-    return {"ptxas": res, "sass": counts}
+def check_kernel_build(_build, sass, name: str, instances: int) -> dict:
+    """The registers and spills from ptxas of the kernels whose mangled name
+    holds ``name`` and their tensor-core instructions from cuobjdump, each
+    of the ``instances``: they must issue wgmma (HGMMA) and no mma.sync
+    (HMMA), and spill nothing. ptxas's notes on them (a serialized wgmma
+    pipeline, C7512) are kept beside."""
+    res = _build.ptxas_kernel(name)
+    counts = {k: v for k, v in sass.items() if name in k} if isinstance(sass, dict) else sass
+    if not isinstance(res, dict) or len(res) != instances:
+        raise AssertionError(f"no ptxas report of all {instances} instances of {name}: {res}")
+    if any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in res.values()):
+        raise AssertionError(f"{name} spills registers: {res}")
+    if isinstance(counts, dict) and not (len(counts) == instances and all(
+            c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values())):
+        raise AssertionError(f"{name} should issue wgmma and no mma.sync: {counts}")
+    notes = [l.split("ptxas info    : ")[-1] for l in _build.ptxas_report().splitlines()
+             if name in l and "Performance" in l]
+    return {"ptxas": res, "sass": counts, "notes": notes}
 
 
 def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
@@ -2124,13 +2136,17 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         _build.load()
     # "ptxas": the kernels' registers, spills and ptxas's notes (-Xptxas -v);
     # "sass_hgmma": their tensor-core instructions per kernel (HGMMA: wgmma,
-    # HMMA: mma.sync), from cuobjdump; wgrad's alone beside them, checked
+    # HMMA: mma.sync), from cuobjdump; wgrad's and the dgrads' beside them, checked
     sass = _build.sass_mma_counts() if cuda else "not measured"
-    wgrad_build = check_wgrad_build(_build, sass) if cuda else "not measured"
+    # the backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
+    # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3)
+    tc = {k: check_kernel_build(_build, sass, m, n) if cuda else "not measured"
+          for k, m, n in (("wgrad", "5wgrad", 2), ("dgrad_gn_stage", "14dgrad_gn_stage", 4),
+                          ("dgrad_x_stage", "13dgrad_x_stage", 2))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
           "ptxas": _build.ptxas_report().splitlines() if cuda else [],
-          "sass_hgmma": sass, "wgrad": wgrad_build})
+          "sass_hgmma": sass, **tc})
 
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, fold_batch, cuda)

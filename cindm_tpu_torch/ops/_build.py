@@ -57,6 +57,8 @@ SIGNATURES = {
     "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     # BackwardArgs*, stream
     "cindm_fused_rtb_backward": [_P, _P],
+    # cluster size, int* out: the dgrads' clusters the device runs at once
+    "cindm_dgrad_cluster_limit": [_I, _P],
     "cindm_fused_conv1d_gn_mish_backward": [_P, _P],
     "cindm_block_backward_args_size": [],
 }
@@ -139,7 +141,12 @@ WG_ROWS_T3 = 48  # at T = 3: 16 whole samples, in position-major order
 WG_STAGES = 4  # stages in wgrad's ring
 WG_HALO = CONV_K // 2  # activation rows either side of a stage that its taps reach
 WG_MIN_STAGES = 4  # a split of a job's rows runs at least this many ring stages
-COL_PARTS = 7  # column partials of the block: dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
+COL_PARTS = 7  # kinds of column partials of the block: dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
+# The dgrads' main loop (csrc/conv_backward.cuh, DgRing): a ring of stages of
+# 16 input channels (8 at an N tile of 128) fed by a producer warp, K split
+# over a cluster of one of CLUSTER_SIZES CTAs.
+CLUSTER_SIZES = (1, 2, 3, 4)
+DG_MIN_STAGES = 2  # each rank of a cluster runs at least this many ring stages
 
 
 def wgrad_smem_bytes() -> int:
@@ -170,8 +177,61 @@ def _tile_bytes(nt: int) -> int:
     return TILE_ROWS * (nt + 4) * 4
 
 
-def _ring_bytes(nt: int) -> int:
-    return X_STAGES * TILE_ROWS * X_STRIDE * 4 + 2 * 2 * CONV_K * (nt // 8) * SBO_BYTES
+def _align1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def dgrad_ring(nt: int) -> tuple[int, int, int]:
+    """A dgrad ring for an N tile of ``nt``: (chunks of 8 input channels a
+    stage, stages, bytes). A stage holds the tile's 192 cotangent rows of
+    the stage's channels and their weight blocks of five taps, each part on
+    1,024-byte boundaries."""
+    ch = 2 if nt == 64 else 1
+    stages = 3 if nt == 64 else 2
+    stage = _align1024(_align1024(TILE_ROWS * 4 * CHUNK * ch)
+                       + ch * 2 * CONV_K * (nt // 8) * SBO_BYTES)
+    return ch, stages, stages * stage
+
+
+def gn_stats_bytes(samples: int, gpt: int) -> int:
+    """The GroupNorm backward's statistics: mean, rstd and two means of its
+    gradient for each of samples x gpt (sample, group) pairs."""
+    return 4 * 4 * samples * gpt
+
+
+def dgrad_gn_smem_bytes(nt: int, samples: int, gpt: int) -> int:
+    """dgrad_gn_stage: 1,024 bytes to align the ring; the ring, which after
+    the main loop holds the CTA's partial tile, then yh and the statistics;
+    the rank's summed share of the tile; two barriers a stage."""
+    _, stages, ring = dgrad_ring(nt)
+    return (1024 + max(ring, _tile_bytes(nt) + gn_stats_bytes(samples, gpt)) + _tile_bytes(nt)
+            + 16 * stages)
+
+
+def dgrad_x_smem_bytes() -> int:
+    """dgrad_x_stage (N tile 64): the aligned ring, which then holds the
+    partial tile, and the barriers."""
+    _, stages, ring = dgrad_ring(64)
+    return 1024 + max(ring, _tile_bytes(64)) + 16 * stages
+
+
+def default_cluster_limits(num_sms: int = H100_SMS) -> tuple[int, ...]:
+    """Clusters of each of CLUSTER_SIZES that a card of ``num_sms`` SMs runs
+    at once, one CTA an SM, where the card has not been asked
+    (``cluster_limits`` asks it)."""
+    return tuple(num_sms // cs for cs in CLUSTER_SIZES)
+
+
+def dgrad_cluster(grid: int, stages: int, limits: tuple[int, ...]) -> int:
+    """The cluster size of a dgrad launch of ``grid`` tiles whose K is
+    ``stages`` ring stages: the largest whose clusters all run at once
+    (``limits``: at most one wave) and leave every rank DG_MIN_STAGES
+    stages; 1 when the tiles alone fill a wave or more."""
+    cs = 1
+    for size, limit in zip(CLUSTER_SIZES, limits):
+        if grid <= limit and stages >= DG_MIN_STAGES * size:
+            cs = size
+    return cs
 
 
 def staged_weight_bytes(nt: int, C: int, O: int, K: int = CONV_K) -> int:
@@ -185,8 +245,10 @@ class BackwardPlan:
 
     ``samples`` whole samples per row tile (``row_tiles`` of them), as in the
     forward; ``nt_gn``/``smem_gn`` tile ``gn_mish_bwd``; ``nt_d2``/``smem_d2``
-    the dgrad of conv2 with the first GroupNorm's backward (the block only);
-    ``nt_d1``/``smem_d1`` the dgrad to x. wgrad's work items are 64 x 64
+    the dgrad of conv2 with the first GroupNorm's backward (the block only),
+    its K split over clusters of ``cs_d2`` CTAs on a grid of ``grid_d2``
+    CTAs; ``nt_d1``/``smem_d1``/``cs_d1``/``grid_d1`` the dgrad to x.
+    wgrad's work items are 64 x 64
     channel tiles of a job (dw1, dw2, dwres) over a run of rows:
     ``splits``/``sps`` cut each job's rows into ``splits`` runs of ``sps``
     ring stages of ``wgrad_stage_rows(T)`` rows (1: one run over every row,
@@ -204,6 +266,10 @@ class BackwardPlan:
     smem_d2: int
     nt_d1: int
     smem_d1: int
+    cs_d2: int
+    cs_d1: int
+    grid_d2: tuple[int, int]
+    grid_d1: tuple[int, int]
     wgrad_jobs: tuple[tuple[int, int, int], ...]  # (input channels, taps, tiles) per job
     splits: tuple[int, ...]
     sps: tuple[int, ...]
@@ -218,10 +284,13 @@ class BackwardPlan:
 
 def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool = True,
                   want_dx: bool = True, num_sms: int = H100_SMS,
-                  want_w: bool = True) -> BackwardPlan:
+                  want_w: bool = True, clusters: tuple[int, ...] | None = None) -> BackwardPlan:
     """Tile plan of the backward of a block C -> O (``rtb``: the fused RTB,
     with a 1x1 projection if ``proj``; else the head Conv1d+GN+Mish).
-    Without ``want_w`` wgrad does not run and its partials take no bytes."""
+    Without ``want_w`` wgrad does not run and its partials take no bytes.
+    ``clusters``: how many clusters of each of CLUSTER_SIZES the card runs
+    at once (default: ``default_cluster_limits(num_sms)``)."""
+    clusters = clusters or default_cluster_limits(num_sms)
     if T > TILE_ROWS:
         raise ValueError(f"the CUDA backward takes T <= {TILE_ROWS}, got T={T}")
     if O % G:
@@ -233,24 +302,24 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     def whole(nt: int) -> bool:
         return O <= nt or nt % og == 0
 
-    def stats(nt: int) -> int:
-        return 4 * samples * (min(O, nt) // og) * 4
-
     # gn_mish_bwd: memory-bound, so the narrower tile (more blocks) where it holds whole groups
     nt_gn = next((nt for nt in (64, 128) if whole(nt)), None)
     if nt_gn is None:
         raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
-    smem_gn = 2 * _tile_bytes(nt_gn) + stats(nt_gn) + 16
-    nt_d2 = smem_d2 = 0
+    smem_gn = 2 * _tile_bytes(nt_gn) + gn_stats_bytes(samples, min(O, nt_gn) // og) + 16
+    # the dgrads: an N tile of 64 (of whole groups for dgrad_gn_stage, else
+    # 128), K split over the largest cluster whose clusters run in one wave
+    nt_d2 = smem_d2 = cs_d2 = 0
+    grid_d2 = (0, 0)
     if rtb:
-        # the forward's second stage tile; 64 channels where 128 does not fit
-        nt_d2 = plan_stage(B, T, O, O, G, num_sms=num_sms).n_tile
-        d2 = lambda nt: max(_ring_bytes(nt), _tile_bytes(nt)) + _tile_bytes(nt) + stats(nt) + 16
-        if d2(nt_d2) > SMEM_MAX and nt_d2 == 128 and whole(64):
-            nt_d2 = 64
-        smem_d2 = d2(nt_d2)
-    nt_d1 = 128 if C > 64 and row_tiles * -(-C // 128) >= num_sms else 64
-    smem_d1 = _ring_bytes(nt_d1) + 16
+        nt_d2 = 64 if whole(64) else 128
+        smem_d2 = dgrad_gn_smem_bytes(nt_d2, samples, min(O, nt_d2) // og)
+        ch = dgrad_ring(nt_d2)[0]
+        cs_d2 = dgrad_cluster(row_tiles * -(-O // nt_d2), -(-O // (CHUNK * ch)), clusters)
+        grid_d2 = (row_tiles * cs_d2, -(-O // nt_d2))
+    nt_d1, smem_d1 = 64, dgrad_x_smem_bytes()
+    cs_d1 = dgrad_cluster(row_tiles * -(-C // 64), -(-O // (CHUNK * dgrad_ring(64)[0])), clusters)
+    grid_d1 = (row_tiles * cs_d1, -(-C // 64))
     jobs = [(C, CONV_K)] + ([(O, CONV_K)] if rtb else []) + ([(C, 1)] if rtb and proj else [])
     wgrad_jobs = [(Ca, taps, -(-Ca // WG_TILE) * -(-O // WG_TILE)) for Ca, taps in jobs]
     # Split a job's rows only where the items would leave SMs idle: with
@@ -271,10 +340,13 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     wstage = ((staged_weight_bytes(nt_d2, O, O) if rtb else 0)
               + (staged_weight_bytes(nt_d1, O, C) if want_dx else 0)
               + (staged_weight_bytes(nt_d1, O, C, K=1) if want_dx and rtb and proj else 0))
+    # column partials: per row tile 4 kinds of the last GroupNorm (3 for the
+    # head), then per row tile and rank 3 kinds of dgrad_gn_stage's
+    colpart = ((4 + 3 * cs_d2) if rtb else 3) * row_tiles * O * 4
     plan = BackwardPlan(
-        samples, row_tiles, nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, tuple(wgrad_jobs),
-        tuple(splits), tuple(sps), wgrad_smem_bytes(), items, min(items, num_sms), wstage, wpart,
-        (COL_PARTS if rtb else 3) * row_tiles * O * 4,
+        samples, row_tiles, nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, cs_d2, cs_d1, grid_d2,
+        grid_d1, tuple(wgrad_jobs), tuple(splits), tuple(sps), wgrad_smem_bytes(), items,
+        min(items, num_sms), wstage, wpart, colpart,
         wgrad_operand_bytes(B * T, O, T) if want_w else 0)
     if max(plan.smem_gn, plan.smem_d2, plan.smem_d1, plan.wgrad_smem) > SMEM_MAX:
         raise ValueError(f"a backward tile of T={T} does not fit the shared memory of one block: {plan}")
@@ -294,7 +366,7 @@ class BackwardArgs(ctypes.Structure):
             "dz1", "dz2", "dz1w", "dz2w", "gw", "wstage", "wpart", "colpart")]
         + [(n, _L) for n in ("wstage_bytes", "wpart_bytes", "colpart_bytes", "wop_bytes")]
         + [(n, _I) for n in ("B", "T", "C", "O", "G", "samples", "nt_gn", "smem_gn", "nt_d2",
-                             "smem_d2", "nt_d1", "smem_d1", "wg_grid")]
+                             "smem_d2", "nt_d1", "smem_d1", "cs_d2", "cs_d1", "wg_grid")]
         + [("splits", _I * 3), ("sps", _I * 3)]
     )
 
@@ -477,6 +549,19 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def cluster_limits(device: torch.device) -> tuple[int, ...]:
+    """How many clusters of each of CLUSTER_SIZES of a dgrad kernel the card
+    runs at once (cudaOccupancyMaxActiveClusters): the planner's limit."""
+    lib, out = load(), []
+    with torch.cuda.device(device):
+        for cs in CLUSTER_SIZES:
+            n = ctypes.c_int(0)
+            raise_on_error("cindm_dgrad_cluster_limit", lib.cindm_dgrad_cluster_limit(cs, ctypes.byref(n)))
+            out.append(n.value)
+    return tuple(out)
+
+
 def scratch(nbytes: int, device: torch.device) -> torch.Tensor:
     """Device scratch for the weights a launch lays out (``nbytes``, a multiple of 16)."""
     return torch.empty(nbytes // 4, dtype=torch.int32, device=device)
@@ -537,8 +622,9 @@ class _BackwardLayout:
 
 @functools.lru_cache(maxsize=None)
 def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
-                     sms) -> _BackwardLayout:
-    plan = plan_backward(B, T, C, O, G, proj, rtb, want_dx, num_sms=sms, want_w=want_w)
+                     sms, clusters) -> _BackwardLayout:
+    plan = plan_backward(B, T, C, O, G, proj, rtb, want_dx, num_sms=sms, want_w=want_w,
+                         clusters=clusters)
     rows, vec, stats = (B, T, O), (O,), (B, G)
     shapes = dict(x=(B, T, C), w1=(K, C, O), gs1=vec, gb1=vec, g=rows, z1=rows, mean1=stats,
                   rstd1=stats, w2=(K, O, O), gs2=vec, gb2=vec, h=rows, z2=rows, mean2=stats,
@@ -566,7 +652,8 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
         wstage_bytes=plan.wstage_bytes, wpart_bytes=plan.wpart_bytes,
         colpart_bytes=plan.colpart_bytes, wop_bytes=plan.wop_bytes, B=B, T=T, C=C, O=O, G=G,
         samples=plan.samples, nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2,
-        smem_d2=plan.smem_d2, nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, wg_grid=plan.wgrad_grid,
+        smem_d2=plan.smem_d2, nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, cs_d2=plan.cs_d2 or 1,
+        cs_d1=plan.cs_d1, wg_grid=plan.wgrad_grid,
         splits=(ctypes.c_int * 3)(*plan.splits), sps=(ctypes.c_int * 3)(*plan.sps))
     return _BackwardLayout(shapes, grads, work, off, args)
 
@@ -593,7 +680,7 @@ def launch_backward(kernel: str, rtb: bool, inputs: dict, B: int, T: int, C: int
     if not (want_w or want_dx or (rtb and want_dtemb)):
         raise ValueError(f"{kernel}: no gradient wanted")
     lay = _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
-                           num_sms(dev))
+                           num_sms(dev), cluster_limits(dev))
     check_inputs(kernel, dev, **{n: (t, lay.shapes[n]) for n, t in inputs.items() if t is not None})
     check_channels(kernel, C=C, O=O)
     lib = load()

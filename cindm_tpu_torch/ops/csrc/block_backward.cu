@@ -55,10 +55,11 @@ struct BlockBwdArgs {
   float* gw;
   uint32_t* wstage;  // weights laid out by stage_weights_t
   float* wpart;      // the partials of the gradients whose rows wgrad splits, job after job
-  float* colpart;    // kColParts x row tiles x O column partials
+  float* colpart;    // column partials: 4 (3 for the head) x row tiles x O, then 3 x row tiles x cs_d2 x O
   long long wstage_bytes, wpart_bytes, colpart_bytes, wop_bytes;
   int B, T, C, O, G, samples;
   int nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1;
+  int cs_d2, cs_d1;  // the dgrads' cluster sizes: the split of K
   int wg_grid;  // wgrad's persistent grid: at most one block an SM
   int splits[cindm::kWgJobs], sps[cindm::kWgJobs];  // per job: row splits, ring stages a split
 };
@@ -85,20 +86,29 @@ cudaError_t launch_gn(const float* d, const cindm::GnBwd& a, int row_tiles, size
   return cudaGetLastError();
 }
 
-template <int NT, int KW>
-cudaError_t launch_dgrad_gn(const cindm::DgradArgs& a, const cindm::GnBwd& gn, int row_tiles,
-                            size_t bytes, cudaStream_t s) {
-  CINDM_TRY(allow_smem(cindm::dgrad_gn_stage<NT, KW>, bytes));
-  cindm::dgrad_gn_stage<NT, KW>
-      <<<dim3(row_tiles, (a.Cout + NT - 1) / NT), cindm::kThreads, bytes, s>>>(a, gn);
-  return cudaGetLastError();
+// A dgrad launch: a grid of clusters of cs CTAs along x (`at` holds the attribute).
+cudaLaunchConfig_t cluster_config(dim3 grid, int cs, size_t bytes, cudaStream_t s, cudaLaunchAttribute* at) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(cindm::kDgThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  at->id = cudaLaunchAttributeClusterDimension;
+  at->val.clusterDim.x = cs;
+  at->val.clusterDim.y = 1;
+  at->val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-template <int NT, int KW>
-cudaError_t launch_dgrad_x(const cindm::DgradArgs& a, int row_tiles, size_t bytes, cudaStream_t s) {
-  CINDM_TRY(allow_smem(cindm::dgrad_x_stage<NT, KW>, bytes));
-  cindm::dgrad_x_stage<NT, KW>
-      <<<dim3(row_tiles, (a.Cout + NT - 1) / NT), cindm::kThreads, bytes, s>>>(a);
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel k, dim3 grid, int cs, size_t bytes, cudaStream_t s, const Args&... args) {
+  CINDM_TRY(allow_smem(k, bytes));
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, cs, bytes, s, &at);
+  void* params[] = {const_cast<void*>(static_cast<const void*>(&args))...};
+  CINDM_TRY(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(k), params));
   return cudaGetLastError();
 }
 
@@ -139,6 +149,26 @@ cudaError_t act_map(CUtensorMap* m, const float* act, int R, int C) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A dgrad's view of its cotangent d [R, C]: boxes of the tile's 192 rows x
+// one ring stage's channels (rows of DgRing<nt>::kPitch bytes, swizzled
+// over as many); what a box reaches past the tensor reads zeros.
+cudaError_t dgrad_map(CUtensorMap* m, const float* d, int R, int C, int nt) {
+  EncodeTiled fn;
+  CINDM_TRY(encode_tiled(&fn));
+  const int pitch = nt == 64 ? cindm::DgRing<64>::kPitch : cindm::DgRing<128>::kPitch;
+  const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(R)};
+  const cuuint64_t strides[1] = {cuuint64_t(C) * 4};
+  const cuuint32_t box[2] = {cuuint32_t(pitch / 4), cindm::kTileRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool cluster_size_ok(int cs) { return cs >= 1 && cs <= cindm::kDgClusterMax; }
+
 size_t staged_t(int nt, int Cs, int Os, int K) { return cindm::staged_weight_bytes(nt, Cs, Os, K); }
 
 int gpt_of(int O, int G, int nt) { return (O < nt ? O : nt) / (O / G); }
@@ -154,10 +184,10 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   const bool proj = rtb && a.wres != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || a.samples != kTileRows / a.T || a.samples <= 0 ||
-      (a.nt_gn != 64 && a.nt_gn != 128) || (a.nt_d1 != 64 && a.nt_d1 != 128) ||
+      (a.nt_gn != 64 && a.nt_gn != 128) || a.nt_d1 != 64 || !cluster_size_ok(a.cs_d1) ||
       !whole_groups(a.O, a.G, a.nt_gn) || rtb != (a.w2 != nullptr) ||
       (rtb && ((a.nt_d2 != 64 && a.nt_d2 != 128) || !whole_groups(a.O, a.G, a.nt_d2) ||
-               (!proj && a.C != a.O))))
+               !cluster_size_ok(a.cs_d2) || (!proj && a.C != a.O))))
     return cudaErrorInvalidValue;
   if (!want_w && (a.db1 || a.dgs1 || a.dgb1 || a.dw2 || a.db2 || a.dgs2 || a.dgb2 || a.dwres ||
                   a.dbres || !(want_dx || a.dtemb)))
@@ -166,18 +196,22 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   const int K = kConvK;
 
   // the plan's shared memory and scratch, as the launches count them
-  const size_t smem_gn = gn_bwd_smem_bytes(a.nt_gn, a.samples, gpt_of(a.O, a.G, a.nt_gn), false);
-  const size_t smem_d2 = rtb ? gn_bwd_smem_bytes(a.nt_d2, a.samples, gpt_of(a.O, a.G, a.nt_d2), true) : 0;
-  const size_t smem_d1 = dgrad_x_smem_bytes(a.nt_d1);
+  const size_t smem_gn = gn_bwd_smem_bytes(a.nt_gn, a.samples, gpt_of(a.O, a.G, a.nt_gn));
+  const size_t smem_d2 = rtb ? dgrad_gn_smem_bytes(a.nt_d2, a.samples, gpt_of(a.O, a.G, a.nt_d2)) : 0;
+  const size_t smem_d1 = dgrad_x_smem_bytes();
   if (smem_gn != static_cast<size_t>(a.smem_gn) || smem_gn > kSmemMax ||
       (rtb && (smem_d2 != static_cast<size_t>(a.smem_d2) || smem_d2 > kSmemMax)) ||
-      smem_d1 != static_cast<size_t>(a.smem_d1))
+      smem_d1 != static_cast<size_t>(a.smem_d1) || smem_d1 > kSmemMax)
     return cudaErrorInvalidValue;
+  // column partials: 4 kinds (dgs, dgb, db, dbres) of the last GroupNorm by
+  // row tile, then 3 of the first (dgrad_gn_stage's) by row tile and rank
+  const size_t pk = size_t(row_tiles) * a.O;
+  const size_t pk1 = pk * (rtb ? a.cs_d2 : 0);
   const size_t n_w2 = rtb ? staged_t(a.nt_d2, a.O, a.O, K) : 0;
   const size_t n_w1 = want_dx ? staged_t(a.nt_d1, a.O, a.C, K) : 0;
   const size_t n_wr = want_dx && proj ? staged_t(a.nt_d1, a.O, a.C, 1) : 0;
   if (static_cast<long long>(n_w2 + n_w1 + n_wr) > a.wstage_bytes ||
-      static_cast<long long>((rtb ? kColParts : 3) * size_t(row_tiles) * a.O * 4) > a.colpart_bytes)
+      static_cast<long long>(((rtb ? 4 : 3) * pk + 3 * pk1) * 4) > a.colpart_bytes)
     return cudaErrorInvalidValue;
 
   // wgrad's jobs, in the order of the plan's splits: dw1, dw2, dwres; an
@@ -220,15 +254,18 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   wa.nitems = items;
   if (static_cast<long long>(wpart_off * 4) > a.wpart_bytes || (want_w && a.wg_grid <= 0))
     return cudaErrorInvalidValue;
-  // column partials: [dgs, dgb, db, dbres] of the last GroupNorm, then [dgs, dgb, db] of the first
-  const size_t pk = size_t(row_tiles) * a.O;
+  // the column sums: [dgs, dgb, db, dbres] of the last GroupNorm over its
+  // row tiles, then [dgs, dgb, db] of the first over row tiles x ranks
   float* gs_last = rtb ? a.dgs2 : a.dgs1;
   float* gb_last = rtb ? a.dgb2 : a.dgb1;
   float* b_last = rtb ? a.db2 : a.db1;
   float* dsts[kColParts] = {gs_last, gb_last, b_last, proj ? a.dbres : nullptr,
                             a.dgs1, a.dgb1, a.db1};
   for (int q = 0; q < (want_w ? (rtb ? kColParts : 3) : 0); ++q)
-    if (dsts[q] != nullptr) ra.job[ra.njobs++] = ReduceJob{a.colpart + q * pk, dsts[q], a.O, row_tiles};
+    if (dsts[q] != nullptr)
+      ra.job[ra.njobs++] = q < 4 ? ReduceJob{a.colpart + q * pk, dsts[q], a.O, row_tiles}
+                                 : ReduceJob{a.colpart + 4 * pk + (q - 4) * pk1, dsts[q], a.O,
+                                             row_tiles * a.cs_d2};
 
   // 1. the weights of the dgrad stages, flipped and transposed
   char* ws = reinterpret_cast<char*>(a.wstage);
@@ -259,21 +296,27 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   CINDM_TRY(a.nt_gn == 64 ? launch_gn<64>(a.g, gn, row_tiles, smem_gn, s)
                           : launch_gn<128>(a.g, gn, row_tiles, smem_gn, s));
 
-  // 3. the block: dh = conv_T(dz2, w2), dtemb, the first GroupNorm's backward -> dz1
+  // 3. the block: dh = conv_T(dz2, w2), dtemb, the first GroupNorm's backward -> dz1.
+  // The dgrads' tensor maps are encoded here, after this thread's first
+  // launches: the encoder needs the context current, which a thread that has
+  // launched nothing yet (autograd's worker, say) may not have.
+  const bool t3 = a.T <= 3;
   if (rtb) {
     DgradArgs d{};
     d.dz = a.dz2; d.ws = reinterpret_cast<const uint32_t*>(ws);
-    d.B = a.B; d.T = a.T; d.Cin = a.O; d.Cout = a.O; d.samples = a.samples;
+    d.B = a.B; d.T = a.T; d.Cin = a.O; d.Cout = a.O; d.samples = a.samples; d.cs = a.cs_d2;
     GnBwd g1 = gn;
     g1.z = a.z1; g1.mean = a.mean1; g1.rstd = a.rstd1; g1.gs = a.gs1; g1.gb = a.gb1;
     g1.dz = a.dz1; g1.part = a.colpart + 4 * pk; g1.dtemb = a.dtemb; g1.colsum = 0;
-    g1.dzw = want_w ? a.dz1w : nullptr; g1.gw = nullptr;
-    const bool t3 = a.T <= 3;
+    g1.dzw = want_w ? a.dz1w : nullptr; g1.gw = nullptr; g1.row_tiles = row_tiles * a.cs_d2;
+    CUtensorMap m{};
+    CINDM_TRY(dgrad_map(&m, a.dz2, a.B * a.T, a.O, a.nt_d2));
+    const dim3 grid(row_tiles * a.cs_d2, (a.O + a.nt_d2 - 1) / a.nt_d2);
     CINDM_TRY(a.nt_d2 == 64
-                  ? (t3 ? launch_dgrad_gn<64, 3>(d, g1, row_tiles, smem_d2, s)
-                        : launch_dgrad_gn<64, kConvK>(d, g1, row_tiles, smem_d2, s))
-                  : (t3 ? launch_dgrad_gn<128, 3>(d, g1, row_tiles, smem_d2, s)
-                        : launch_dgrad_gn<128, kConvK>(d, g1, row_tiles, smem_d2, s)));
+                  ? (t3 ? launch_cluster(dgrad_gn_stage<64, 3>, grid, a.cs_d2, smem_d2, s, d, g1, m)
+                        : launch_cluster(dgrad_gn_stage<64, kConvK>, grid, a.cs_d2, smem_d2, s, d, g1, m))
+                  : (t3 ? launch_cluster(dgrad_gn_stage<128, 3>, grid, a.cs_d2, smem_d2, s, d, g1, m)
+                        : launch_cluster(dgrad_gn_stage<128, kConvK>, grid, a.cs_d2, smem_d2, s, d, g1, m)));
   }
 
   // 4. dx = conv_T(dz1, w1) + the residual's cotangent
@@ -284,20 +327,18 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
     d.wress = n_wr ? reinterpret_cast<const uint32_t*>(ws + n_w2 + n_w1) : nullptr;
     d.out = a.dx;
     d.B = a.B; d.T = a.T; d.Cin = a.O; d.Cout = a.C; d.Cres = a.O; d.samples = a.samples;
-    const bool t3 = a.T <= 3;
-    CINDM_TRY(a.nt_d1 == 64
-                  ? (t3 ? launch_dgrad_x<64, 3>(d, row_tiles, smem_d1, s)
-                        : launch_dgrad_x<64, kConvK>(d, row_tiles, smem_d1, s))
-                  : (t3 ? launch_dgrad_x<128, 3>(d, row_tiles, smem_d1, s)
-                        : launch_dgrad_x<128, kConvK>(d, row_tiles, smem_d1, s)));
+    d.cs = a.cs_d1;
+    CUtensorMap mdz{}, mg{};
+    CINDM_TRY(dgrad_map(&mdz, a.dz1, a.B * a.T, a.O, 64));
+    if (d.wress != nullptr) CINDM_TRY(dgrad_map(&mg, a.g, a.B * a.T, a.O, 64));
+    const dim3 grid(row_tiles * a.cs_d1, (a.C + 63) / 64);
+    CINDM_TRY(t3 ? launch_cluster(dgrad_x_stage<64, 3>, grid, a.cs_d1, smem_d1, s, d, mdz, mg)
+                 : launch_cluster(dgrad_x_stage<64, kConvK>, grid, a.cs_d1, smem_d1, s, d, mdz, mg));
   }
 
   if (!want_w) return cudaSuccess;
 
-  // 5. the weight gradients, or the partials of the split ones. The tensor
-  // maps are encoded here, after this thread's first launches: the encoder
-  // needs the context current, which a thread that has launched nothing yet
-  // (autograd's worker, say) may not have.
+  // 5. the weight gradients, or the partials of the split ones.
   const auto kernel = a.T == 3 ? wgrad<true> : wgrad<false>;
   CINDM_TRY(allow_smem(kernel, wgrad_smem_bytes()));
   CUtensorMap maps[kWgJobs] = {};
@@ -317,6 +358,17 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
 }  // namespace
 
 extern "C" int cindm_block_backward_args_size() { return static_cast<int>(sizeof(BlockBwdArgs)); }
+
+// How many clusters of cs CTAs of a dgrad kernel (one CTA an SM: its shared
+// memory) the current device runs at once, into *n: the planner's limit.
+extern "C" int cindm_dgrad_cluster_limit(int cs, int* n) {
+  const auto k = cindm::dgrad_gn_stage<64, cindm::kConvK>;
+  const size_t bytes = cindm::dgrad_x_smem_bytes();
+  CINDM_TRY(allow_smem(k, bytes));
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(cs), cs, bytes, nullptr, &at);
+  return cudaOccupancyMaxActiveClusters(n, reinterpret_cast<const void*>(k), &cfg);
+}
 
 extern "C" int cindm_fused_rtb_backward(const BlockBwdArgs* a, void* stream) {
   return block_backward(*a, true, stream);

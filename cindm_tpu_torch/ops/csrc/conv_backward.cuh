@@ -20,12 +20,13 @@
 //   stage_weights_t  w2 and w1 flipped and transposed, wres transposed, laid
 //                    out as the stage's main loop reads them (one launch);
 //   gn_mish_bwd      the second GroupNorm + Mish backward: g -> dz2;
-//   dgrad_gn_stage   dh = conv_T(dz2, w2) through the forward's 3xTF32 wgmma
-//                    main loop (conv_gemm), then in its epilogue dtemb = sum_t
-//                    dh and the first GroupNorm + Mish backward: -> dz1;
+//   dgrad_gn_stage   dh = conv_T(dz2, w2), 3xTF32 wgmma fed by a producer
+//                    warp's ring, K split over a thread block cluster; then
+//                    in its epilogue dtemb = sum_t dh and the first GroupNorm
+//                    + Mish backward: -> dz1;
 //   dgrad_x_stage    dx = conv_T(dz1, w1) + (g @ wres^T | g), the 1x1
-//                    product in the same accumulator; skipped when x needs
-//                    no gradient;
+//                    product in the same accumulator, on the same main loop;
+//                    skipped when x needs no gradient;
 //   wgrad            dw1, dw2 and dwres, 3xTF32 wgmma over long runs of rows;
 //   grad_reduce      sums the row splits' and row tiles' partials.
 // The head runs gn_mish_bwd (its only GroupNorm), dgrad_x_stage without the
@@ -40,12 +41,41 @@
 // Design. The GroupNorm backward needs two reductions over each (sample,
 // group), so, as in the forward, a block tiles 192 rows of whole samples x
 // an N tile of whole groups and keeps the tile in shared memory; the dgrad
-// of conv2 is the forward's implicit GEMM over dz2 with the flipped weights,
-// so its tile holds dh for whole samples and whole groups and the first
+// of conv2 is an implicit GEMM over dz2 with the flipped weights, so its
+// tile holds dh for whole samples and whole groups and the first
 // GroupNorm's backward runs in its epilogue, with no round trip of dh.
 // Every reduction across blocks goes through partials in device memory and
 // a second pass in a fixed order, never through atomics, so a gradient
 // repeats bit for bit from run to run.
+//
+// The dgrads. At the training batch a tile of 192 rows x 64 channels leaves
+// most of the 132 SMs idle (8 row tiles at T = 3), while K, the cotangent's
+// channels x taps, is longest there. So K is split over a cluster of cs = 1
+// to 4 CTAs (ops/_build.plan_backward picks cs so that the grid's clusters
+// run in one wave, with cudaOccupancyMaxActiveClusters as the limit): rank q
+// of a cluster takes the q-th run of whole ring stages of K, keeps its
+// partial 192 x NT accumulator in its own shared memory, and after a cluster
+// barrier each rank sums one share of the tile's rows over the cluster's
+// partials through distributed shared memory, ranks in order 0, 1, ..: a
+// fixed order, no atomics. dgrad_gn_stage's share is whole samples (whole
+// (sample, group) pairs), so the first GroupNorm's backward runs on it there
+// with no round trip of dh through device memory; its column partials are
+// then per (row tile, rank). The main loop is the dgrads' own: a producer
+// warp fills a ring of kStages stages of 16 input channels (8 at NT = 128),
+// the tile's 192 cotangent rows by one TMA box (rows of 64 bytes, the
+// 64-byte swizzle: a warp's fragment reads fall on distinct banks) and the
+// stage's weight blocks, contiguous in stage_weights_t's layout, by one
+// bulk copy, both completing on the slot's full barrier. Three consumer
+// warpgroups (64 rows each) issue per k8 chunk and tap one wgmma group (3
+// passes of m64nNk8) and keep it in flight while they load and split the
+// next tap's A fragments into another register set (wait_group 1); a warp
+// releases a slot on its empty barrier once its wgmmas on it are done.
+//
+// What bounds the dgrads (PERF.md): their 3xTF32 operations take about 0.31
+// ms at batch 512; each stage re-reads its N tile's weight blocks (two tf32
+// planes, five taps) for only 192 rows, so at T = 3 the ring's L2 traffic
+// rivals the wgmmas; in dgrad_gn_stage the GroupNorm backward on the rank's
+// samples (gn_mish_bwd_tile, shared with gn_mish_bwd) takes about a third.
 //
 // wgrad. dw[k][c][o] = sum_r act[r + k - 2][c] * d[r][o] is a GEMM with
 // M = input channels, N = output channels and K = rows, the slow axis of
@@ -108,13 +138,47 @@ constexpr int kWgThreads = kWgConsumers + 32;  // and the producer warp
 constexpr int kWgJobs = 3;                     // dw1, dw2, dwres
 static_assert(kWgStageBytes % 1024 == 0, "every stage's boxes start on the swizzle's period");
 
+// the dgrads: three consumer warpgroups and a producer warp
+constexpr int kDgThreads = kThreads + 32;
+constexpr int kDgClusterMax = 4;  // cluster sizes 1 to 4
+
+__host__ __device__ constexpr size_t align1024(size_t b) { return (b + 1023) / 1024 * 1024; }
+
+// A dgrad's ring for an N tile of NT channels: per stage kCh chunks of 8
+// input channels, the tile's 192 cotangent rows (kPitch bytes a row, swizzled
+// over kPitch bytes by TMA) and the chunks' weight blocks of five taps.
+template <int NT>
+struct DgRing {
+  static constexpr int kCh = NT == 64 ? 2 : 1;
+  static constexpr int kPitch = 4 * kChunk * kCh;  // 64 or 32 bytes: the swizzle's span
+  static constexpr int kStages = NT == 64 ? 3 : 2;
+  static constexpr size_t kABytes = align1024(size_t(kTileRows) * kPitch);
+  static constexpr size_t kWBytes = kCh * weight_block_bytes(NT, kConvK);
+  static constexpr size_t kStageBytes = align1024(kABytes + kWBytes);
+  static constexpr size_t kRingBytes = kStages * kStageBytes;
+};
+
 // Mirror ops/_build.plan_backward; the launches refuse a plan that differs.
-// gemm: the dgrad stage's ring comes first (it then holds the dh tile).
-inline size_t gn_bwd_smem_bytes(int nt, int samples, int gpt, bool gemm) {
-  return (gemm ? region0_bytes(nt) : tile_bytes(nt)) + tile_bytes(nt) +
-         4 * size_t(samples) * gpt * 4 + 16;
+// The GroupNorm backward's statistics: mean, rstd and two means of its
+// gradient for each (sample, group) of a tile.
+__host__ __device__ inline size_t gn_stats_bytes(int samples, int gpt) { return 4 * 4 * size_t(samples) * gpt; }
+inline size_t gn_bwd_smem_bytes(int nt, int samples, int gpt) {
+  return 2 * tile_bytes(nt) + gn_stats_bytes(samples, gpt) + 16;
 }
-inline size_t dgrad_x_smem_bytes(int nt) { return ring_bytes(nt) + 16; }
+// 1,024 bytes to align the ring; region 0 (the ring; after the main loop
+// this CTA's partial tile, then yh and the statistics); the rank's share of
+// the summed tile; each slot's full and empty barriers.
+inline size_t dgrad_gn_smem_bytes(int nt, int samples, int gpt) {
+  const size_t ring = nt == 64 ? DgRing<64>::kRingBytes : DgRing<128>::kRingBytes;
+  const size_t stats = gn_stats_bytes(samples, gpt);
+  const size_t r0 = ring > tile_bytes(nt) + stats ? ring : tile_bytes(nt) + stats;
+  return 1024 + r0 + tile_bytes(nt) + 16 * (nt == 64 ? DgRing<64>::kStages : DgRing<128>::kStages);
+}
+// dgrad_x: the ring (after the main loop the partial tile), the barriers
+inline size_t dgrad_x_smem_bytes() {
+  const size_t ring = DgRing<64>::kRingBytes;
+  return 1024 + (ring > tile_bytes(64) ? ring : tile_bytes(64)) + 16 * DgRing<64>::kStages;
+}
 // the ring (aligned up to 1,024 bytes in the kernel), then each slot's
 // full and empty barriers
 constexpr size_t wgrad_smem_bytes() { return 1024 + kWgStages * kWgStageBytes + 2 * kWgStages * 8; }
@@ -154,12 +218,13 @@ struct GnBwd {
   const float* gs;    // [O]
   const float* gb;    // [O]
   float* dz;          // [B, T, O]
-  float* part;        // [3 or 4][row tiles][O]: dgs, dgb, db (, sum of d: dbres)
+  float* part;        // [3 or 4][row_tiles][O]: dgs, dgb, db (, sum of d: dbres)
   float* dtemb;       // [B, O] per-sample sums over t of d, or null
   float* dzw;         // dz in wgrad's operand layout, or null
   float* gw;          // gn_mish_bwd: its input d in the operand layout, or null
   int colsum;         // write part[3], the column sums of d
-  int B, T, O, G, samples, row_tiles;
+  int B, T, O, G, samples;
+  int row_tiles;      // rows of partials a kind: row tiles (x cluster ranks in dgrad_gn_stage)
 };
 
 namespace {
@@ -175,6 +240,76 @@ __device__ __forceinline__ float mish_grad(float y) {
   return __fdividef(n, d) + y * __fdividef(e, 1.0f + e) * __fdividef(4.0f * (n + 1.0f), d * d);
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar) : "memory");
+}
+// Arrive on the barrier and expect `bytes` more of transfers on it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// A contiguous copy from global to shared memory by the bulk-copy engine,
+// counted on the barrier's transfer count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A box of a 2D tensor (coordinates: channel c, row r; outside the tensor
+// zeros) into shared memory by the Tensor Memory Accelerator, counted on
+// the barrier's transfer count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c, int r, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
+// wgrad's split of an A fragment value, in 3 operations where split_tf32
+// takes 9: big = v rounded to tf32 (nearest, ties away; NaN and inf are
+// not kept apart, which only a NaN or inf input could tell), small = v -
+// big exactly in fp32, handed over unrounded: the tensor cores read a tf32
+// operand's top 19 bits, so small is truncated there, 2^-11 of |small| <=
+// 2^-22 of |v|.
+__device__ __forceinline__ void split_tf32_fast(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// Waits until at most one of this warpgroup's wgmma groups is in flight.
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The 384 threads of the three warpgroups (in the dgrads, not the producer warp).
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory"); }
+
+// Every thread of every CTA of the cluster; what each wrote to shared memory
+// before is visible to the others after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// 16 bytes at shared address `addr` of CTA `rank` of the cluster (distributed shared memory).
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
 // Writes rows [row0, row0 + nrows) x channels [n0, n0 + ncols) of a tile
 // (row stride ks) into the operand layout `out` of a [R, O] cotangent; the
 // tile with the last row also writes the zero rows of the last group, the
@@ -184,13 +319,14 @@ __device__ __forceinline__ float mish_grad(float y) {
 // run of 16-byte words.
 __device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nrows, int R, int T,
                                     int n0, int ncols, int O, float* out) {
-  const bool p3 = T == 3;  // position-major stages (a tile's rows are whole stages there)
+  const bool p3 = T == 3;  // position-major stages of 48 rows, which a run of rows may end inside
   const int Q = wgrad_groups(R, T);
   const int rend = row0 + nrows, rpad = rend == R ? Q / (p3 ? 6 : 1) * (p3 ? kWgRowsT3 : 8) : rend;
   const int cend = n0 + ncols, cpad = cend == O ? (O + kWgTile - 1) / kWgTile * kWgTile : cend;
   const int units = 2 * (cpad - n0);  // per group of 8 K positions: channel x K half
+  // the groups that hold rows [row0, rpad): from the first row's to the last one's
   const int q0 = p3 ? row0 / kWgRowsT3 * 6 : row0 / 8;
-  const int n = ((p3 ? rpad / kWgRowsT3 * 6 : (rpad + 7) / 8) - q0) * units;
+  const int n = ((p3 ? (rpad + kWgRowsT3 - 1) / kWgRowsT3 * 6 : (rpad + 7) / 8) - q0) * units;
   uint32_t* dst = reinterpret_cast<uint32_t*>(out);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int q = q0 + i / units, u = i % units;
@@ -224,15 +360,15 @@ __device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nro
   }
 }
 
-// tile [192][NT + 4] holds d, the cotangent of Mish(GN(z)) at this block's
-// rows and N tile (blockIdx.x, blockIdx.y); yh is a second such tile and st
-// room for 4 * samples * gpt floats. Writes dz, the per-tile column partials
-// and dtemb. Starts and ends with the tile complete (a barrier before).
+// tile [rows][NT + 4] holds d, the cotangent of Mish(GN(z)), at the ns
+// samples from b0 on and this block's N tile (blockIdx.y); yh is a second
+// such tile and st room for 4 * samples * gpt floats. Writes dz, the column
+// partials (row pt of each kind) and dtemb. Run by the 384 threads of the
+// three warpgroups; starts and ends with the tile complete (a barrier
+// before).
 template <int NT>
-__device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* st) {
+__device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* st, int pt, int b0, int ns) {
   constexpr int kS = NT + 4;
-  const int b0 = blockIdx.x * a.samples;
-  const int ns = min(a.samples, a.B - b0);
   const int nrows = ns * a.T;
   const int row0 = b0 * a.T;
   const int n0 = blockIdx.y * NT;
@@ -244,7 +380,7 @@ __device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* 
   float* rstd = mean + a.samples * gpt;
   float* m1 = rstd + a.samples * gpt;
   float* m2 = m1 + a.samples * gpt;
-  float* part = a.part + static_cast<size_t>(blockIdx.x) * a.O + n0;
+  float* part = a.part + static_cast<size_t>(pt) * a.O + n0;
   const size_t pstride = static_cast<size_t>(a.row_tiles) * a.O;  // between partial kinds
 
   // 0. the tile's statistics; per-sample and per-column sums of d
@@ -269,7 +405,7 @@ __device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* 
       for (int r = 0; r < nrows; ++r) v += tile[r * kS + c];
       part[3 * pstride + c] = v;
     }
-  __syncthreads();
+  consumer_sync();
 
   // 1. yh and dy = d * mish'(y), four neighbouring columns a thread
   const int c = 4 * (threadIdx.x % (NT / 4));
@@ -299,7 +435,7 @@ __device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* 
       *reinterpret_cast<float4*>(yh + r * kS + c) = y4;
     }
   }
-  __syncthreads();
+  consumer_sync();
 
   // 2. column partials of dgs and dgb; per (sample, group) the means of
   //    dyh = dy * gs and of dyh * yh, one warp each (as tile_stats)
@@ -331,7 +467,7 @@ __device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* 
       }
     }
   }
-  __syncthreads();
+  consumer_sync();
 
   // 3. dz = rstd * (dyh - m[dyh] - yh * m[dyh * yh])
   if (c < ncols)
@@ -348,8 +484,8 @@ __device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* 
       *dp = dz;
       *reinterpret_cast<float4*>(a.dz + static_cast<size_t>(row0 + r) * a.O + n0 + c) = dz;
     }
-  __syncthreads();
-  if (a.dzw != nullptr) write_wgrad_operand(tile, kS, row0, nrows, a.B * a.T, a.T, n0, ncols, a.O, a.dzw);
+  consumer_sync();
+  if (a.dzw != nullptr && nrows > 0) write_wgrad_operand(tile, kS, row0, nrows, a.B * a.T, a.T, n0, ncols, a.O, a.dzw);
 
   // 4. column partials of db = sum dz
   for (int cc = threadIdx.x; cc < ncols; cc += kThreads) {
@@ -379,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 1) gn_mish_bwd(const float* __restri
   if (a.gw != nullptr)  // dwres's cotangent: d itself
     write_wgrad_operand(tile, NT + 4, b0 * a.T, nrows, a.B * a.T, a.T, n0, min(NT, a.O - n0), a.O,
                         a.gw);
-  gn_mish_bwd_tile<NT>(a, tile, yh, st);
+  gn_mish_bwd_tile<NT>(a, tile, yh, st, blockIdx.x, b0, nrows / a.T);
 }
 
 struct DgradArgs {
@@ -390,35 +526,142 @@ struct DgradArgs {
   const uint32_t* wress;   // wres^T laid out with K = 1, or null
   float* out;              // dgrad_x: dx [B, T, Cout]
   int B, T, Cin, Cout, Cres, samples;
+  int cs;                  // CTAs of a cluster: the split of K
 };
 
-// dh = conv_T(dz2, w2) for 192 rows x NT channels of whole groups, kept in
-// shared memory for the first GroupNorm's backward.
-template <int NT, int KW>
-__global__ void __launch_bounds__(kThreads, 1) dgrad_gn_stage(const DgradArgs a, const GnBwd gn) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const int b0 = blockIdx.x * a.samples;
-  const int ns = min(a.samples, a.B - b0);
-  const int lane = threadIdx.x & 31;
-  const int gpt = min(NT, a.Cout - static_cast<int>(blockIdx.y) * NT) / (gn.O / gn.G);
-  float* tile = reinterpret_cast<float*>(smem);
-  float* yh = reinterpret_cast<float*>(smem + region0_bytes(NT));
-  float* st = reinterpret_cast<float*>(smem + region0_bytes(NT) + tile_bytes(NT));
-  const uint32_t bars = smem_u32(st + 4 * a.samples * gpt);
-  if (threadIdx.x == 0) {
-    mbar_init(bars);
-    mbar_init(bars + 8);
+// One part of a dgrad's K: chunks [c0, c1) of 8 input channels, a run of
+// whole ring stages, and the weight blocks of this N tile (one a chunk, of
+// `taps` taps).
+struct DgPart {
+  int c0, c1, taps;
+  const char* w;
+};
+
+// Rank q's part of a K of `cin` channels: the q-th of cs runs of whole
+// ring stages (kCh chunks a stage).
+template <int NT>
+__device__ __forceinline__ DgPart dgrad_part(const uint32_t* ws, int cin, int taps, int q, int cs) {
+  constexpr int kCh = DgRing<NT>::kCh;
+  const int nch = (cin + kChunk - 1) / kChunk;
+  const int nst = (nch + kCh - 1) / kCh;
+  DgPart p;
+  p.c0 = min(nch, nst * q / cs * kCh);
+  p.c1 = min(nch, nst * (q + 1) / cs * kCh);
+  p.taps = taps;
+  p.w = reinterpret_cast<const char*>(ws) + blockIdx.y * nch * weight_block_bytes(NT, taps);
+  return p;
+}
+
+// The producer warp: for each stage of the part, once the slot is free, one
+// thread loads the tile's 192 rows of the stage's channels (one TMA box,
+// rows past the tensor zero) and the stage's weight blocks (one bulk copy),
+// both completing on the slot's full barrier. `it` counts the ring's stages.
+template <int NT>
+__device__ __forceinline__ void dgrad_produce(const CUtensorMap* map, const DgPart& p, int row0, char* ring,
+                                              uint32_t full, uint32_t empty, int& it) {
+  using R = DgRing<NT>;
+  const uint32_t block = weight_block_bytes(NT, p.taps);
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    mbar_wait(empty + 8 * slot, ((it / R::kStages) & 1) ^ 1);
+    if ((threadIdx.x & 31) == 0) {
+      const uint32_t wbytes = min(R::kCh, p.c1 - c) * block;
+      char* st = ring + slot * R::kStageBytes;
+      mbar_expect_tx(full + 8 * slot, kTileRows * R::kPitch + wbytes);
+      tma_load_2d(st, map, c * kChunk, row0, full + 8 * slot);
+      bulk_load(st + R::kABytes, p.w + size_t(c) * block, wbytes, full + 8 * slot);
+    }
+    __syncwarp();
   }
-  __syncthreads();
-  const int nchunks = (a.Cin + kChunk - 1) / kChunk;
-  float acc[NT / 2];
+}
+
+// Float index of (row, 16-byte unit u, word w) in a TMA box of kPitch-byte
+// rows under the kPitch-byte swizzle: unit u of row r lies at unit u ^ ((r
+// kPitch / 128) mod (kPitch / 16)).
+template <int kPitch>
+__device__ __forceinline__ int swizzled(int row, int u, int w) {
+  return row * (kPitch / 4) + 4 * (u ^ ((row * kPitch >> 7) & (kPitch / 16 - 1))) + w;
+}
+
+// The register set of the u-th wgmma group of a unit: consecutive groups,
+// the last and the next unit's first included, take distinct sets.
+__host__ __device__ constexpr int dg_set(int unit, int u) { return unit == 5 && u == 4 ? 2 : (unit == 3 ? u : u & 1); }
+
+// A consumer warpgroup's share of one part: per chunk of the stage and tap
+// of the warpgroup's window (KW from tr.klo) one wgmma group, 3 passes of
+// m64nNTk8 (3xTF32) with A, the thread's fragment rows shifted by the tap
+// and zero outside their sample, from registers and B, the tap's weight
+// planes, from the stage. A group stays in flight while the next one's
+// fragments load into another register set. The groups go in units,
+// unrolled: a chunk's KW taps (K = 5), or a stage's chunks (K = 1); a unit
+// of 5 takes three sets, so that no two consecutive groups share one, and
+// ptxas sees one chunk's taps at a time. A stage's slot is released (each
+// warp arrives on its empty barrier) once its last group is done. Ends
+// with every group done.
+template <int NT, int K, int KW>
+__device__ __forceinline__ void dgrad_consume(const TileRows& tr, const DgPart& p, const char* ring,
+                                              uint32_t full, uint32_t empty, int& it, float (&acc)[NT / 2]) {
+  using R = DgRing<NT>;
+  constexpr int kPad = K / 2;
+  constexpr int kUnit = K == 1 ? R::kCh : KW;
+  static_assert(kUnit == 2 || kUnit == 3 || kUnit == 5, "consecutive groups need distinct register sets");
+  constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
+  constexpr uint32_t kBlock = weight_block_bytes(NT, K);
+  const int lane = threadIdx.x & 31;
+  const int q4 = lane & 3;
+  uint32_t abig[3][4], asmall[3][4];
+  int held = -1;  // a slot whose last group may still be in flight
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    const int nch = min(R::kCh, p.c1 - c);
+    const char* st = ring + slot * R::kStageBytes;
+    const float* xs = reinterpret_cast<const float*>(st);
+    const uint32_t ws = smem_u32(st + R::kABytes);
+    mbar_wait(full + 8 * slot, (it / R::kStages) & 1);
+    for (int ch0 = 0; ch0 < (K == 1 ? 1 : nch); ++ch0) {
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-  const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
-  const char* wblocks = reinterpret_cast<const char*>(a.ws) +
-                        blockIdx.y * nchunks * weight_block_bytes(NT, kConvK);
-  conv_gemm<NT, kConvK, KW>(a.dz, a.Cin, b0 * a.T, ns * a.T, tr, wblocks, 0, smem, bars, acc);
+      for (int u = 0; u < kUnit; ++u) {
+        const int ch = K == 1 ? u : ch0;
+        if (ch < nch) {
+          const int k = tr.klo + (K == 1 ? 0 : u);
+          const int set = dg_set(kUnit, u);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {  // a0: (g, t), a1: (g + 8, t), a2: (g, t + 4), a3: (g + 8, t + 4)
+            const int h = v & 1;
+            const bool ok = (tr.ok[h] >> k) & 1u;
+            const float x = xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)];
+            split_tf32_fast(ok ? x : 0.0f, abig[set][v], asmall[set][v]);
+          }
+          const uint32_t big = ws + ch * kBlock + 2 * k * kPlane;
+          wgmma_fence();
+          wgmma_tf32(acc, asmall[set], weight_desc(big));
+          wgmma_tf32(acc, abig[set], weight_desc(big + kPlane));
+          wgmma_tf32(acc, abig[set], weight_desc(big));
+          wgmma_commit();
+          wgmma_wait_1();
+          if (ch0 == 0 && u == 0 && held >= 0) {  // the previous stage's last group is done
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * held);
+            held = -1;
+          }
+        }
+      }
+    }
+    held = slot;
+  }
+  wgmma_wait_all();
+  fence_acc(acc);
+  if (held >= 0) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * held);
+  }
+}
+
+// The consumers' accumulators into this CTA's partial tile [192][NT + 4]
+// at their natural rows (which alias the ring: the caller has synced).
+template <int NT>
+__device__ __forceinline__ void dgrad_store_partial(const TileRows& tr, const float (&acc)[NT / 2], float* tile) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < NT / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
@@ -428,68 +671,163 @@ __global__ void __launch_bounds__(kThreads, 1) dgrad_gn_stage(const DgradArgs a,
         *reinterpret_cast<float2*>(tile + tr.r[i] * (NT + 4) + c) =
             make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
   }
+}
+
+// The dgrads' shared frame: barriers set up, the role (warp-uniform as the
+// compiler can see: a shuffle of lane 0's value; wgmma is issued only in
+// code it knows no warp diverges into), this CTA's row tile and rank.
+struct DgFrame {
+  int rank, b0, ns, row0, nrows;
+  bool producer;
+};
+
+template <int NT>
+__device__ __forceinline__ DgFrame dgrad_frame(const DgradArgs& a, uint32_t full, uint32_t empty) {
+  if (threadIdx.x == 0)
+    for (int q = 0; q < DgRing<NT>::kStages; ++q) {
+      mbar_init(full + 8 * q);
+      mbar_init(empty + 8 * q, kThreads / 32);  // one arrival a consumer warp
+    }
   __syncthreads();
-  gn_mish_bwd_tile<NT>(gn, tile, yh, st);
+  DgFrame f;
+  f.producer = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0) == kThreads / 32;
+  f.rank = static_cast<int>(cluster_rank());
+  f.b0 = blockIdx.x / a.cs * a.samples;
+  f.ns = min(a.samples, a.B - f.b0);
+  f.row0 = f.b0 * a.T;
+  f.nrows = f.ns * a.T;
+  return f;
+}
+
+// dh = conv_T(dz2, w2) for 192 rows x NT channels of whole groups, K split
+// over the cluster; each rank sums its share of the tile's samples over the
+// cluster's partials and runs the first GroupNorm's backward on them.
+template <int NT, int KW>
+__global__ void __launch_bounds__(kDgThreads, 1)
+    dgrad_gn_stage(const DgradArgs a, const GnBwd gn, const __grid_constant__ CUtensorMap mdz) {
+  using R = DgRing<NT>;
+  constexpr int kS = NT + 4;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  smem += (1024 - smem_u32(smem) % 1024) % 1024;  // the swizzle's period
+  const int gpt = min(NT, a.Cout - static_cast<int>(blockIdx.y) * NT) / (gn.O / gn.G);
+  const size_t stats = gn_stats_bytes(a.samples, gpt);
+  const size_t r0 = R::kRingBytes > tile_bytes(NT) + stats ? R::kRingBytes : tile_bytes(NT) + stats;
+  float* part = reinterpret_cast<float*>(smem);       // this CTA's partial dh, over the ring
+  float* mine = reinterpret_cast<float*>(smem + r0);  // this rank's samples, summed
+  const uint32_t full = smem_u32(smem + r0 + tile_bytes(NT));
+  const uint32_t empty = full + 8 * R::kStages;
+  const DgFrame f = dgrad_frame<NT>(a, full, empty);
+  const DgPart p = dgrad_part<NT>(a.ws, a.Cin, kConvK, f.rank, a.cs);
+  int it = 0;
+  if (f.producer) {
+    dgrad_produce<NT>(&mdz, p, f.row0, smem, full, empty, it);
+  } else {
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    const TileRows tr = tile_rows<kConvK, KW>(a.samples, f.ns, a.T);
+    dgrad_consume<NT, kConvK, KW>(tr, p, smem, full, empty, it, acc);
+    consumer_sync();  // every warpgroup is done with the ring
+    dgrad_store_partial<NT>(tr, acc, part);
+  }
+  cluster_sync();  // every rank's partial is complete
+  // this rank's samples s0 .. s1 - 1 of the tile, summed over the ranks in order
+  const int s0 = f.ns * f.rank / a.cs, s1 = f.ns * (f.rank + 1) / a.cs;
+  const int ncols = min(NT, a.Cout - static_cast<int>(blockIdx.y) * NT);
+  if (!f.producer)
+    for (int i = threadIdx.x; i < (s1 - s0) * a.T * (NT / 4); i += kThreads) {
+      const int r = i / (NT / 4), c = 4 * (i % (NT / 4));
+      if (c >= ncols) continue;
+      const uint32_t at = smem_u32(part + (s0 * a.T + r) * kS + c);
+      float4 v = ld_cluster4(at, 0);
+      for (int q = 1; q < a.cs; ++q) {
+        const float4 u = ld_cluster4(at, q);
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(mine + r * kS + c) = v;
+    }
+  cluster_sync();  // no rank reads another's partial past here: region 0 is free
+  if (!f.producer)
+    gn_mish_bwd_tile<NT>(gn, mine, part, reinterpret_cast<float*>(smem + tile_bytes(NT)), blockIdx.x,
+                         f.b0 + s0, s1 - s0);
 }
 
 // dx = conv_T(dz1, w1) (+ g @ wres^T in the same accumulator | + g) for 192
-// rows x NT input channels; no GroupNorm, so the N tile needs no whole
-// groups (C = 8 runs 8 live columns of 64).
+// rows x NT input channels, K (the conv's, then the projection's) split over
+// the cluster; each rank sums its share of the tile's rows over the
+// cluster's partials and writes them. No GroupNorm, so the N tile needs no
+// whole groups (C = 8 runs 8 live columns of 64).
 template <int NT, int KW>
-__global__ void __launch_bounds__(kThreads, 1) dgrad_x_stage(const DgradArgs a) {
+__global__ void __launch_bounds__(kDgThreads, 1)
+    dgrad_x_stage(const DgradArgs a, const __grid_constant__ CUtensorMap mdz,
+                  const __grid_constant__ CUtensorMap mg) {
+  using R = DgRing<NT>;
+  constexpr int kS = NT + 4;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const int b0 = blockIdx.x * a.samples;
-  const int ns = min(a.samples, a.B - b0);
-  const int nrows = ns * a.T;
-  const int row0 = b0 * a.T;
-  const int n0 = blockIdx.y * NT;
-  const int ncols = min(NT, a.Cout - n0);
-  const int lane = threadIdx.x & 31;
-  const uint32_t bars = smem_u32(smem + ring_bytes(NT));
-  if (threadIdx.x == 0) {
-    mbar_init(bars);
-    mbar_init(bars + 8);
-  }
-  __syncthreads();
-  const int nchunks = (a.Cin + kChunk - 1) / kChunk;
-  float acc[NT / 2];
+  smem += (1024 - smem_u32(smem) % 1024) % 1024;
+  float* part = reinterpret_cast<float*>(smem);  // this CTA's partial dx, over the ring
+  const size_t r0 = R::kRingBytes > tile_bytes(NT) ? R::kRingBytes : tile_bytes(NT);
+  const uint32_t full = smem_u32(smem + r0);
+  const uint32_t empty = full + 8 * R::kStages;
+  const DgFrame f = dgrad_frame<NT>(a, full, empty);
+  const bool proj = a.wress != nullptr;
+  const DgPart pc = dgrad_part<NT>(a.ws, a.Cin, kConvK, f.rank, a.cs);
+  DgPart pr = proj ? dgrad_part<NT>(a.wress, a.Cres, 1, f.rank, a.cs) : pc;
+  if (!proj) pr.c1 = pr.c0;  // no projection: an empty part
+  int it = 0;
+  if (f.producer) {
+    dgrad_produce<NT>(&mdz, pc, f.row0, smem, full, empty, it);
+    dgrad_produce<NT>(&mg, pr, f.row0, smem, full, empty, it);
+  } else {
+    float acc[NT / 2];
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-  const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
-  conv_gemm<NT, kConvK, KW>(a.dz, a.Cin, row0, nrows, tr,
-                            reinterpret_cast<const char*>(a.ws) +
-                                blockIdx.y * nchunks * weight_block_bytes(NT, kConvK),
-                            0, smem, bars, acc);
-  if (a.wress != nullptr) {
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    const TileRows tr = tile_rows<kConvK, KW>(a.samples, f.ns, a.T);
+    dgrad_consume<NT, kConvK, KW>(tr, pc, smem, full, empty, it, acc);
     // the same fragment rows (position-major at T <= 3), one tap
     TileRows t1 = tr;
     t1.klo = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) t1.ok[i] = tr.live[i] ? 1u : 0u;
-    conv_gemm<NT, 1, 1>(a.g, a.Cres, row0, nrows, t1,
-                        reinterpret_cast<const char*>(a.wress) +
-                            blockIdx.y * ((a.Cres + kChunk - 1) / kChunk) * weight_block_bytes(NT, 1),
-                        nchunks, smem, bars, acc);
+    dgrad_consume<NT, 1, 1>(t1, pr, smem, full, empty, it, acc);
+    consumer_sync();  // every warpgroup is done with the ring
+    dgrad_store_partial<NT>(tr, acc, part);
   }
-  const float* ident = a.wress == nullptr ? a.g : nullptr;
+  // this rank's rows lo .. hi - 1 of the tile: kIt float4 a thread; the
+  // identity residual's loads while the cluster syncs
+  constexpr int kIt = (kTileRows * (NT / 4) + kThreads - 1) / kThreads;
+  const int lo = f.nrows * f.rank / a.cs, hi = f.nrows * (f.rank + 1) / a.cs;
+  const int n0 = blockIdx.y * NT, ncols = min(NT, a.Cout - n0);
+  const float* ident = proj ? nullptr : a.g;
+  float4 id[kIt];
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-    const int c = 8 * j + 2 * (lane & 3);
-    if (c < ncols) {
+  for (int k = 0; k < kIt; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = lo + i / (NT / 4), c = 4 * (i % (NT / 4));
+    id[k] = ident != nullptr && !f.producer && r < hi && c < ncols
+                ? __ldg(reinterpret_cast<const float4*>(ident + static_cast<size_t>(f.row0 + r) * a.Cout + n0 + c))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cluster_sync();  // every rank's partial is complete
+  // the rank's rows, summed over the ranks in order (+ the identity residual)
+  if (!f.producer) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (!tr.live[i]) continue;
-        const size_t gi = static_cast<size_t>(row0 + tr.r[i]) * a.Cout + n0 + c;
-        float2 v = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-        if (ident != nullptr) {
-          const float2 r = __ldg(reinterpret_cast<const float2*>(ident + gi));
-          v.x += r.x, v.y += r.y;
-        }
-        *reinterpret_cast<float2*>(a.out + gi) = v;
+    for (int k = 0; k < kIt; ++k) {
+      const int i = threadIdx.x + k * kThreads, r = lo + i / (NT / 4), c = 4 * (i % (NT / 4));
+      if (r >= hi) break;
+      if (c >= ncols) continue;
+      const uint32_t at = smem_u32(part + r * kS + c);
+      float4 v = ld_cluster4(at, 0);
+      for (int q = 1; q < a.cs; ++q) {
+        const float4 u = ld_cluster4(at, q);
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
       }
+      v.x += id[k].x, v.y += id[k].y, v.z += id[k].z, v.w += id[k].w;
+      *reinterpret_cast<float4*>(a.out + static_cast<size_t>(f.row0 + r) * a.Cout + n0 + c) = v;
     }
   }
+  cluster_sync();  // no rank leaves while another reads its partial
 }
 
 // One weight layout job of stage_weights_t: w [K][Os][Cs] laid out as the
@@ -593,46 +931,6 @@ __device__ __forceinline__ WgItem wgrad_item(const WgradArgs& a, int item) {
   w.r0 = w.sp * w.jb.sps * a.rows;
   w.r1 = min(a.R, w.r0 + w.jb.sps * a.rows);
   return w;
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar) : "memory");
-}
-// Arrive on the barrier and expect `bytes` more of transfers on it.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// A contiguous copy from global to shared memory by the bulk-copy engine,
-// counted on the barrier's transfer count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// A box of a 2D tensor (coordinates: channel c, row r; outside the tensor
-// zeros) into shared memory by the Tensor Memory Accelerator, counted on
-// the barrier's transfer count.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c, int r, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
-      : "memory");
-}
-
-// wgrad's split of an A fragment value, in 3 operations where split_tf32
-// takes 9: big = v rounded to tf32 (nearest, ties away; NaN and inf are
-// not kept apart, which only a NaN or inf input could tell), small = v -
-// big exactly in fp32, handed over unrounded: the tensor cores read a tf32
-// operand's top 19 bits, so small is truncated there, 2^-11 of |small| <=
-// 2^-22 of |v|.
-__device__ __forceinline__ void split_tf32_fast(float v, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(v - __uint_as_float(big));
 }
 
 // D[64 x 32] += A[64 x 8] * B[8 x 32]: A in registers, B from shared memory.

@@ -14,9 +14,14 @@ and cotangents), and prints one JSON line:
   (3xTF32 operations at 495 TFLOP/s or bytes at 3.35 TB/s, the larger);
   wgrad also its fp32 bound (67 TFLOP/s) and ``library_ms``, the time of
   ``torch.nn.grad.conv1d_weight`` (cuDNN, fp32, TF32 off) on the same
-  convolutions, a yardstick that the port never calls;
+  convolutions, a yardstick that the port never calls; the two dgrads
+  their ``library_ms`` from ``torch.nn.grad.conv1d_input`` on their
+  convolutions (the convolution only: dgrad_gn_stage also runs the first
+  GroupNorm's backward, dgrad_x_stage the 1x1 product) and ``per_launch``:
+  each launch's shape, grid, cluster size and device ms (median pass);
 - ``backward_ms`` (the 16 blocks' backward kernels alone, CUDA events),
-  ``head_backward_ms``, ``fwd_bwd_ms`` (the 16 blocks' forward and backward
+  ``backward_host_ms`` (the host's time to issue them: when it exceeds the
+  kernels' device time, ``backward_ms`` reads the host), ``head_backward_ms``, ``fwd_bwd_ms`` (the 16 blocks' forward and backward
   through the autograd Functions);
 - ``wgrad_partial_bytes``: the plan's partials of the weight gradients.
 
@@ -32,6 +37,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 # (C_in, C_out, T) of the 16 blocks in call order, and of the head
 RTB_SHAPES = [
@@ -81,6 +87,19 @@ def events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """The host's time to issue ``fn``'s work, without waiting for the card
+    (it waits only before starting the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def block_inputs(torch, g, C: int, O: int, T: int, batch: int, dev, head: bool):
     """Seeded weights and inputs of one block (the head: its one conv) as
     the denoiser's initialisers scale them, and a cotangent of its output."""
@@ -100,6 +119,20 @@ def block_inputs(torch, g, C: int, O: int, T: int, batch: int, dev, head: bool):
     return x, p, torch.randn((batch, T, O), generator=g, device=dev)
 
 
+def dgrad_launches(_build, plan, C: int, O: int, head: bool) -> list[tuple[str, tuple, int]]:
+    """(kernel, grid, cluster size) of the plan's dgrad launches, in launch
+    order; a plan without clusters (an older checkout) launches one CTA a
+    tile."""
+    rt = plan.row_tiles
+    out = []
+    if not head:
+        cs = getattr(plan, "cs_d2", 1)
+        out.append(("dgrad_gn_stage", getattr(plan, "grid_d2", (rt, -(-O // plan.nt_d2))), cs))
+    cs = getattr(plan, "cs_d1", 1)
+    out.append(("dgrad_x_stage", getattr(plan, "grid_d1", (rt, -(-C // plan.nt_d1))), cs))
+    return out
+
+
 def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     """The measurements this module's docstring lists, as a dict."""
     from torch.profiler import ProfilerActivity
@@ -114,6 +147,11 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     g = torch.Generator(device=dev).manual_seed(2024)
     names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
     calls, rtb_calls, fwd_bwd, lib = [], [], [], []
+    dlib = {"dgrad_gn_stage": [], "dgrad_x_stage": []}  # the dgrads' convolutions for cuDNN
+    launches = []  # (kernel, shape, grid, cluster) of every dgrad launch, in order
+    plan_kw = {}
+    if hasattr(_build, "cluster_limits"):  # the card's limits, as the launches plan with them
+        plan_kw["clusters"] = _build.cluster_limits(dev)
     work = {k: dict(flops=0.0, nbytes=0.0) for k in KERNELS}
     wgrad_fp32_flops, partial_bytes, weight_bytes = 0.0, 0, 0
     with torch.no_grad():
@@ -129,7 +167,7 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                 calls.append(lambda s=saved, c=cot: fused_conv1d_gn_mish_backward(s, c, [True] * 5))
                 w_macs, d_macs, d2_macs = taps * C * O, taps * C * O, 0
                 wts = [p["w1"]]
-                plan = _build.plan_backward(batch, T, C, O, 8, proj=False, rtb=False)
+                plan = _build.plan_backward(batch, T, C, O, 8, proj=False, rtb=False, **plan_kw)
             else:
                 args = [x if n == "x" else p.get(n) for n in names]
                 saved = args + list(_fused_rtb(*args, 8, 1e-5, save=True)[1:])
@@ -140,9 +178,18 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                 d2_macs = taps * O * O
                 d_macs = taps * C * O + (T * C * O if proj else 0)
                 wts = [p["w1"], p["w2"]] + ([p["wres"]] if proj else [])
-                plan = _build.plan_backward(batch, T, C, O, 8, proj=proj)
+                plan = _build.plan_backward(batch, T, C, O, 8, proj=proj, **plan_kw)
                 fa = dict(zip(names, args))
                 fwd_bwd.append((fa, cot))
+            launches += [(k, (C, O, T), grid, cs) for k, grid, cs in dgrad_launches(_build, plan, C, O,
+                                                                                   head)]
+            # the dgrads' yardstick: cuDNN's input gradients of the same convolutions
+            # (weights [out, in, K]; the cotangents random, of the convs' output shapes)
+            if not head:
+                dlib["dgrad_gn_stage"].append(((batch, O, T), p["w2"].permute(2, 1, 0).contiguous(),
+                                               torch.randn((batch, O, T), generator=g, device=dev)))
+            dlib["dgrad_x_stage"].append(((batch, C, T), p["w1"].permute(2, 1, 0).contiguous(),
+                                          torch.randn((batch, O, T), generator=g, device=dev)))
             # wgrad's library yardstick: the same convolutions as cuDNN computes their weight grads
             xc = x.transpose(1, 2).contiguous()
             dz = cot.transpose(1, 2).contiguous()
@@ -173,20 +220,24 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     # per traced pass, each kernel's summed device time and launches; a pass
     # whose trace lost events (seen on a process's first trace) reads low,
     # so the median pass gives the time and the fullest one the launches
-    passes = []
+    passes, each = [], []
     for _ in range(reps):
         ms = {k: 0.0 for k in KERNELS}
-        launches = {k: 0 for k in KERNELS}
+        counts = {k: 0 for k in KERNELS}
+        seq = {"dgrad_gn_stage": [], "dgrad_x_stage": []}  # per launch, in launch order
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for fn in calls:
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
             k = kernel_of(e.name) if e.device_type == torch.autograd.DeviceType.CUDA else None
             if k is not None:
                 ms[k] += e.time_range.elapsed_us() / 1e3
-                launches[k] += 1
-        passes.append((ms, launches))
+                counts[k] += 1
+                if k in seq:
+                    seq[k].append(e.time_range.elapsed_us() / 1e3)
+        passes.append((ms, counts))
+        each.append(seq)
     kernels = {}
     for k in KERNELS:
         b, by = bound_ms(work[k]["flops"], work[k]["nbytes"])
@@ -200,6 +251,19 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
         torch.nn.grad.conv1d_weight(i, w, o, padding=pad) for i, w, o, pad in lib], reps)
     kernels["wgrad"]["library"] = "torch.nn.grad.conv1d_weight, fp32, cuDNN TF32 off"
     kernels["stage_weights_t"]["weight_bytes"] = weight_bytes
+    for k, convs in dlib.items():
+        kernels[k]["library_ms"] = events_ms(torch, lambda c=convs: [
+            torch.nn.grad.conv1d_input(size, w, d, padding=K // 2) for size, w, d in c], reps)
+        kernels[k]["library"] = ("torch.nn.grad.conv1d_input, fp32, cuDNN TF32 off; the convolution "
+                                 "only" + (" (the kernel also runs the first GroupNorm's backward)"
+                                           if k == "dgrad_gn_stage" else " (the kernel also adds the "
+                                           "1x1 product or the identity)"))
+        mine = [(shape, grid, cs) for kk, shape, grid, cs in launches if kk == k]
+        full = [s[k] for s in each if len(s[k]) == len(mine)]  # passes that traced every launch
+        kernels[k]["per_launch"] = [
+            {"shape": list(shape), "grid": list(grid), "cluster": cs, "ctas": grid[0] * grid[1],
+             "ms": statistics.median(f[i] for f in full) if full else "not measured"}
+            for i, (shape, grid, cs) in enumerate(mine)]
 
     def fwd_bwd_all():
         for a, c in fwd_bwd:
@@ -210,9 +274,11 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     complete = sum(all(c[k] == kernels[k]["launches"] for k in KERNELS) for _, c in passes)
     return {"batch": batch, "kernels": kernels, "traced_passes_complete": f"{complete}/{reps}",
             "backward_ms": events_ms(torch, lambda: [f() for f in rtb_calls], reps),
+            "backward_host_ms": host_ms(torch, lambda: [f() for f in rtb_calls], reps),
             "head_backward_ms": events_ms(torch, calls[-1], reps),
             "fwd_bwd_ms": events_ms(torch, fwd_bwd_all, reps),
             "wgrad_partial_bytes": partial_bytes,
+            "cluster_limits": plan_kw.get("clusters", "none: one CTA a tile"),
             "device": torch.cuda.get_device_name(dev)}
 
 

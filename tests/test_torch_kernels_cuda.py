@@ -325,6 +325,19 @@ def test_backward_kernels_at_odd_shapes(dev, C, O, T):
         _assert_scaled(gt, gw, name)
 
 
+@pytest.mark.parametrize("C,O,T,B", [(48, 96, 12, 37), (512, 1024, 3, 64)], ids=lambda v: str(v))
+def test_backward_kernels_with_groups_no_64_channel_tile_holds(dev, C, O, T, B):
+    """GroupNorm groups of 12 and 128 channels, which no N tile of 64 holds
+    whole: dgrad_gn_stage runs its N tile of 128 (a ring of 8 channels a
+    stage); the block's backward against its closed form."""
+    args, _, saved, g = _rtb_saved(C, O, B, T, dev, seed=C + O)
+    needs = [True] * 12
+    got = fused_rtb_backward(args + saved, g, needs)
+    for name, gt, gw in zip(RTB_NAMES, got, fused_rtb_backward_reference(args + saved, g, needs)):
+        if gw is not None:
+            _assert_scaled(gt, gw, name)
+
+
 @pytest.mark.parametrize("C,O,T", [(8, 64, 24), (1024, 512, 3), (256, 256, 6)], ids=lambda v: str(v))
 def test_fused_rtb_backward_without_dx(dev, C, O, T):
     """x needs no gradient (the first block in training): no dx, and the

@@ -189,7 +189,8 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
     """Every launch of the backward (gn_mish_bwd, the dgrad of conv2 with the
     first GroupNorm's backward, the dgrad to x, wgrad's split-K) tiles
     whole samples, whole groups where a GroupNorm reduces, covers every row
-    tile once, and fits the H100's shared memory."""
+    tile once, and fits the H100's shared memory; the dgrads split K over
+    clusters that run in one wave on 132 SMs."""
     G, og = 8, O // 8
     plan = _build.plan_backward(B, T, C, O, G, proj=C != O, rtb=rtb)
     assert plan.samples == 192 // T and plan.row_tiles == -(-B // plan.samples)
@@ -198,12 +199,37 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
     assert O <= plan.nt_gn or plan.nt_gn % og == 0
     gpt = min(O, plan.nt_gn) // og
     assert plan.smem_gn == 2 * 192 * (plan.nt_gn + 4) * 4 + 16 * plan.samples * gpt + 16
+    # the dgrads: an N tile of 64 channels (dgrad_gn_stage: 128 where 64 holds
+    # no whole groups); K split over clusters of 1 to 4 CTAs, each CTA on
+    # an SM of its own, all the grid's clusters at once, every rank at least
+    # two ring stages (16 input channels a stage at 64, 8 at 128)
+    limits = dict(zip((1, 2, 3, 4), (132, 66, 44, 33)))
+    assert _build.default_cluster_limits(132) == tuple(limits.values())
+
+    def cluster_ok(cs, tiles, stages):
+        if cs != 1:
+            assert tiles <= limits[cs] and stages >= 2 * cs
+        bigger = [c for c in limits if c > cs and tiles <= limits[c] and stages >= 2 * c]
+        assert not bigger  # the largest that fits
+
+    ring = lambda nt: (3 * (12 * 1024 + 2 * 20480) if nt == 64 else 2 * (6 * 1024 + 40960))
+    stages_n = lambda nt: 3 if nt == 64 else 2
+    assert plan.nt_d1 == 64 and plan.smem_d1 == 1024 + ring(64) + 16 * 3 == 160816
+    assert plan.cs_d1 in limits and plan.grid_d1 == (plan.row_tiles * plan.cs_d1, -(-C // 64))
+    cluster_ok(plan.cs_d1, plan.row_tiles * -(-C // 64), -(-O // 16))
     if rtb:
         assert plan.nt_d2 in (64, 128) and (O <= plan.nt_d2 or plan.nt_d2 % og == 0)
         assert plan.smem_d2 <= _build.SMEM_MAX
         assert plan.nt_d2 == _build.plan_stage(B, T, O, O, G).n_tile or plan.nt_d2 == 64
+        assert plan.nt_d2 == (64 if O <= 64 or 64 % og == 0 else 128)
+        nt, gpt2 = plan.nt_d2, min(O, plan.nt_d2) // og
+        tile = 192 * (nt + 4) * 4
+        assert plan.smem_d2 == (1024 + max(ring(nt), tile + 16 * plan.samples * gpt2) + tile
+                                + 16 * stages_n(nt))
+        assert plan.cs_d2 in limits and plan.grid_d2 == (plan.row_tiles * plan.cs_d2, -(-O // nt))
+        cluster_ok(plan.cs_d2, plan.row_tiles * -(-O // nt), -(-O // (16 if nt == 64 else 8)))
     else:
-        assert plan.nt_d2 == plan.smem_d2 == 0
+        assert plan.nt_d2 == plan.smem_d2 == plan.cs_d2 == 0
     # wgrad: dw1 (C inputs, 5 taps), dw2 (O, 5), dwres (C, 1), 64 x 64 channel tiles
     # over runs of whole ring stages that cover every row once
     jobs = [(C, 5)] + ([(O, 5)] if rtb else []) + ([(C, 1)] if rtb and C != O else [])
@@ -230,7 +256,23 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
     assert plan.wgrad_grid == min(items, 132)
     groups = -(-B * T // 48) * 6 if T == 3 else -(-B * T // 8)
     assert plan.wop_bytes == -(-O // 64) * groups * 2 * 512 * 4
-    assert plan.colpart_bytes == (7 if rtb else 3) * plan.row_tiles * O * 4
+    # per row tile 4 kinds of the last GroupNorm's column partials (the head:
+    # 3), then per row tile and rank of dgrad_gn_stage's cluster 3 of the first's
+    assert plan.colpart_bytes == ((4 + 3 * plan.cs_d2) if rtb else 3) * plan.row_tiles * O * 4
+
+
+def test_dgrad_clusters_fill_the_card_at_t3():
+    """At batch 512, with the planner's default cluster limits for 132 SMs,
+    every T = 3 launch of both dgrads runs at least 96 CTAs (grid x
+    cluster), where one CTA a tile ran 32 or 64 (128 for dgrad_x_stage at
+    1024 -> 512)."""
+    for C, O, T in RTB_SHAPES:
+        if T != 3:
+            continue
+        plan = _build.plan_backward(512, T, C, O, 8, proj=C != O)
+        assert plan.grid_d2[0] * plan.grid_d2[1] >= 96, (C, O, plan)
+        assert plan.grid_d1[0] * plan.grid_d1[1] >= 96, (C, O, plan)
+        assert plan.row_tiles * -(-O // plan.nt_d2) <= 64 and plan.row_tiles * -(-C // 64) <= 128
 
 
 def test_plan_backward_sizes_the_staged_weights():
@@ -248,7 +290,7 @@ def test_plan_backward_sizes_the_staged_weights():
 
 
 def test_backward_args_mirror_the_c_structure():
-    """BackwardArgs is 36 pointers, 4 sizes and 19 ints, in that order,
+    """BackwardArgs is 36 pointers, 4 sizes and 21 ints, in that order,
     as BlockBwdArgs in csrc/block_backward.cu declares them."""
     import ctypes
     fields = _build.BackwardArgs._fields_
@@ -257,7 +299,7 @@ def test_backward_args_mirror_the_c_structure():
     assert [n for n, _ in fields[36:40]] == ["wstage_bytes", "wpart_bytes", "colpart_bytes",
                                              "wop_bytes"]
     assert [n for n, _ in fields[-3:]] == ["wg_grid", "splits", "sps"]
-    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 13 * 4 + 6 * 4 + 4  # + padding
+    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 15 * 4 + 6 * 4 + 4  # + padding
     src = (_build.CSRC / "block_backward.cu").read_text()
     body = src[src.index("struct BlockBwdArgs {"):src.index("};", src.index("struct BlockBwdArgs {"))]
     import re
