@@ -20,7 +20,9 @@ after a ``torch.cuda.synchronize()``:
              cuobjdump finds in each kernel (HGMMA: wgmma; HMMA: mma.sync);
              the backward's weight-gradient kernel ``wgrad`` and its two
              dgrads (``dgrad_gn_stage``, ``dgrad_x_stage``, every instance)
-             must issue wgmma, no mma.sync, and spill nothing.
+             must issue wgmma, no mma.sync, and spill nothing; its
+             GroupNorm + Mish backward ``gn_mish_bwd`` (its three instances:
+             1, 2 or 4 channels a lane's load) must spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4), then timed with CUDA
@@ -62,8 +64,10 @@ after a ``torch.cuda.synchronize()``:
              bound, wgrad's fp32 bound and library yardstick
              (``torch.nn.grad.conv1d_weight``, cuDNN fp32), the dgrads'
              (``torch.nn.grad.conv1d_input``, the convolution only) and
-             their launches one by one (shape, grid, cluster size, ms), and
-             the plan's bytes of weight-gradient partials.
+             their launches one by one (shape, grid, cluster size, ms),
+             ``gn_mish_bwd``'s launches one by one (each must run at least
+             132 CTAs at batch 512) beside aten's GroupNorm backward as its
+             yardstick, and the plan's bytes of weight-gradient partials.
 7. train:    ``cindm_tpu_torch.cli.train_1d`` at the configuration that
              trained the in-tree prior (batch 512, dim 64, 6,000 simulations
              generated on the card, 30% collision windows), cut only in its
@@ -207,6 +211,8 @@ RECURRENCE = 10
 N_WINDOWS, N_PAIRS = 3, 28
 TRAIN_BATCH = 512  # the batch that trained the in-tree prior
 GRAD_TOL = 1e-3  # per parameter: max |g_kernel - g_plain| / max |g_plain|
+GN_CTAS_BATCH = 512  # every gn_mish_bwd launch of a backward pass at this batch runs
+GN_MIN_CTAS = 132  # at least this many CTAs: one an SM of the H100
 # scripts_paper/round3c_train1d.sh, cut only in its step count
 TRAIN_ARGS = [
     "--batch_size", "512", "--gradient_accumulate_every", "1", "--Unet_dim", "64",
@@ -1981,19 +1987,28 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
     return {**rec, "checks": checks}
 
 
-def check_kernel_build(_build, sass, name: str, instances: int) -> dict:
+def check_gn_ctas(bprof: dict) -> None:
+    """Every gn_mish_bwd launch of the backward pass at the training batch
+    runs at least GN_MIN_CTAS CTAs (one an SM of the H100), 17 launches."""
+    launches = bprof["kernels"]["gn_mish_bwd"]["per_launch"]
+    small = [l for l in launches if l["ctas"] < GN_MIN_CTAS]
+    if len(launches) != len(RTB_SHAPES) + 1 or small:
+        raise AssertionError(f"gn_mish_bwd launches under {GN_MIN_CTAS} CTAs at {GN_CTAS_BATCH}: {small}")
+
+
+def check_kernel_build(_build, sass, name: str, instances: int, wgmma: bool = True) -> dict:
     """The registers and spills from ptxas of the kernels whose mangled name
     holds ``name`` and their tensor-core instructions from cuobjdump, each
-    of the ``instances``: they must issue wgmma (HGMMA) and no mma.sync
-    (HMMA), and spill nothing. ptxas's notes on them (a serialized wgmma
-    pipeline, C7512) are kept beside."""
+    of the ``instances``: they must spill nothing and, with ``wgmma``, issue
+    wgmma (HGMMA) and no mma.sync (HMMA). ptxas's notes on them (a
+    serialized wgmma pipeline, C7512) are kept beside."""
     res = _build.ptxas_kernel(name)
     counts = {k: v for k, v in sass.items() if name in k} if isinstance(sass, dict) else sass
     if not isinstance(res, dict) or len(res) != instances:
         raise AssertionError(f"no ptxas report of all {instances} instances of {name}: {res}")
     if any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in res.values()):
         raise AssertionError(f"{name} spills registers: {res}")
-    if isinstance(counts, dict) and not (len(counts) == instances and all(
+    if wgmma and isinstance(counts, dict) and not (len(counts) == instances and all(
             c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values())):
         raise AssertionError(f"{name} should issue wgmma and no mma.sync: {counts}")
     notes = [l.split("ptxas info    : ")[-1] for l in _build.ptxas_report().splitlines()
@@ -2139,10 +2154,12 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # HMMA: mma.sync), from cuobjdump; wgrad's and the dgrads' beside them, checked
     sass = _build.sass_mma_counts() if cuda else "not measured"
     # the backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
-    # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3)
-    tc = {k: check_kernel_build(_build, sass, m, n) if cuda else "not measured"
-          for k, m, n in (("wgrad", "5wgrad", 2), ("dgrad_gn_stage", "14dgrad_gn_stage", 4),
-                          ("dgrad_x_stage", "13dgrad_x_stage", 2))}
+    # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3);
+    # gn_mish_bwd (1, 2 or 4 channels a lane) on the CUDA cores
+    tc = {k: check_kernel_build(_build, sass, m, n, w) if cuda else "not measured"
+          for k, m, n, w in (("wgrad", "5wgrad", 2, True), ("dgrad_gn_stage", "14dgrad_gn_stage", 4, True),
+                             ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
+                             ("gn_mish_bwd", "11gn_mish_bwd", 3, False))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
           "ptxas": _build.ptxas_report().splitlines() if cuda else [],
@@ -2175,6 +2192,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # one backward pass of the 16 blocks and the head: each backward kernel's
     # device ms beside its bound, wgrad's library yardstick, the partials
     bprof = backward_profile.profile(torch, dev, train_batch) if cuda else "not measured (CPU)"
+    if cuda and train_batch == GN_CTAS_BATCH:
+        check_gn_ctas(bprof)
     sync()
     emit({"phase": "grad", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "block_tolerance": TOL, **grad,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -147,6 +148,13 @@ COL_PARTS = 7  # kinds of column partials of the block: dgs2, dgb2, db2, dbres, 
 # over a cluster of one of CLUSTER_SIZES CTAs.
 CLUSTER_SIZES = (1, 2, 3, 4)
 DG_MIN_STAGES = 2  # each rank of a cluster runs at least this many ring stages
+# gn_mish_bwd (csrc/conv_backward.cuh): at most GN_PAIRS (sample, group)
+# pairs a CTA, GN_WARP_PAIRS a warp; an N tile at least GN_LINE channels (a
+# 128-byte line) wide where the groups allow; GN_KINDS kinds of column partials.
+GN_PAIRS = 16
+GN_WARP_PAIRS = 2
+GN_LINE = 32
+GN_KINDS = 4
 
 
 def wgrad_smem_bytes() -> int:
@@ -193,18 +201,57 @@ def dgrad_ring(nt: int) -> tuple[int, int, int]:
     return ch, stages, stages * stage
 
 
-def gn_stats_bytes(samples: int, gpt: int) -> int:
-    """The GroupNorm backward's statistics: mean, rstd and two means of its
-    gradient for each of samples x gpt (sample, group) pairs."""
-    return 4 * 4 * samples * gpt
+def gn_stride(nt: int) -> int:
+    """Floats between the rows of gn_mish_bwd's staged tiles of ``nt``
+    channels: 16 modulo 32, so that the operand writer's reads fall on
+    distinct banks."""
+    return (nt + 15) // 32 * 32 + 16
 
 
-def dgrad_gn_smem_bytes(nt: int, samples: int, gpt: int) -> int:
-    """dgrad_gn_stage: 1,024 bytes to align the ring; the ring, which after
-    the main loop holds the CTA's partial tile, then yh and the statistics;
-    the rank's summed share of the tile; two barriers a stage."""
+def gn_bwd_smem_bytes(nt: int, samples: int, T: int, planes: int) -> int:
+    """gn_mish_bwd: ``planes`` staged tiles of ``samples`` x T rows (dz for
+    wgrad's operand, and g where the block writes gw), then the pairs'
+    column sums, GN_KINDS x samples x nt."""
+    return 4 * (planes * samples * T * gn_stride(nt) + GN_KINDS * samples * nt)
+
+
+def gn_lane_floats(og: int) -> int:
+    """The channels a lane of gn_mish_bwd loads at once for groups of
+    ``og``: 2 for an even og up to 64 (a pair of the training shapes then
+    fills every lane), else 1 up to 32, else 4 up to 128 (0: none fits)."""
+    return next((v for v in (2, 1, 4) if og % v == 0 and og <= 32 * v), 0)
+
+
+def gn_tile(B: int, T: int, O: int, G: int, planes: int,
+            num_sms: int = H100_SMS) -> tuple[int, int, int]:
+    """gn_mish_bwd's tile: (channels nt, groups a tile gpt, samples a tile).
+    nt holds whole groups, at least GN_LINE channels where G allows, and is a
+    multiple of 8 (whole n8 blocks of wgrad's operand layout) unless it
+    spans O; GN_PAIRS // gpt samples, fewer where the shared memory would
+    keep two CTAs off one SM or the grid would leave an SM without one."""
+    og = O // G
+    if not gn_lane_floats(og):
+        raise ValueError(f"gn_mish_bwd takes groups of at most 32 channels, 64 of an even count or "
+                         f"128 of a multiple of 4, got {og}")
+    m = 8 // math.gcd(og, 8)  # groups whose channels make a multiple of 8
+    gpt = min(-(-GN_LINE // (m * og)) * m, GN_PAIRS, G)
+    nt = gpt * og
+    ctiles = -(-O // nt)
+    samples = max(1, GN_PAIRS // gpt)
+    while samples > 1 and (gn_bwd_smem_bytes(nt, samples, T, planes) > SMEM_MAX // 2
+                           or -(-B // samples) * ctiles < num_sms):
+        samples -= 1
+    return nt, gpt, samples
+
+
+def dgrad_gn_smem_bytes(nt: int, samples: int, cs: int) -> int:
+    """dgrad_gn_stage: 1,024 bytes to align the ring; region 0, the ring,
+    which after the main loop holds the CTA's partial tile, then the column
+    sums of its GroupNorm backward (3 kinds x a rank's samples, of
+    ``samples`` over a cluster of ``cs``, x nt); the rank's summed share of
+    the tile; two barriers a stage."""
     _, stages, ring = dgrad_ring(nt)
-    return (1024 + max(ring, _tile_bytes(nt) + gn_stats_bytes(samples, gpt)) + _tile_bytes(nt)
+    return (1024 + max(ring, _tile_bytes(nt), 12 * -(-samples // cs) * nt) + _tile_bytes(nt)
             + 16 * stages)
 
 
@@ -244,7 +291,11 @@ class BackwardPlan:
     """The launches of one block's backward (``rtb``) or the head's.
 
     ``samples`` whole samples per row tile (``row_tiles`` of them), as in the
-    forward; ``nt_gn``/``smem_gn`` tile ``gn_mish_bwd``; ``nt_d2``/``smem_d2``
+    forward, for the dgrads; ``gn_mish_bwd`` tiles its own rows:
+    ``gn_samples`` whole samples (``gn_tiles`` row tiles) x ``nt_gn``
+    channels on ``gn_threads`` threads (a warp GN_WARP_PAIRS (sample, group)
+    pairs), a grid
+    of ``grid_gn`` CTAs and ``smem_gn`` bytes; ``nt_d2``/``smem_d2``
     the dgrad of conv2 with the first GroupNorm's backward (the block only),
     its K split over clusters of ``cs_d2`` CTAs on a grid of ``grid_d2``
     CTAs; ``nt_d1``/``smem_d1``/``cs_d1``/``grid_d1`` the dgrad to x.
@@ -260,6 +311,10 @@ class BackwardPlan:
 
     samples: int
     row_tiles: int
+    gn_samples: int
+    gn_tiles: int
+    gn_threads: int
+    grid_gn: tuple[int, int]
     nt_gn: int
     smem_gn: int
     nt_d2: int
@@ -302,20 +357,24 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     def whole(nt: int) -> bool:
         return O <= nt or nt % og == 0
 
-    # gn_mish_bwd: memory-bound, so the narrower tile (more blocks) where it holds whole groups
-    nt_gn = next((nt for nt in (64, 128) if whole(nt)), None)
-    if nt_gn is None:
-        raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
-    smem_gn = 2 * _tile_bytes(nt_gn) + gn_stats_bytes(samples, min(O, nt_gn) // og) + 16
+    # gn_mish_bwd: memory-bound, a warp two (sample, group) pairs, tiles small
+    # enough that every SM gets a CTA; dz (and g on a projection block)
+    # staged for wgrad's operand layout
+    planes = (2 if rtb and proj else 1) if want_w else 0
+    nt_gn, gpt_gn, gn_samples = gn_tile(B, T, O, G, planes, num_sms)
+    gn_tiles = -(-B // gn_samples)
+    smem_gn = gn_bwd_smem_bytes(nt_gn, gn_samples, T, planes)
     # the dgrads: an N tile of 64 (of whole groups for dgrad_gn_stage, else
     # 128), K split over the largest cluster whose clusters run in one wave
     nt_d2 = smem_d2 = cs_d2 = 0
     grid_d2 = (0, 0)
     if rtb:
+        if not (whole(64) or whole(128)):
+            raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
         nt_d2 = 64 if whole(64) else 128
-        smem_d2 = dgrad_gn_smem_bytes(nt_d2, samples, min(O, nt_d2) // og)
         ch = dgrad_ring(nt_d2)[0]
         cs_d2 = dgrad_cluster(row_tiles * -(-O // nt_d2), -(-O // (CHUNK * ch)), clusters)
+        smem_d2 = dgrad_gn_smem_bytes(nt_d2, samples, cs_d2)
         grid_d2 = (row_tiles * cs_d2, -(-O // nt_d2))
     nt_d1, smem_d1 = 64, dgrad_x_smem_bytes()
     cs_d1 = dgrad_cluster(row_tiles * -(-C // 64), -(-O // (CHUNK * dgrad_ring(64)[0])), clusters)
@@ -340,11 +399,12 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     wstage = ((staged_weight_bytes(nt_d2, O, O) if rtb else 0)
               + (staged_weight_bytes(nt_d1, O, C) if want_dx else 0)
               + (staged_weight_bytes(nt_d1, O, C, K=1) if want_dx and rtb and proj else 0))
-    # column partials: per row tile 4 kinds of the last GroupNorm (3 for the
-    # head), then per row tile and rank 3 kinds of dgrad_gn_stage's
-    colpart = ((4 + 3 * cs_d2) if rtb else 3) * row_tiles * O * 4
+    # column partials: per gn_mish_bwd row tile 4 kinds of the last GroupNorm
+    # (3 for the head), then per row tile and rank 3 kinds of dgrad_gn_stage's
+    colpart = ((4 * gn_tiles + 3 * cs_d2 * row_tiles) if rtb else 3 * gn_tiles) * O * 4
     plan = BackwardPlan(
-        samples, row_tiles, nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, cs_d2, cs_d1, grid_d2,
+        samples, row_tiles, gn_samples, gn_tiles, 32 * -(-gn_samples * gpt_gn // GN_WARP_PAIRS),
+        (gn_tiles, -(-O // nt_gn)), nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, cs_d2, cs_d1, grid_d2,
         grid_d1, tuple(wgrad_jobs), tuple(splits), tuple(sps), wgrad_smem_bytes(), items,
         min(items, num_sms), wstage, wpart, colpart,
         wgrad_operand_bytes(B * T, O, T) if want_w else 0)
@@ -365,8 +425,9 @@ class BackwardArgs(ctypes.Structure):
             "dbres",
             "dz1", "dz2", "dz1w", "dz2w", "gw", "wstage", "wpart", "colpart")]
         + [(n, _L) for n in ("wstage_bytes", "wpart_bytes", "colpart_bytes", "wop_bytes")]
-        + [(n, _I) for n in ("B", "T", "C", "O", "G", "samples", "nt_gn", "smem_gn", "nt_d2",
-                             "smem_d2", "nt_d1", "smem_d1", "cs_d2", "cs_d1", "wg_grid")]
+        + [(n, _I) for n in ("B", "T", "C", "O", "G", "samples", "gn_samples", "gn_tiles", "nt_gn",
+                             "smem_gn", "nt_d2", "smem_d2", "nt_d1", "smem_d1", "cs_d2", "cs_d1",
+                             "wg_grid")]
         + [("splits", _I * 3), ("sps", _I * 3)]
     )
 
@@ -651,7 +712,8 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
     args = BackwardArgs(
         wstage_bytes=plan.wstage_bytes, wpart_bytes=plan.wpart_bytes,
         colpart_bytes=plan.colpart_bytes, wop_bytes=plan.wop_bytes, B=B, T=T, C=C, O=O, G=G,
-        samples=plan.samples, nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2,
+        samples=plan.samples, gn_samples=plan.gn_samples, gn_tiles=plan.gn_tiles,
+        nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2,
         smem_d2=plan.smem_d2, nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, cs_d2=plan.cs_d2 or 1,
         cs_d1=plan.cs_d1, wg_grid=plan.wgrad_grid,
         splits=(ctypes.c_int * 3)(*plan.splits), sps=(ctypes.c_int * 3)(*plan.sps))

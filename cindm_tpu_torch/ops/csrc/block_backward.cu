@@ -55,9 +55,10 @@ struct BlockBwdArgs {
   float* gw;
   uint32_t* wstage;  // weights laid out by stage_weights_t
   float* wpart;      // the partials of the gradients whose rows wgrad splits, job after job
-  float* colpart;    // column partials: 4 (3 for the head) x row tiles x O, then 3 x row tiles x cs_d2 x O
+  float* colpart;    // column partials: 4 (3 for the head) x gn_tiles x O, then 3 x row tiles x cs_d2 x O
   long long wstage_bytes, wpart_bytes, colpart_bytes, wop_bytes;
   int B, T, C, O, G, samples;
+  int gn_samples, gn_tiles;  // gn_mish_bwd's row tiles: gn_samples whole samples each
   int nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1;
   int cs_d2, cs_d1;  // the dgrads' cluster sizes: the split of K
   int wg_grid;  // wgrad's persistent grid: at most one block an SM
@@ -78,11 +79,15 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
     if (e_ != cudaSuccess) return e_;         \
   } while (0)
 
-template <int NT>
-cudaError_t launch_gn(const float* d, const cindm::GnBwd& a, int row_tiles, size_t bytes,
+// gn_mish_bwd: a grid of row tiles x N tiles, a warp kGnWarpPairs (sample,
+// group) pairs of its tile
+template <int V>
+cudaError_t launch_gn(const float* d, const cindm::GnBwd& a, int tiles, int samples, int nt, size_t bytes,
                       cudaStream_t s) {
-  CINDM_TRY(allow_smem(cindm::gn_mish_bwd<NT>, bytes));
-  cindm::gn_mish_bwd<NT><<<dim3(row_tiles, (a.O + NT - 1) / NT), cindm::kThreads, bytes, s>>>(d, a);
+  CINDM_TRY(allow_smem(cindm::gn_mish_bwd<V>, bytes));
+  const int pairs = samples * (nt / (a.O / a.G));
+  const int threads = 32 * ((pairs + cindm::kGnWarpPairs - 1) / cindm::kGnWarpPairs);
+  cindm::gn_mish_bwd<V><<<dim3(tiles, (a.O + nt - 1) / nt), threads, bytes, s>>>(d, a, samples, nt);
   return cudaGetLastError();
 }
 
@@ -171,10 +176,20 @@ bool cluster_size_ok(int cs) { return cs >= 1 && cs <= cindm::kDgClusterMax; }
 
 size_t staged_t(int nt, int Cs, int Os, int K) { return cindm::staged_weight_bytes(nt, Cs, Os, K); }
 
-int gpt_of(int O, int G, int nt) { return (O < nt ? O : nt) / (O / G); }
-
 // An N tile of nt channels holds whole groups of O / G.
 bool whole_groups(int O, int G, int nt) { return O <= nt || nt % (O / G) == 0; }
+
+// gn_mish_bwd's tile: nt channels of whole groups, a multiple of 8 (whole
+// n8 blocks of the operand layout) unless one tile spans O; at most
+// kGnPairs pairs; a group's load units fit one warp's row (gn_lane_floats).
+bool gn_tile_ok(const BlockBwdArgs& a) {
+  const int og = a.O / a.G;
+  if (a.nt_gn <= 0 || a.nt_gn > a.O || a.nt_gn % og != 0 || (a.nt_gn % 8 != 0 && a.nt_gn != a.O))
+    return false;
+  const int pairs = a.gn_samples * (a.nt_gn / og);
+  return a.gn_samples >= 1 && pairs <= cindm::kGnPairs && cindm::gn_lane_floats(og) > 0 &&
+         a.gn_tiles == (a.B + a.gn_samples - 1) / a.gn_samples;
+}
 
 int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   using namespace cindm;
@@ -184,8 +199,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   const bool proj = rtb && a.wres != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || a.samples != kTileRows / a.T || a.samples <= 0 ||
-      (a.nt_gn != 64 && a.nt_gn != 128) || a.nt_d1 != 64 || !cluster_size_ok(a.cs_d1) ||
-      !whole_groups(a.O, a.G, a.nt_gn) || rtb != (a.w2 != nullptr) ||
+      !gn_tile_ok(a) || a.nt_d1 != 64 || !cluster_size_ok(a.cs_d1) || rtb != (a.w2 != nullptr) ||
       (rtb && ((a.nt_d2 != 64 && a.nt_d2 != 128) || !whole_groups(a.O, a.G, a.nt_d2) ||
                !cluster_size_ok(a.cs_d2) || (!proj && a.C != a.O))))
     return cudaErrorInvalidValue;
@@ -195,18 +209,20 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   const int row_tiles = (a.B + a.samples - 1) / a.samples;
   const int K = kConvK;
 
-  // the plan's shared memory and scratch, as the launches count them
-  const size_t smem_gn = gn_bwd_smem_bytes(a.nt_gn, a.samples, gpt_of(a.O, a.G, a.nt_gn));
-  const size_t smem_d2 = rtb ? dgrad_gn_smem_bytes(a.nt_d2, a.samples, gpt_of(a.O, a.G, a.nt_d2)) : 0;
+  // the plan's shared memory and scratch, as the launches count them;
+  // gn_mish_bwd stages dz (and g on a projection block) for wgrad's operand
+  const size_t smem_gn = gn_bwd_smem_bytes(a.nt_gn, a.gn_samples, a.T, want_w ? (proj ? 2 : 1) : 0);
+  const size_t smem_d2 = rtb ? dgrad_gn_smem_bytes(a.nt_d2, a.samples, a.cs_d2) : 0;
   const size_t smem_d1 = dgrad_x_smem_bytes();
   if (smem_gn != static_cast<size_t>(a.smem_gn) || smem_gn > kSmemMax ||
       (rtb && (smem_d2 != static_cast<size_t>(a.smem_d2) || smem_d2 > kSmemMax)) ||
       smem_d1 != static_cast<size_t>(a.smem_d1) || smem_d1 > kSmemMax)
     return cudaErrorInvalidValue;
   // column partials: 4 kinds (dgs, dgb, db, dbres) of the last GroupNorm by
-  // row tile, then 3 of the first (dgrad_gn_stage's) by row tile and rank
-  const size_t pk = size_t(row_tiles) * a.O;
-  const size_t pk1 = pk * (rtb ? a.cs_d2 : 0);
+  // gn_mish_bwd's row tile, then 3 of the first (dgrad_gn_stage's) by row
+  // tile and rank
+  const size_t pk = size_t(a.gn_tiles) * a.O;
+  const size_t pk1 = size_t(row_tiles) * a.O * (rtb ? a.cs_d2 : 0);
   const size_t n_w2 = rtb ? staged_t(a.nt_d2, a.O, a.O, K) : 0;
   const size_t n_w1 = want_dx ? staged_t(a.nt_d1, a.O, a.C, K) : 0;
   const size_t n_wr = want_dx && proj ? staged_t(a.nt_d1, a.O, a.C, 1) : 0;
@@ -254,8 +270,9 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   wa.nitems = items;
   if (static_cast<long long>(wpart_off * 4) > a.wpart_bytes || (want_w && a.wg_grid <= 0))
     return cudaErrorInvalidValue;
-  // the column sums: [dgs, dgb, db, dbres] of the last GroupNorm over its
-  // row tiles, then [dgs, dgb, db] of the first over row tiles x ranks
+  // the column sums: [dgs, dgb, db, dbres] of the last GroupNorm over
+  // gn_mish_bwd's row tiles, then [dgs, dgb, db] of the first over row tiles
+  // x ranks
   float* gs_last = rtb ? a.dgs2 : a.dgs1;
   float* gb_last = rtb ? a.dgb2 : a.dgb1;
   float* b_last = rtb ? a.db2 : a.db1;
@@ -263,7 +280,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
                             a.dgs1, a.dgb1, a.db1};
   for (int q = 0; q < (want_w ? (rtb ? kColParts : 3) : 0); ++q)
     if (dsts[q] != nullptr)
-      ra.job[ra.njobs++] = q < 4 ? ReduceJob{a.colpart + q * pk, dsts[q], a.O, row_tiles}
+      ra.job[ra.njobs++] = q < 4 ? ReduceJob{a.colpart + q * pk, dsts[q], a.O, a.gn_tiles}
                                  : ReduceJob{a.colpart + 4 * pk + (q - 4) * pk1, dsts[q], a.O,
                                              row_tiles * a.cs_d2};
 
@@ -292,9 +309,11 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   gn.part = a.colpart; gn.dtemb = nullptr; gn.colsum = proj ? 1 : 0;
   gn.dzw = want_w ? (rtb ? a.dz2w : a.dz1w) : nullptr;
   gn.gw = want_w && proj ? a.gw : nullptr;
-  gn.B = a.B; gn.T = a.T; gn.O = a.O; gn.G = a.G; gn.samples = a.samples; gn.row_tiles = row_tiles;
-  CINDM_TRY(a.nt_gn == 64 ? launch_gn<64>(a.g, gn, row_tiles, smem_gn, s)
-                          : launch_gn<128>(a.g, gn, row_tiles, smem_gn, s));
+  gn.B = a.B; gn.T = a.T; gn.O = a.O; gn.G = a.G; gn.row_tiles = a.gn_tiles;
+  const int v = gn_lane_floats(a.O / a.G);
+  CINDM_TRY(v == 1   ? launch_gn<1>(a.g, gn, a.gn_tiles, a.gn_samples, a.nt_gn, smem_gn, s)
+            : v == 2 ? launch_gn<2>(a.g, gn, a.gn_tiles, a.gn_samples, a.nt_gn, smem_gn, s)
+                     : launch_gn<4>(a.g, gn, a.gn_tiles, a.gn_samples, a.nt_gn, smem_gn, s));
 
   // 3. the block: dh = conv_T(dz2, w2), dtemb, the first GroupNorm's backward -> dz1.
   // The dgrads' tensor maps are encoded here, after this thread's first

@@ -35,18 +35,22 @@
 // What bounds it on an H100: operations. The two dgrads and the wgrads do
 // twice the forward's multiply-adds, and 3xTF32 issues each three times on
 // the tensor cores: at batch 512 about 0.62 ms for the denoiser's 16 blocks
-// at 495 TFLOP/s; the GroupNorm/Mish passes move about 0.1 GB there (0.03
-// ms at 3.35 TB/s).
+// at 495 TFLOP/s. gn_mish_bwd is bound by bytes: g and z read, dz written,
+// and dz (and g on a projection block) in wgrad's two-plane operand layout,
+// about 0.3 GB there (0.089 ms at 3.35 TB/s).
 //
 // Design. The GroupNorm backward needs two reductions over each (sample,
-// group), so, as in the forward, a block tiles 192 rows of whole samples x
-// an N tile of whole groups and keeps the tile in shared memory; the dgrad
-// of conv2 is an implicit GEMM over dz2 with the flipped weights, so its
-// tile holds dh for whole samples and whole groups and the first
-// GroupNorm's backward runs in its epilogue, with no round trip of dh.
-// Every reduction across blocks goes through partials in device memory and
-// a second pass in a fixed order, never through atomics, so a gradient
-// repeats bit for bit from run to run.
+// group): a warp owns whole pairs, holds a pair's d and z in registers
+// (gn_bwd_tile: one streaming pass, shuffle sums, no block barrier between
+// phases), and gn_mish_bwd tiles its own rows, a few whole samples x an N
+// tile of whole groups a CTA, so that a launch at the training batch runs
+// 256 CTAs of 8 warps (two pairs a warp), two an SM. The dgrad of conv2 is
+// an implicit GEMM over dz2 with the flipped weights, so its tile holds dh
+// for whole samples and whole groups and the first GroupNorm's backward
+// runs in its epilogue on the same tile code, with no round trip of dh.
+// Every reduction across warps or blocks goes in a fixed order (shuffle
+// trees, then partials in shared and device memory summed in order), never
+// through atomics, so a gradient repeats bit for bit from run to run.
 //
 // The dgrads. At the training batch a tile of 192 rows x 64 channels leaves
 // most of the 132 SMs idle (8 row tiles at T = 3), while K, the cotangent's
@@ -74,8 +78,8 @@
 // What bounds the dgrads (PERF.md): their 3xTF32 operations take about 0.31
 // ms at batch 512; each stage re-reads its N tile's weight blocks (two tf32
 // planes, five taps) for only 192 rows, so at T = 3 the ring's L2 traffic
-// rivals the wgmmas; in dgrad_gn_stage the GroupNorm backward on the rank's
-// samples (gn_mish_bwd_tile, shared with gn_mish_bwd) takes about a third.
+// rivals the wgmmas; dgrad_gn_stage then runs the GroupNorm backward on the
+// rank's samples (gn_bwd_tile, shared with gn_mish_bwd).
 //
 // wgrad. dw[k][c][o] = sum_r act[r + k - 2][c] * d[r][o] is a GEMM with
 // M = input channels, N = output channels and K = rows, the slow axis of
@@ -159,20 +163,45 @@ struct DgRing {
 };
 
 // Mirror ops/_build.plan_backward; the launches refuse a plan that differs.
-// The GroupNorm backward's statistics: mean, rstd and two means of its
-// gradient for each (sample, group) of a tile.
-__host__ __device__ inline size_t gn_stats_bytes(int samples, int gpt) { return 4 * 4 * size_t(samples) * gpt; }
-inline size_t gn_bwd_smem_bytes(int nt, int samples, int gpt) {
-  return 2 * tile_bytes(nt) + gn_stats_bytes(samples, gpt) + 16;
+// gn_mish_bwd's tile: at most kGnPairs (sample, group) pairs, kGnWarpPairs a
+// warp; a lane holds kGnLaneFloats of d and of z a pair at a time (a chunk).
+// dgrad_gn_stage's epilogue: kGnEpiPairs a warp at a time.
+constexpr int kGnPairs = 16;
+constexpr int kGnWarpPairs = 2;
+constexpr int kGnThreads = 32 * kGnPairs / kGnWarpPairs;
+constexpr int kGnEpiPairs = 1;
+constexpr int kGnLaneFloats = 8;
+constexpr int kGnKinds = 4;  // column partials: dgs, dgb, db, dbres
+// The channels V of a group of og that a lane loads at once: 2 where og is
+// even and at most 64 (a pair of the training shapes, T og = 192, then
+// fills every lane of the warp, 3 loads of 8 bytes each of d and z), else 1
+// up to 32 channels, else 4 up to 128 (at most 32 load units a row); 0
+// where none fits (the launch refuses).
+__host__ __device__ constexpr int gn_lane_floats(int og) {
+  return og % 2 == 0 && og <= 64 ? 2 : (og <= 32 ? 1 : (og % 4 == 0 && og <= 128 ? 4 : 0));
+}
+// Floats between the rows of a staged tile of nt channels: 16 modulo 32, so
+// that the operand writer's reads (16 channels of two rows a warp) fall on
+// distinct banks.
+__host__ __device__ constexpr int gn_stride(int nt) { return (nt + 15) / 32 * 32 + 16; }
+// gn_mish_bwd: `planes` staged tiles of samples x T rows (dz, and g where gw
+// is written), then the pairs' column sums, kind x sample x channel.
+__host__ __device__ inline size_t gn_bwd_smem_bytes(int nt, int samples, int T, int planes) {
+  return 4 * (size_t(planes) * samples * T * gn_stride(nt) + size_t(kGnKinds) * samples * nt);
 }
 // 1,024 bytes to align the ring; region 0 (the ring; after the main loop
-// this CTA's partial tile, then yh and the statistics); the rank's share of
-// the summed tile; each slot's full and empty barriers.
-inline size_t dgrad_gn_smem_bytes(int nt, int samples, int gpt) {
+// this CTA's partial tile, then, once the cluster is done with it, the
+// GroupNorm backward's column sums, 3 x a rank's samples x nt); the rank's
+// share of the summed tile; each slot's full and empty barriers.
+__host__ __device__ inline size_t dgrad_gn_region0(int nt, int samples, int cs) {
   const size_t ring = nt == 64 ? DgRing<64>::kRingBytes : DgRing<128>::kRingBytes;
-  const size_t stats = gn_stats_bytes(samples, gpt);
-  const size_t r0 = ring > tile_bytes(nt) + stats ? ring : tile_bytes(nt) + stats;
-  return 1024 + r0 + tile_bytes(nt) + 16 * (nt == 64 ? DgRing<64>::kStages : DgRing<128>::kStages);
+  const size_t cols = 3 * 4 * size_t((samples + cs - 1) / cs) * nt;
+  const size_t after = tile_bytes(nt) > cols ? tile_bytes(nt) : cols;
+  return ring > after ? ring : after;
+}
+inline size_t dgrad_gn_smem_bytes(int nt, int samples, int cs) {
+  return 1024 + dgrad_gn_region0(nt, samples, cs) + tile_bytes(nt) +
+         16 * (nt == 64 ? DgRing<64>::kStages : DgRing<128>::kStages);
 }
 // dgrad_x: the ring (after the main loop the partial tile), the barriers
 inline size_t dgrad_x_smem_bytes() {
@@ -210,7 +239,7 @@ inline size_t wgrad_operand_words(int R, int O, int T) {
   return size_t((O + kWgTile - 1) / kWgTile) * wgrad_groups(R, T) * 2 * 512;
 }
 
-// The GroupNorm + Mish backward of one tile (whole samples x whole groups).
+// The GroupNorm + Mish backward's arguments (one GroupNorm of the block).
 struct GnBwd {
   const float* z;     // [B, T, O] conv output plus bias, saved by the forward
   const float* mean;  // [B, G]
@@ -223,8 +252,9 @@ struct GnBwd {
   float* dzw;         // dz in wgrad's operand layout, or null
   float* gw;          // gn_mish_bwd: its input d in the operand layout, or null
   int colsum;         // write part[3], the column sums of d
-  int B, T, O, G, samples;
-  int row_tiles;      // rows of partials a kind: row tiles (x cluster ranks in dgrad_gn_stage)
+  int B, T, O, G;
+  int row_tiles;      // rows of partials a kind: gn_mish_bwd's row tiles, or dgrad_gn_stage's
+                      // row tiles x cluster ranks
 };
 
 namespace {
@@ -232,12 +262,15 @@ namespace {
 // d/dy Mish(y) = tanh(sp) + y sigmoid(y) sech^2(sp), sp = softplus(y). With
 // e = e^y and n = e (e + 2) as in mish(): tanh(sp) = n / (n + 2) and
 // sech^2(sp) = 4 (n + 1) / (n + 2)^2, which keeps its precision where tanh
-// is near 1 (1 - tanh^2 would not). Clamped at y = 20 like mish().
+// is near 1 (1 - tanh^2 would not). Clamped at y = 20 like mish(). Two
+// reciprocals and the hardware exponential (about 1e-6 relative): the
+// GroupNorm backward is bound by its instructions where its operands are
+// in shared memory.
 __device__ __forceinline__ float mish_grad(float y) {
-  const float e = expf(fminf(y, 20.0f));
+  const float e = __expf(fminf(y, 20.0f));
   const float n = e * (e + 2.0f);
-  const float d = n + 2.0f;
-  return __fdividef(n, d) + y * __fdividef(e, 1.0f + e) * __fdividef(4.0f * (n + 1.0f), d * d);
+  const float r = __fdividef(1.0f, n + 2.0f);
+  return n * r + y * __fdividef(e, 1.0f + e) * (4.0f * (n + 1.0f)) * (r * r);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -311,14 +344,18 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
 }
 
 // Writes rows [row0, row0 + nrows) x channels [n0, n0 + ncols) of a tile
-// (row stride ks) into the operand layout `out` of a [R, O] cotangent; the
-// tile with the last row also writes the zero rows of the last group, the
-// one with the last channels the zero channels up to the next 64. A thread
-// takes the 4 rows of one channel that make 16 bytes of a block (rows 2
-// apart): conflict-free reads of the tile, and a run of threads writes a
-// run of 16-byte words.
-__device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nrows, int R, int T,
-                                    int n0, int ncols, int O, float* out) {
+// (row stride ks) into the operand layout `out` of a [R, O] cotangent, and
+// the same rows of a second tile into `out2` where tile2 is not null (both
+// with one pass of the indexing); the tile with the last row also writes the
+// zero rows of the last group, the one with the last channels the zero
+// channels up to the next 64. n0 is a multiple of 8, and ncols is one too
+// unless the tile ends at O. Thread tid of nthreads takes, per unit i, the 4
+// rows of one channel that make 16 bytes of a block (rows 2 apart):
+// conflict-free reads of the tile, and a run of threads writes a run of
+// 16-byte words.
+__device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nrows, int R, int T, int n0,
+                                    int ncols, int O, float* out, const float* tile2, float* out2, int tid,
+                                    int nthreads) {
   const bool p3 = T == 3;  // position-major stages of 48 rows, which a run of rows may end inside
   const int Q = wgrad_groups(R, T);
   const int rend = row0 + nrows, rpad = rend == R ? Q / (p3 ? 6 : 1) * (p3 ? kWgRowsT3 : 8) : rend;
@@ -327,8 +364,7 @@ __device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nro
   // the groups that hold rows [row0, rpad): from the first row's to the last one's
   const int q0 = p3 ? row0 / kWgRowsT3 * 6 : row0 / 8;
   const int n = ((p3 ? (rpad + kWgRowsT3 - 1) / kWgRowsT3 * 6 : (rpad + 7) / 8) - q0) * units;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(out);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  for (int i = tid; i < n; i += nthreads) {
     const int q = q0 + i / units, u = i % units;
     const int c = (u >> 4) * 8 + (u & 7);  // channel - n0: n8 block u / 16, channel u % 8
     const int kh = (u >> 3) & 1;            // K positions 4 kh .. 4 kh + 3
@@ -336,186 +372,306 @@ __device__ void write_wgrad_operand(const float* tile, int ks, int row0, int nro
     const int g = q % 6;
     const int r = p3 ? q / 6 * kWgRowsT3 + 3 * (8 * (g & 1) + kh) + (g >> 1) : 8 * q + kh;
     const int dr = p3 ? 6 : 2;
-    uint32_t big[4], small[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float v = r + dr * k >= row0 && r + dr * k < rend && n0 + c < cend
-                          ? tile[(r + dr * k - row0) * ks + c] : 0.0f;
-      split_tf32(v, big[k], small[k]);
-    }
     const int o = n0 + c;
-    uint32_t* w = dst + (size_t(o / kWgTile) * Q + q) * 2 * 512 + (o % kWgTile / 8) * 64 +
-                  ((u >> 3) & 1) * 32 + (u & 7) * 4;
-    if (r >= row0 && r + 3 * dr < rpad) {
-      *reinterpret_cast<uint4*>(w) = make_uint4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<uint4*>(w + 512) = make_uint4(small[0], small[1], small[2], small[3]);
-    } else {  // the rows of a group that another tile shares
+    const size_t w = (size_t(o / kWgTile) * Q + q) * 2 * 512 + (o % kWgTile / 8) * 64 + kh * 32 + (u & 7) * 4;
+    for (int t = 0; t < (tile2 != nullptr ? 2 : 1); ++t) {
+      const float* src = t == 0 ? tile : tile2;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(t == 0 ? out : out2) + w;
+      uint32_t big[4], small[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (r + dr * k >= row0 && r + dr * k < rpad) {
-          w[k] = big[k];
-          w[512 + k] = small[k];
-        }
+      for (int k = 0; k < 4; ++k) {
+        const float v = r + dr * k >= row0 && r + dr * k < rend && o < cend
+                            ? src[(r + dr * k - row0) * ks + c] : 0.0f;
+        split_tf32(v, big[k], small[k]);
+      }
+      if (r >= row0 && r + 3 * dr < rpad) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(big[0], big[1], big[2], big[3]);
+        *reinterpret_cast<uint4*>(dst + 512) = make_uint4(small[0], small[1], small[2], small[3]);
+      } else {  // the rows of a group that another tile shares
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (r + dr * k >= row0 && r + dr * k < rpad) {
+            dst[k] = big[k];
+            dst[512 + k] = small[k];
+          }
+      }
     }
   }
 }
 
-// tile [rows][NT + 4] holds d, the cotangent of Mish(GN(z)), at the ns
-// samples from b0 on and this block's N tile (blockIdx.y); yh is a second
-// such tile and st room for 4 * samples * gpt floats. Writes dz, the column
-// partials (row pt of each kind) and dtemb. Run by the 384 threads of the
-// three warpgroups; starts and ends with the tile complete (a barrier
-// before).
-template <int NT>
-__device__ void gn_mish_bwd_tile(const GnBwd& a, float* tile, float* yh, float* st, int pt, int b0, int ns) {
-  constexpr int kS = NT + 4;
-  const int nrows = ns * a.T;
-  const int row0 = b0 * a.T;
-  const int n0 = blockIdx.y * NT;
-  const int ncols = min(NT, a.O - n0);
-  const int og = a.O / a.G;
-  const int gpt = ncols / og;
-  const int lane = threadIdx.x & 31;
-  float* mean = st;
-  float* rstd = mean + a.samples * gpt;
-  float* m1 = rstd + a.samples * gpt;
-  float* m2 = m1 + a.samples * gpt;
-  float* part = a.part + static_cast<size_t>(pt) * a.O + n0;
-  const size_t pstride = static_cast<size_t>(a.row_tiles) * a.O;  // between partial kinds
-
-  // 0. the tile's statistics; per-sample and per-column sums of d
-  for (int p = threadIdx.x; p < ns * gpt; p += kThreads) {
-    const size_t gi = static_cast<size_t>(b0 + p / gpt) * a.G + n0 / og + p % gpt;
-    mean[p] = __ldg(a.mean + gi);
-    rstd[p] = __ldg(a.rstd + gi);
+// V floats at p, as one load (V = 1, 2 or 4); __ldg where p is in device
+// memory that the kernel does not write.
+template <int V, bool kLdg>
+__device__ __forceinline__ void load_v(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 q = kLdg ? __ldg(reinterpret_cast<const float4*>(p)) : *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = kLdg ? __ldg(reinterpret_cast<const float2*>(p)) : *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = kLdg ? __ldg(p) : *p;
   }
-  if (a.dtemb != nullptr)
-    for (int q = threadIdx.x; q < ns * (ncols / 4); q += kThreads) {
-      const int s = q / (ncols / 4), c = 4 * (q % (ncols / 4));
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int t = 0; t < a.T; ++t) {
-        const float4 d = *reinterpret_cast<const float4*>(tile + (s * a.T + t) * kS + c);
-        v.x += d.x, v.y += d.y, v.z += d.z, v.w += d.w;
-      }
-      *reinterpret_cast<float4*>(a.dtemb + static_cast<size_t>(b0 + s) * a.O + n0 + c) = v;
-    }
-  if (a.colsum)
-    for (int c = threadIdx.x; c < ncols; c += kThreads) {
-      float v = 0.0f;
-      for (int r = 0; r < nrows; ++r) v += tile[r * kS + c];
-      part[3 * pstride + c] = v;
-    }
-  consumer_sync();
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
 
-  // 1. yh and dy = d * mish'(y), four neighbouring columns a thread
-  const int c = 4 * (threadIdx.x % (NT / 4));
-  const float inv_t = 1.0f / a.T;
-  float4 scale = make_float4(0.f, 0.f, 0.f, 0.f);
-  int gl[4] = {0, 0, 0, 0};
-  if (c < ncols) {
-    scale = __ldg(reinterpret_cast<const float4*>(a.gs + n0 + c));
-    const float4 shift = __ldg(reinterpret_cast<const float4*>(a.gb + n0 + c));
+// One tile of a GroupNorm + Mish backward: samples b0 .. b0 + ns - 1 x
+// channels n0 .. n0 + ncols - 1 (whole groups).
+struct GnTile {
+  const float* d;  // the cotangent at (the tile's first row, n0); rows ds floats apart
+  const float* z;  // z at (the tile's first row, n0) in device memory; rows zs floats apart
+  float* st;       // where dz is staged for the operand layout (rows ss apart), or null
+  float* sg;       // where d is staged for gw (rows ss apart), or null
+  float* cols;     // shared memory: the pairs' column sums, kind x sample x channel
+  int ds, zs, ss, b0, ns, n0, ncols;
+  int pt;          // the row of the column partials this tile writes
+};
+
+// A lane's place in the warp's (sample, group) pair: V channels (16 bytes,
+// or one channel where a group's channels are not a multiple of 4) at
+// position cu of the L lanes of a row (the group's og / V load units
+// rounded up to a power of 2; the rest idle), rows slot, slot + RP, ..
+// (RP = 32 / L); the pair's rows go in chunks of kR row steps.
+struct GnLanes {
+  int L, RP, slot, cu, nck;
+  bool on;
+};
+
+// The lane's rows of chunk ck of pair (s, cl) of a tile: d (in the
+// epilogue from shared memory) and z, zero outside the pair.
+template <int V, int kR, bool kEpi>
+__device__ __forceinline__ void gn_load(const GnBwd& a, const GnTile& t, const GnLanes& ln, int s, int cl, int ck,
+                                        float (&dv)[kR][V], float (&zv)[kR][V]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) gl[e] = (c + e) / og;
-    for (int r = threadIdx.x / (NT / 4); r < nrows; r += kThreads / (NT / 4)) {
-      const int p = static_cast<int>((r + 0.5f) * inv_t) * gpt;  // r / T, exact for r < 192
-      const float4 z = __ldg(reinterpret_cast<const float4*>(a.z + static_cast<size_t>(row0 + r) * a.O + n0 + c));
-      float4* dp = reinterpret_cast<float4*>(tile + r * kS + c);
-      const float4 d = *dp;
-      float4 y4, dy;
-      y4.x = (z.x - mean[p + gl[0]]) * rstd[p + gl[0]];
-      y4.y = (z.y - mean[p + gl[1]]) * rstd[p + gl[1]];
-      y4.z = (z.z - mean[p + gl[2]]) * rstd[p + gl[2]];
-      y4.w = (z.w - mean[p + gl[3]]) * rstd[p + gl[3]];
-      dy.x = d.x * mish_grad(y4.x * scale.x + shift.x);
-      dy.y = d.y * mish_grad(y4.y * scale.y + shift.y);
-      dy.z = d.z * mish_grad(y4.z * scale.z + shift.z);
-      dy.w = d.w * mish_grad(y4.w * scale.w + shift.w);
-      *dp = dy;
-      *reinterpret_cast<float4*>(yh + r * kS + c) = y4;
+  for (int k = 0; k < kR; ++k) {
+    const int r = ln.slot + ln.RP * (kR * ck + k);
+#pragma unroll
+    for (int j = 0; j < V; ++j) dv[k][j] = zv[k][j] = 0.0f;
+    if (ln.on && r < a.T) {
+      const size_t row = static_cast<size_t>(s * a.T + r);
+      load_v<V, !kEpi>(dv[k], t.d + row * t.ds + cl);
+      load_v<V, true>(zv[k], t.z + row * t.zs + cl);
     }
   }
-  consumer_sync();
+}
 
-  // 2. column partials of dgs and dgb; per (sample, group) the means of
-  //    dyh = dy * gs and of dyh * yh, one warp each (as tile_stats)
-  for (int i = threadIdx.x; i < 2 * ncols; i += kThreads) {
-    const int cc = i % ncols, kind = i / ncols;
-    float v = 0.0f;
-    for (int r = 0; r < nrows; ++r) v += kind == 0 ? tile[r * kS + cc] * yh[r * kS + cc] : tile[r * kS + cc];
-    part[kind * pstride + cc] = v;
-  }
-  {
-    const int n = a.T * og;
-    const float inv_og = 1.0f / og;
-    for (int p = threadIdx.x >> 5; p < ns * gpt; p += kWarps) {
-      const int off = (p / gpt) * a.T * kS + (p % gpt) * og;
-      const float* gsp = a.gs + n0 + (p % gpt) * og;
+// The GroupNorm + Mish backward of one tile, in one streaming pass over its
+// (sample, group) pairs with each pair in registers: a warp takes kP pairs
+// at a time (pairs warp, warp + nwarps, ..) and issues every load of them
+// (d, z, the pairs' mean and rstd) before the first use; a lane holds
+// kGnLaneFloats of d and of z a pair (GnLanes); a pair beyond that, 32 x
+// kGnLaneFloats elements, goes in chunks: the statistics over every chunk,
+// then dz chunk by chunk with d and z loaded again. The pair's two means,
+// m[dy gs] and m[dy gs yh], are shuffle sums over the warp; the lane's sums
+// per channel over its rows (dgs, dgb, db, and d for dbres or dtemb) are
+// summed over the lanes of the channel by halving exchanges (a fixed
+// order), then over the tile's samples in shared memory, sample after
+// sample: one partial row of each kind, no atomics. dtemb (the per-sample sum over t of d) comes from
+// the same sums. dz goes to device memory and, staged in shared memory (st;
+// in place where st is d) with d where gw is written, to wgrad's operand
+// layout in one pass of 16-byte stores. kEpi: run by the 384 consumer
+// threads of dgrad_gn_stage on d in shared memory, else by every thread of
+// a gn_mish_bwd CTA on d in device memory. Starts with d complete (a barrier before); no barrier until the
+// pairs are done.
+template <int V, int kP, bool kEpi>
+__device__ void gn_bwd_tile(const GnBwd& a, const GnTile& t, int tid, int nthreads) {
+  constexpr int kR = kGnLaneFloats / V;  // row steps of a chunk
+  const int lane = tid & 31, nw = nthreads >> 5;
+  const int og = a.O / a.G, U = og / V;
+  GnLanes ln;
+  ln.L = 1;
+  while (ln.L < U) ln.L <<= 1;
+  ln.RP = 32 / ln.L;
+  ln.slot = lane / ln.L;
+  ln.cu = lane % ln.L;
+  ln.on = ln.cu < U;
+  ln.nck = ((a.T + ln.RP - 1) / ln.RP + kR - 1) / kR;
+  const int gpt = t.ncols / og, npairs = t.ns * gpt;
+  const float inv_n = 1.0f / static_cast<float>(a.T * og);
+  const size_t kind = static_cast<size_t>(t.ns) * t.ncols;  // between kinds of column sums
+  for (int p0 = tid >> 5; p0 < npairs; p0 += kP * nw) {
+    float dv[kP][kR][V], yv[kP][kR][V];  // d, then dy; z, then yh
+    float mu[kP], rs[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int p = min(p0 + i * nw, npairs - 1);
+      const int s = p / gpt, cl = (p % gpt) * og + ln.cu * V;
+      const size_t gi = static_cast<size_t>(t.b0 + s) * a.G + t.n0 / og + p % gpt;
+      mu[i] = __ldg(a.mean + gi);
+      rs[i] = __ldg(a.rstd + gi);
+      if (ln.nck == 1 && p0 + i * nw < npairs) gn_load<V, kR, kEpi>(a, t, ln, s, cl, 0, dv[i], yv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int p = p0 + i * nw;
+      if (p >= npairs) break;
+      const int s = p / gpt, cl = (p % gpt) * og + ln.cu * V;
+      const int b = t.b0 + s;
+      float gsv[V], gbv[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) gsv[j] = gbv[j] = 0.0f;
+      if (ln.on) {
+        load_v<V, true>(gsv, a.gs + t.n0 + cl);
+        load_v<V, true>(gbv, a.gb + t.n0 + cl);
+      }
+      // yh and dy = d mish'(y) of chunk ck in place; with `sums`, the lane's
+      // sums and d staged for gw
+      float c0[V], c1[V], c3[V];  // the lane's sums over its rows: dy yh, dy, d
+#pragma unroll
+      for (int j = 0; j < V; ++j) c0[j] = c1[j] = c3[j] = 0.0f;
       float s1 = 0.0f, s2 = 0.0f;
-      for (int e = lane; e < n; e += 32) {
-        const int r = static_cast<int>((e + 0.5f) * inv_og);
-        const int col = e - r * og;
-        const float dyh = tile[off + r * kS + col] * __ldg(gsp + col);
-        s1 += dyh;
-        s2 += dyh * yh[off + r * kS + col];
+      auto forward = [&](int ck, bool sums) {
+#pragma unroll
+        for (int k = 0; k < kR; ++k) {
+          const int r = ln.slot + ln.RP * (kR * ck + k);
+          if (!ln.on || r >= a.T) continue;
+          if (sums && t.sg != nullptr) store_v<V>(t.sg + (s * a.T + r) * t.ss + cl, dv[i][k]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float yh = (yv[i][k][j] - mu[i]) * rs[i];
+            const float dy = dv[i][k][j] * mish_grad(yh * gsv[j] + gbv[j]);
+            if (sums) {
+              c3[j] += dv[i][k][j];
+              c0[j] += dy * yh;
+              c1[j] += dy;
+              s1 += dy * gsv[j];
+              s2 += dy * gsv[j] * yh;
+            }
+            dv[i][k][j] = dy;
+            yv[i][k][j] = yh;
+          }
+        }
+      };
+      for (int ck = 0; ck < ln.nck; ++ck) {
+        if (ln.nck > 1) gn_load<V, kR, kEpi>(a, t, ln, s, cl, ck, dv[i], yv[i]);
+        forward(ck, true);
       }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        m1[p] = s1 / n;
-        m2[p] = s2 / n;
+      const float m1 = warp_sum(s1) * inv_n, m2 = warp_sum(s2) * inv_n;
+      // dz = rstd (dy gs - m[dy gs] - yh m[dy gs yh]), chunk by chunk
+      float c2[V];  // the lane's sums of dz
+#pragma unroll
+      for (int j = 0; j < V; ++j) c2[j] = 0.0f;
+      for (int ck = 0; ck < ln.nck; ++ck) {
+        if (ln.nck > 1) {
+          gn_load<V, kR, kEpi>(a, t, ln, s, cl, ck, dv[i], yv[i]);
+          forward(ck, false);
+        }
+#pragma unroll
+        for (int k = 0; k < kR; ++k) {
+          const int r = ln.slot + ln.RP * (kR * ck + k);
+          if (!ln.on || r >= a.T) continue;
+          float dz[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            dz[j] = rs[i] * (dv[i][k][j] * gsv[j] - m1 - yv[i][k][j] * m2);
+            c2[j] += dz[j];
+          }
+          store_v<V>(a.dz + (static_cast<size_t>(b) * a.T + r) * a.O + t.n0 + cl, dz);
+          if (t.st != nullptr) store_v<V>(t.st + (s * a.T + r) * t.ss + cl, dz);
+        }
+      }
+      // The lane's sums per channel (kinds dgs, dgb, db, d x V channels),
+      // summed over the lanes of its channels (lane bits L and up) in a
+      // fixed order: each exchange with the partner lane keeps half of the
+      // values (the upper lane the upper half), so that a lane ends with
+      // 4V / 2^exchanges of them, each summed as a butterfly sums it; once a
+      // lane holds one, the rest is a butterfly (whose upper lanes hold
+      // copies and write nothing).
+      constexpr int kVals = 4 * V;
+      float v[kVals];
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = c0[j], v[V + j] = c1[j], v[2 * V + j] = c2[j], v[3 * V + j] = c3[j];
+      int base = 0;  // the first of the lane's values, in the order above
+      int held = kVals;
+      bool writer = ln.on;
+#pragma unroll
+      for (int r = 0; r < 5; ++r) {
+        const int off = ln.L << r;
+        if (off >= 32) break;
+        const bool upper = (lane & off) != 0;
+        const int n = kVals >> r;  // values held before this exchange
+        if (n >= 2) {
+#pragma unroll
+          for (int q = 0; q < kVals / 2; ++q) {
+            if (q >= n / 2) break;
+            const float send = upper ? v[q] : v[q + n / 2];
+            const float keep = upper ? v[q + n / 2] : v[q];
+            v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+          }
+          base += upper ? n / 2 : 0;
+          held = n / 2;
+        } else {
+          v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+          writer = writer && !upper;
+        }
+      }
+      if (writer) {
+        float* cols = t.cols + static_cast<size_t>(s) * t.ncols + cl;
+#pragma unroll
+        for (int q = 0; q < kVals; ++q) {
+          if (q >= held) break;
+          const int kd = (base + q) / V, j = (base + q) % V;
+          if (kd < 3 || a.colsum) cols[kd * kind + j] = v[q];
+          if (kd == 3 && a.dtemb != nullptr) a.dtemb[static_cast<size_t>(b) * a.O + t.n0 + cl + j] = v[q];
+        }
       }
     }
   }
-  consumer_sync();
-
-  // 3. dz = rstd * (dyh - m[dyh] - yh * m[dyh * yh])
-  if (c < ncols)
-    for (int r = threadIdx.x / (NT / 4); r < nrows; r += kThreads / (NT / 4)) {
-      const int p = static_cast<int>((r + 0.5f) * inv_t) * gpt;
-      float4* dp = reinterpret_cast<float4*>(tile + r * kS + c);
-      const float4 dy = *dp;
-      const float4 y4 = *reinterpret_cast<const float4*>(yh + r * kS + c);
-      float4 dz;
-      dz.x = rstd[p + gl[0]] * (dy.x * scale.x - m1[p + gl[0]] - y4.x * m2[p + gl[0]]);
-      dz.y = rstd[p + gl[1]] * (dy.y * scale.y - m1[p + gl[1]] - y4.y * m2[p + gl[1]]);
-      dz.z = rstd[p + gl[2]] * (dy.z * scale.z - m1[p + gl[2]] - y4.z * m2[p + gl[2]]);
-      dz.w = rstd[p + gl[3]] * (dy.w * scale.w - m1[p + gl[3]] - y4.w * m2[p + gl[3]]);
-      *dp = dz;
-      *reinterpret_cast<float4*>(a.dz + static_cast<size_t>(row0 + r) * a.O + n0 + c) = dz;
-    }
-  consumer_sync();
-  if (a.dzw != nullptr && nrows > 0) write_wgrad_operand(tile, kS, row0, nrows, a.B * a.T, a.T, n0, ncols, a.O, a.dzw);
-
-  // 4. column partials of db = sum dz
-  for (int cc = threadIdx.x; cc < ncols; cc += kThreads) {
+  if constexpr (kEpi)
+    consumer_sync();
+  else
+    __syncthreads();
+  // one partial row of each kind: the pairs' sums over the tile's samples, in order
+  const int kinds = a.colsum ? 4 : 3;
+  float* part = a.part + static_cast<size_t>(t.pt) * a.O + t.n0;
+  const size_t pstride = static_cast<size_t>(a.row_tiles) * a.O;  // between partial kinds
+  for (int i = tid; i < kinds * t.ncols; i += nthreads) {
+    const int k = i / t.ncols, c = i % t.ncols;
+    const float* col = t.cols + static_cast<size_t>(k) * kind + c;
     float v = 0.0f;
-    for (int r = 0; r < nrows; ++r) v += tile[r * kS + cc];
-    part[2 * pstride + cc] = v;
+    for (int s = 0; s < t.ns; ++s) v += col[static_cast<size_t>(s) * t.ncols];
+    part[k * pstride + c] = v;
   }
+  if (a.dzw != nullptr && t.ns > 0)
+    write_wgrad_operand(t.st, t.ss, t.b0 * a.T, t.ns * a.T, a.B * a.T, a.T, t.n0, t.ncols, a.O, a.dzw,
+                        t.sg, a.gw, tid, nthreads);
 }
 
-// The second GroupNorm + Mish backward (or the head's only one) on the CUDA
-// cores: the tile of d comes in 16 bytes a thread.
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 1) gn_mish_bwd(const float* __restrict__ d, const GnBwd a) {
+// The second GroupNorm + Mish backward (or the head's only one): a CTA
+// takes `samples` whole samples x an N tile of nt channels (whole groups, at
+// least a 128-byte line where the groups allow), kGnWarpPairs (sample,
+// group) pairs a warp, small enough that two CTAs share an SM and a launch
+// at the training batch runs at least one CTA an SM
+// (ops/_build.plan_backward).
+template <int V>
+__global__ void __launch_bounds__(kGnThreads, 2)
+    gn_mish_bwd(const float* __restrict__ d, const GnBwd a, int samples, int nt) {
   extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float* yh = tile + tile_bytes(NT) / 4;
-  float* st = yh + tile_bytes(NT) / 4;
-  const int b0 = blockIdx.x * a.samples;
-  const int nrows = min(a.samples, a.B - b0) * a.T;
-  const int n0 = blockIdx.y * NT;
-  const int c = 4 * (threadIdx.x % (NT / 4));
-  if (c < min(NT, a.O - n0))
-    for (int r = threadIdx.x / (NT / 4); r < nrows; r += kThreads / (NT / 4))
-      *reinterpret_cast<float4*>(tile + r * (NT + 4) + c) = __ldg(reinterpret_cast<const float4*>(
-          d + static_cast<size_t>(b0 * a.T + r) * a.O + n0 + c));
-  __syncthreads();
-  if (a.gw != nullptr)  // dwres's cotangent: d itself
-    write_wgrad_operand(tile, NT + 4, b0 * a.T, nrows, a.B * a.T, a.T, n0, min(NT, a.O - n0), a.O,
-                        a.gw);
-  gn_mish_bwd_tile<NT>(a, tile, yh, st, blockIdx.x, b0, nrows / a.T);
+  float* sm = reinterpret_cast<float*>(smem4);
+  GnTile t;
+  t.b0 = blockIdx.x * samples;
+  t.ns = min(samples, a.B - t.b0);
+  t.n0 = blockIdx.y * nt;
+  t.ncols = min(nt, a.O - t.n0);
+  t.pt = blockIdx.x;
+  t.d = d + static_cast<size_t>(t.b0) * a.T * a.O + t.n0;
+  t.z = a.z + static_cast<size_t>(t.b0) * a.T * a.O + t.n0;
+  t.ds = t.zs = a.O;
+  t.ss = gn_stride(nt);
+  const int plane = samples * a.T * t.ss;
+  const int planes = a.dzw == nullptr ? 0 : (a.gw == nullptr ? 1 : 2);
+  t.st = planes > 0 ? sm : nullptr;
+  t.sg = planes > 1 ? sm + plane : nullptr;
+  t.cols = sm + planes * plane;
+  gn_bwd_tile<V, kGnWarpPairs, false>(a, t, threadIdx.x, blockDim.x);
 }
 
 struct DgradArgs {
@@ -710,9 +866,7 @@ __global__ void __launch_bounds__(kDgThreads, 1)
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   smem += (1024 - smem_u32(smem) % 1024) % 1024;  // the swizzle's period
-  const int gpt = min(NT, a.Cout - static_cast<int>(blockIdx.y) * NT) / (gn.O / gn.G);
-  const size_t stats = gn_stats_bytes(a.samples, gpt);
-  const size_t r0 = R::kRingBytes > tile_bytes(NT) + stats ? R::kRingBytes : tile_bytes(NT) + stats;
+  const size_t r0 = dgrad_gn_region0(NT, a.samples, a.cs);
   float* part = reinterpret_cast<float*>(smem);       // this CTA's partial dh, over the ring
   float* mine = reinterpret_cast<float*>(smem + r0);  // this rank's samples, summed
   const uint32_t full = smem_u32(smem + r0 + tile_bytes(NT));
@@ -734,7 +888,7 @@ __global__ void __launch_bounds__(kDgThreads, 1)
   cluster_sync();  // every rank's partial is complete
   // this rank's samples s0 .. s1 - 1 of the tile, summed over the ranks in order
   const int s0 = f.ns * f.rank / a.cs, s1 = f.ns * (f.rank + 1) / a.cs;
-  const int ncols = min(NT, a.Cout - static_cast<int>(blockIdx.y) * NT);
+  const int n0 = blockIdx.y * NT, ncols = min(NT, a.Cout - n0);
   if (!f.producer)
     for (int i = threadIdx.x; i < (s1 - s0) * a.T * (NT / 4); i += kThreads) {
       const int r = i / (NT / 4), c = 4 * (i % (NT / 4));
@@ -748,9 +902,27 @@ __global__ void __launch_bounds__(kDgThreads, 1)
       *reinterpret_cast<float4*>(mine + r * kS + c) = v;
     }
   cluster_sync();  // no rank reads another's partial past here: region 0 is free
-  if (!f.producer)
-    gn_mish_bwd_tile<NT>(gn, mine, part, reinterpret_cast<float*>(smem + tile_bytes(NT)), blockIdx.x,
-                         f.b0 + s0, s1 - s0);
+  if (!f.producer) {
+    GnTile t;  // d in `mine`, dz written over it; the column sums in region 0
+    t.d = t.st = mine;
+    t.z = gn.z + static_cast<size_t>(f.b0 + s0) * a.T * gn.O + n0;
+    t.sg = nullptr;
+    t.cols = part;
+    t.ds = t.ss = kS;
+    t.zs = gn.O;
+    t.b0 = f.b0 + s0;
+    t.ns = s1 - s0;
+    t.n0 = n0;
+    t.ncols = ncols;
+    t.pt = blockIdx.x;
+    const int v = gn_lane_floats(gn.O / gn.G);
+    if (v == 1)
+      gn_bwd_tile<1, kGnEpiPairs, true>(gn, t, threadIdx.x, kThreads);
+    else if (v == 2)
+      gn_bwd_tile<2, kGnEpiPairs, true>(gn, t, threadIdx.x, kThreads);
+    else
+      gn_bwd_tile<4, kGnEpiPairs, true>(gn, t, threadIdx.x, kThreads);
+  }
 }
 
 // dx = conv_T(dz1, w1) (+ g @ wres^T in the same accumulator | + g) for 192

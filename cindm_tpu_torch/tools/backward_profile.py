@@ -19,6 +19,12 @@ and cotangents), and prints one JSON line:
   convolutions (the convolution only: dgrad_gn_stage also runs the first
   GroupNorm's backward, dgrad_x_stage the 1x1 product) and ``per_launch``:
   each launch's shape, grid, cluster size and device ms (median pass);
+  gn_mish_bwd its ``per_launch`` (shape, grid, CTAs, threads, ms) and its
+  ``library_ms``, ``torch.ops.aten.native_group_norm_backward`` on the
+  same shapes (the GroupNorm's backward only: no Mish, no operand layout;
+  the port never calls it). The bytes of gn_mish_bwd's bound count g and z
+  read, dz written and wgrad's two-plane operand layouts it writes (dz, and
+  g on a projection block), dgrad_gn_stage's its dz1 layout;
 - ``backward_ms`` (the 16 blocks' backward kernels alone, CUDA events),
   ``backward_host_ms`` (the host's time to issue them: when it exceeds the
   kernels' device time, ``backward_ms`` reads the host), ``head_backward_ms``, ``fwd_bwd_ms`` (the 16 blocks' forward and backward
@@ -51,6 +57,7 @@ HEAD_SHAPE = (64, 64, 24)
 K = 5
 KERNELS = ("stage_weights_t", "gn_mish_bwd", "dgrad_gn_stage", "dgrad_x_stage", "wgrad",
            "grad_reduce")
+PER_LAUNCH = ("gn_mish_bwd", "dgrad_gn_stage", "dgrad_x_stage")  # each launch timed on its own
 PEAK_TF32 = 495e12  # H100 SXM dense TF32, FLOP/s
 PEAK_FP32 = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
@@ -119,12 +126,14 @@ def block_inputs(torch, g, C: int, O: int, T: int, batch: int, dev, head: bool):
     return x, p, torch.randn((batch, T, O), generator=g, device=dev)
 
 
-def dgrad_launches(_build, plan, C: int, O: int, head: bool) -> list[tuple[str, tuple, int]]:
-    """(kernel, grid, cluster size) of the plan's dgrad launches, in launch
-    order; a plan without clusters (an older checkout) launches one CTA a
-    tile."""
+def timed_launches(_build, plan, C: int, O: int, head: bool) -> list[tuple[str, tuple, int]]:
+    """(kernel, grid, cluster size or threads) of the plan's gn_mish_bwd and
+    dgrad launches, in launch order; a plan without clusters (an older
+    checkout) launches one CTA a tile, one without gn_mish_bwd's own tiles
+    384 threads on the dgrads' row tiles."""
     rt = plan.row_tiles
-    out = []
+    out = [("gn_mish_bwd", getattr(plan, "grid_gn", (rt, -(-O // plan.nt_gn))),
+            getattr(plan, "gn_threads", 384))]
     if not head:
         cs = getattr(plan, "cs_d2", 1)
         out.append(("dgrad_gn_stage", getattr(plan, "grid_d2", (rt, -(-O // plan.nt_d2))), cs))
@@ -148,7 +157,8 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
     calls, rtb_calls, fwd_bwd, lib = [], [], [], []
     dlib = {"dgrad_gn_stage": [], "dgrad_x_stage": []}  # the dgrads' convolutions for cuDNN
-    launches = []  # (kernel, shape, grid, cluster) of every dgrad launch, in order
+    gnlib = []  # the last GroupNorm of each block: aten's GroupNorm backward on its shapes
+    launches = []  # (kernel, shape, grid, cluster or threads) of every launch timed one by one
     plan_kw = {}
     if hasattr(_build, "cluster_limits"):  # the card's limits, as the launches plan with them
         plan_kw["clusters"] = _build.cluster_limits(dev)
@@ -181,8 +191,7 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                 plan = _build.plan_backward(batch, T, C, O, 8, proj=proj, **plan_kw)
                 fa = dict(zip(names, args))
                 fwd_bwd.append((fa, cot))
-            launches += [(k, (C, O, T), grid, cs) for k, grid, cs in dgrad_launches(_build, plan, C, O,
-                                                                                   head)]
+            launches += [(k, (C, O, T), grid, x) for k, grid, x in timed_launches(_build, plan, C, O, head)]
             # the dgrads' yardstick: cuDNN's input gradients of the same convolutions
             # (weights [out, in, K]; the cotangents random, of the convs' output shapes)
             if not head:
@@ -190,6 +199,12 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                                                torch.randn((batch, O, T), generator=g, device=dev)))
             dlib["dgrad_x_stage"].append(((batch, C, T), p["w1"].permute(2, 1, 0).contiguous(),
                                           torch.randn((batch, O, T), generator=g, device=dev)))
+            # gn_mish_bwd's yardstick: the GroupNorm's backward alone, [B, O, T] layout
+            zc = torch.randn((batch, O, T), generator=g, device=dev)
+            gw_ = p["gs1"] if head else p["gs2"]
+            _, mean_, rstd_ = torch.ops.aten.native_group_norm(zc, gw_, None, batch, O, T, 8, 1e-5)
+            gnlib.append((torch.randn((batch, O, T), generator=g, device=dev), zc, mean_, rstd_, gw_,
+                          batch, O, T))
             # wgrad's library yardstick: the same convolutions as cuDNN computes their weight grads
             xc = x.transpose(1, 2).contiguous()
             dz = cot.transpose(1, 2).contiguous()
@@ -206,9 +221,12 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
             work["wgrad"]["nbytes"] += act + 4 * rows * O * (1 if head else 2) + wbytes
             wgrad_fp32_flops += 2 * batch * w_macs
             work["stage_weights_t"]["nbytes"] += 3 * wbytes  # read once, two tf32 planes written
-            work["gn_mish_bwd"]["nbytes"] += 4 * 3 * rows * O  # g and z read, dz written
+            # g and z read, dz written; dz (and g on a projection block) in
+            # wgrad's operand layout, two tf32 planes of 4 bytes
+            work["gn_mish_bwd"]["nbytes"] += 4 * 3 * rows * O + 8 * rows * O * (2 if proj else 1)
             work["dgrad_gn_stage"]["flops"] += TF32_PASSES * 2 * batch * d2_macs
-            work["dgrad_gn_stage"]["nbytes"] += 4 * 4 * rows * O  # dz2, z1 read; dz1, dh-sums out
+            # dz2, z1 read; dz1 written and in the operand layout, dtemb
+            work["dgrad_gn_stage"]["nbytes"] += 0 if head else 4 * 4 * rows * O + 8 * rows * O
             work["dgrad_x_stage"]["flops"] += TF32_PASSES * 2 * batch * d_macs
             work["dgrad_x_stage"]["nbytes"] += 4 * rows * (O + C + (O if not head else 0))
             colparts = plan.colpart_bytes
@@ -224,7 +242,7 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     for _ in range(reps):
         ms = {k: 0.0 for k in KERNELS}
         counts = {k: 0 for k in KERNELS}
-        seq = {"dgrad_gn_stage": [], "dgrad_x_stage": []}  # per launch, in launch order
+        seq = {k: [] for k in PER_LAUNCH}  # per launch, in launch order
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for fn in calls:
                 fn()
@@ -258,12 +276,20 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                                  "only" + (" (the kernel also runs the first GroupNorm's backward)"
                                            if k == "dgrad_gn_stage" else " (the kernel also adds the "
                                            "1x1 product or the identity)"))
-        mine = [(shape, grid, cs) for kk, shape, grid, cs in launches if kk == k]
+    kernels["gn_mish_bwd"]["library_ms"] = events_ms(torch, lambda: [
+        torch.ops.aten.native_group_norm_backward(d, z, m, r, w, n, c, hw, 8, [True, True, True])
+        for d, z, m, r, w, n, c, hw in gnlib], reps)
+    kernels["gn_mish_bwd"]["library"] = (
+        "torch.ops.aten.native_group_norm_backward, fp32, [B, O, T]: the GroupNorm's backward only "
+        "(the kernel also runs Mish's and writes wgrad's operand layouts)")
+    for k in PER_LAUNCH:
+        mine = [(shape, grid, x) for kk, shape, grid, x in launches if kk == k]
         full = [s[k] for s in each if len(s[k]) == len(mine)]  # passes that traced every launch
         kernels[k]["per_launch"] = [
-            {"shape": list(shape), "grid": list(grid), "cluster": cs, "ctas": grid[0] * grid[1],
+            {"shape": list(shape), "grid": list(grid), "ctas": grid[0] * grid[1],
+             ("threads" if k == "gn_mish_bwd" else "cluster"): x,
              "ms": statistics.median(f[i] for f in full) if full else "not measured"}
-            for i, (shape, grid, cs) in enumerate(mine)]
+            for i, (shape, grid, x) in enumerate(mine)]
 
     def fwd_bwd_all():
         for a, c in fwd_bwd:

@@ -190,15 +190,28 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
     first GroupNorm's backward, the dgrad to x, wgrad's split-K) tiles
     whole samples, whole groups where a GroupNorm reduces, covers every row
     tile once, and fits the H100's shared memory; the dgrads split K over
-    clusters that run in one wave on 132 SMs."""
+    clusters that run in one wave on 132 SMs; gn_mish_bwd tiles its own
+    rows, a warp two (sample, group) pairs."""
     G, og = 8, O // 8
     plan = _build.plan_backward(B, T, C, O, G, proj=C != O, rtb=rtb)
     assert plan.samples == 192 // T and plan.row_tiles == -(-B // plan.samples)
-    for nt, smem in ((plan.nt_gn, plan.smem_gn), (plan.nt_d1, plan.smem_d1)):
-        assert nt in (64, 128) and 0 < smem <= _build.SMEM_MAX == 232448
-    assert O <= plan.nt_gn or plan.nt_gn % og == 0
-    gpt = min(O, plan.nt_gn) // og
-    assert plan.smem_gn == 2 * 192 * (plan.nt_gn + 4) * 4 + 16 * plan.samples * gpt + 16
+    assert plan.nt_d1 == 64 and 0 < plan.smem_d1 <= _build.SMEM_MAX == 232448
+    # gn_mish_bwd: an N tile of whole groups, a line of 32 channels where G
+    # allows and a multiple of 8; at most 16 pairs a CTA, two a warp; whole samples
+    gpt = plan.nt_gn // og
+    assert plan.nt_gn % og == 0 and (plan.nt_gn % 8 == 0 or plan.nt_gn == O)
+    assert plan.nt_gn >= min(32, O) and 1 <= gpt <= 16 and plan.gn_samples * gpt <= 16
+    assert plan.gn_threads == 32 * -(-plan.gn_samples * gpt // 2)
+    assert plan.gn_tiles == -(-B // plan.gn_samples) and plan.grid_gn == (plan.gn_tiles, -(-O // plan.nt_gn))
+    planes = 2 if rtb and C != O else 1
+    # the staged planes, then the column sums
+    assert plan.smem_gn == 4 * (planes * plan.gn_samples * T * _build.gn_stride(plan.nt_gn)
+                                + 4 * plan.gn_samples * plan.nt_gn) <= _build.SMEM_MAX
+    # fewer samples only where two CTAs would not share an SM or an SM would get none
+    if plan.gn_samples < 16 // gpt:
+        more = plan.gn_samples + 1
+        assert (_build.gn_bwd_smem_bytes(plan.nt_gn, more, T, planes) > _build.SMEM_MAX // 2
+                or -(-B // more) * plan.grid_gn[1] < 132)
     # the dgrads: an N tile of 64 channels (dgrad_gn_stage: 128 where 64 holds
     # no whole groups); K split over clusters of 1 to 4 CTAs, each CTA on
     # an SM of its own, all the grid's clusters at once, every rank at least
@@ -222,10 +235,12 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
         assert plan.smem_d2 <= _build.SMEM_MAX
         assert plan.nt_d2 == _build.plan_stage(B, T, O, O, G).n_tile or plan.nt_d2 == 64
         assert plan.nt_d2 == (64 if O <= 64 or 64 % og == 0 else 128)
-        nt, gpt2 = plan.nt_d2, min(O, plan.nt_d2) // og
+        nt = plan.nt_d2
         tile = 192 * (nt + 4) * 4
-        assert plan.smem_d2 == (1024 + max(ring(nt), tile + 16 * plan.samples * gpt2) + tile
-                                + 16 * stages_n(nt))
+        # the GroupNorm backward's column sums (a rank's samples) over the
+        # partial tile once the cluster is done with it
+        cols = 12 * -(-plan.samples // plan.cs_d2) * nt
+        assert plan.smem_d2 == 1024 + max(ring(nt), tile, cols) + tile + 16 * stages_n(nt)
         assert plan.cs_d2 in limits and plan.grid_d2 == (plan.row_tiles * plan.cs_d2, -(-O // nt))
         cluster_ok(plan.cs_d2, plan.row_tiles * -(-O // nt), -(-O // (16 if nt == 64 else 8)))
     else:
@@ -256,9 +271,11 @@ def test_plan_backward_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, rtb):
     assert plan.wgrad_grid == min(items, 132)
     groups = -(-B * T // 48) * 6 if T == 3 else -(-B * T // 8)
     assert plan.wop_bytes == -(-O // 64) * groups * 2 * 512 * 4
-    # per row tile 4 kinds of the last GroupNorm's column partials (the head:
-    # 3), then per row tile and rank of dgrad_gn_stage's cluster 3 of the first's
-    assert plan.colpart_bytes == ((4 + 3 * plan.cs_d2) if rtb else 3) * plan.row_tiles * O * 4
+    # per gn_mish_bwd row tile 4 kinds of the last GroupNorm's column partials
+    # (the head: 3), then per row tile and rank of dgrad_gn_stage's cluster 3
+    # of the first's
+    assert plan.colpart_bytes == ((4 * plan.gn_tiles + 3 * plan.cs_d2 * plan.row_tiles) if rtb
+                                  else 3 * plan.gn_tiles) * O * 4
 
 
 def test_dgrad_clusters_fill_the_card_at_t3():
@@ -290,7 +307,7 @@ def test_plan_backward_sizes_the_staged_weights():
 
 
 def test_backward_args_mirror_the_c_structure():
-    """BackwardArgs is 36 pointers, 4 sizes and 21 ints, in that order,
+    """BackwardArgs is 36 pointers, 4 sizes and 23 ints, in that order,
     as BlockBwdArgs in csrc/block_backward.cu declares them."""
     import ctypes
     fields = _build.BackwardArgs._fields_
@@ -299,7 +316,7 @@ def test_backward_args_mirror_the_c_structure():
     assert [n for n, _ in fields[36:40]] == ["wstage_bytes", "wpart_bytes", "colpart_bytes",
                                              "wop_bytes"]
     assert [n for n, _ in fields[-3:]] == ["wg_grid", "splits", "sps"]
-    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 15 * 4 + 6 * 4 + 4  # + padding
+    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 17 * 4 + 6 * 4 + 4  # + padding
     src = (_build.CSRC / "block_backward.cu").read_text()
     body = src[src.index("struct BlockBwdArgs {"):src.index("};", src.index("struct BlockBwdArgs {"))]
     import re
