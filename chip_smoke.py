@@ -22,7 +22,8 @@ after a ``torch.cuda.synchronize()``:
              dgrads (``dgrad_gn_stage``, ``dgrad_x_stage``, every instance)
              must issue wgmma, no mma.sync, and spill nothing; its
              GroupNorm + Mish backward ``gn_mish_bwd`` (its three instances:
-             1, 2 or 4 channels a lane's load) must spill nothing.
+             1, 2 or 4 channels a lane's load) and its in-order sum of
+             partials ``grad_reduce`` must spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4), then timed with CUDA
@@ -67,12 +68,20 @@ after a ``torch.cuda.synchronize()``:
              their launches one by one (shape, grid, cluster size, ms),
              ``gn_mish_bwd``'s launches one by one (each must run at least
              132 CTAs at batch 512) beside aten's GroupNorm backward as its
-             yardstick, and the plan's bytes of weight-gradient partials.
+             yardstick, ``grad_reduce``'s launches one by one (jobs, items,
+             CTAs, ms; each at least min(items, 132) CTAs at batch 512)
+             beside ``torch.sum`` over the slices as its yardstick, and the
+             plan's bytes of weight-gradient partials; then ``grad_reduce``
+             alone (``ops.grad_reduce``) at each of that pass's 17 job lists
+             on seeded partials: bit-identical to ``grad_reduce_reference``
+             (the in-order sum) and to a second run.
 7. train:    ``cindm_tpu_torch.cli.train_1d`` at the configuration that
              trained the in-tree prior (batch 512, dim 64, 6,000 simulations
              generated on the card, 30% collision windows), cut only in its
              step count: 40 steps with milestones at 20 and 40, then a resume
-             to step 50 with one 25-step DDIM eval.
+             to step 50 with one 25-step DDIM eval; the launch counters,
+             ``grad_reduce``'s inside the backwards among them (17 a step,
+             ``_build.launch_backward.reduce_launches``).
 8. analysis: ``cindm_tpu_torch.cli.analysis_1d`` twice, on snapshots of
              seeded random weights at full width: the multibody strategies
              (8 bodies, the 2-body prior and a 1-body prior, batch 16, 16
@@ -167,7 +176,9 @@ after a ``torch.cuda.synchronize()``:
              ``launches_baselines``, ``launches_design2d``, all 0 one
              ``launches_<phase>`` for each of phases 13-18, and
              ``launches_multigpu`` (phase 19 (a), in this process) and
-             ``launches_multigpu_ranks`` (phase 19 (b), per rank)), the
+             ``launches_multigpu_ranks`` (phase 19 (b), per rank)), and an
+             entry of its own for ``grad_reduce`` (its launches inside the
+             train phase's backwards, its standalone check's numbers), the
              nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -213,6 +224,8 @@ TRAIN_BATCH = 512  # the batch that trained the in-tree prior
 GRAD_TOL = 1e-3  # per parameter: max |g_kernel - g_plain| / max |g_plain|
 GN_CTAS_BATCH = 512  # every gn_mish_bwd launch of a backward pass at this batch runs
 GN_MIN_CTAS = 132  # at least this many CTAs: one an SM of the H100
+# every grad_reduce launch at GN_CTAS_BATCH runs at least min(items, REDUCE_MIN_CTAS) CTAs
+REDUCE_MIN_CTAS = 132
 # scripts_paper/round3c_train1d.sh, cut only in its step count
 TRAIN_ARGS = [
     "--batch_size", "512", "--gradient_accumulate_every", "1", "--Unet_dim", "64",
@@ -586,9 +599,10 @@ def check_slice5_kernels(torch, dev, cuda: bool) -> dict:
 
 
 def reset_counts():
-    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
+    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, _build, fused_conv1d_gn_mish,
                                      fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
 
+    _build.launch_backward.reduce_launches = 0
     fused_rtb.launches = 0
     fused_conv1d_gn_mish.launches = 0
     fused_rtb_backward.launches = 0
@@ -973,6 +987,70 @@ def check_block_grads(torch, dev, batch: int, cuda: bool) -> dict:
     return {"fused_rtb_differentiable": rtb_rows, "fused_conv1d_gn_mish_differentiable": [head]}
 
 
+def reduce_job_lists(torch, dev, batch: int, cuda: bool) -> list[tuple[tuple[int, int, int], object]]:
+    """grad_reduce's plan of each of the backward pass's 17 launches (the 16
+    blocks and the head at ``batch``), as the backward plans them on this
+    device: ((C, O, T), ReducePlan)."""
+    from cindm_tpu_torch.ops import _build
+
+    kw = dict(num_sms=_build.num_sms(dev), clusters=_build.cluster_limits(dev)) if cuda else {}
+    out = []
+    for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+        rtb = i < len(RTB_SHAPES)
+        out.append(((C, O, T), _build.plan_backward(batch, T, C, O, 8, proj=rtb and C != O, rtb=rtb,
+                                                    **kw).reduce))
+    return out
+
+
+def check_grad_reduce(torch, dev, batch: int, cuda: bool) -> dict:
+    """Phase 6c: grad_reduce alone at each of the backward pass's 17 job
+    lists, on seeded random partials of the jobs' sizes: every sum
+    bit-identical to grad_reduce_reference (the in-order sum in torch) on
+    the card, and again on a second run; every launch at least
+    min(items, REDUCE_MIN_CTAS) CTAs. The 17 launches timed beside the plain
+    version, the bound (the partials read once, the sums written once, or
+    their adds at the fp32 peak) and ``torch.sum`` over the slices (its own
+    order) as the yardstick."""
+    from cindm_tpu_torch.ops import grad_reduce, grad_reduce_reference
+
+    g = torch.Generator(device=dev).manual_seed(1515)
+    lists, rows = [], []
+    for shape, plan in reduce_job_lists(torch, dev, batch, cuda):
+        srcs = [torch.randn((S * n,), generator=g, device=dev) for n, S in plan.jobs]
+        jobs = list(zip(srcs, [S for _, S in plan.jobs]))
+        got, again = grad_reduce(jobs), grad_reduce(jobs)
+        want = [grad_reduce_reference(src, S) for src, S in jobs]
+        if not all(bool(torch.equal(a, w)) for a, w in zip(got, want)):
+            raise AssertionError(f"grad_reduce at {shape} differs from the in-order sum")
+        if not all(bool(torch.equal(a, b)) for a, b in zip(got, again)):
+            raise AssertionError(f"two grad_reduce runs at {shape} differ")
+        if plan.grid < min(plan.items, REDUCE_MIN_CTAS):
+            raise AssertionError(f"grad_reduce at {shape}: {plan.grid} CTAs for {plan.items} items")
+        lists.append(jobs)
+        rows.append({"shape": list(shape), "jobs": [list(j) for j in plan.jobs],
+                     "widths": list(plan.widths), "items": plan.items, "ctas": plan.grid})
+    n_jobs = [(src.numel() // S, S) for jobs in lists for src, S in jobs]
+    bound_ms, bound_by = bound(sum(n * S for n, S in n_jobs), sum(4 * n * (S + 1) for n, S in n_jobs))
+    rec = {"lists": rows, "bit_identical": True, "repeats_bit_for_bit": True, "max_abs_err": 0.0,
+           "bound_ms": bound_ms, "bound_by": bound_by, "launches": grad_reduce.launches}
+    if cuda:
+        plain_ms, kernel_ms = time_pair(
+            torch, lambda: [[grad_reduce_reference(src, S) for src, S in jobs] for jobs in lists],
+            lambda: [grad_reduce(jobs) for jobs in lists])
+        rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=event_ms(
+            torch, lambda: [torch.sum(src.view(S, -1), 0) for jobs in lists for src, S in jobs], 10))
+    return rec
+
+
+def check_reduce_ctas(bprof: dict) -> None:
+    """Every grad_reduce launch of the backward pass at the training batch
+    runs at least min(items, REDUCE_MIN_CTAS) CTAs, 17 launches."""
+    launches = bprof["kernels"]["grad_reduce"]["per_launch"]
+    small = [l for l in launches if l["ctas"] < min(l["items"], REDUCE_MIN_CTAS)]
+    if len(launches) != len(RTB_SHAPES) + 1 or small:
+        raise AssertionError(f"grad_reduce launches under min(items, {REDUCE_MIN_CTAS}) CTAs: {small}")
+
+
 def check_grad(torch, dev, batch: int, model, cuda: bool) -> dict:
     """Phase 6b: one training gradient of the whole denoiser on both paths,
     its launch counts, and one optimizer step timed on each path."""
@@ -1063,6 +1141,7 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
     import numpy as np
 
     from cindm_tpu_torch.cli.train_1d import main as train_main
+    from cindm_tpu_torch.ops import _build
     from cindm_tpu_torch.train import CheckpointManager
 
     n_steps, save_every, resume_steps, eval_steps = steps
@@ -1087,6 +1166,7 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             seconds = time.perf_counter() - t0
             lines = out.getvalue().strip().splitlines()
             runs.append({"seconds": seconds, "launches": read_counts(backwards=True),
+                         "grad_reduce_launches": _build.launch_backward.reduce_launches,
                          "record": json.loads(lines[-1]), "step": state.step,
                          "first_lines": lines[:2], "last_lines": lines[-3:-1]})
         res = os.path.join(tmp, "results")
@@ -1121,7 +1201,9 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                        "FusedConv1dGNMish_launches": n2,
                                        "FusedConv1dGNMish_backward_passes": n2,
                                        "fused_rtb_backward": 16 * n2,
-                                       "fused_conv1d_gn_mish_backward": n2})
+                                       "fused_conv1d_gn_mish_backward": n2}
+            # every backward of a training step wants the weights: one grad_reduce each
+            and first["grad_reduce_launches"] == 17 * n_steps and second["grad_reduce_launches"] == 17 * n2)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train phase checks failed: {failed}; runs {runs}; "
@@ -2111,6 +2193,26 @@ def vjp_entries(blocks: dict, counts: dict, ana_counts: dict, base_counts: dict,
     return out
 
 
+def reduce_entry(alone: dict, train: dict, bprof: dict | str) -> dict:
+    """grad_reduce's entry: its launches inside the training phase's
+    backwards (every one wants the weight gradients), and its standalone
+    check at the backward pass's 17 job lists (bit for bit the in-order sum;
+    ms of the 17 launches beside the plain version, the bound and
+    ``torch.sum``); ``backward_pass_ms`` its device ms inside one backward
+    pass (tools/backward_profile)."""
+    first, second = train["runs"]
+    return {"name": "grad_reduce", "route": "cuda", "source": "cindm_tpu_torch/ops/csrc/conv_backward.cuh",
+            "replaces": "none of its own: part of the port of cindm_tpu/ops/fused_rtb.py:257 "
+                        "(_fused_rtb_cv_bwd)",
+            "launches": first["grad_reduce_launches"] + second["grad_reduce_launches"],
+            "max_abs_err": alone["max_abs_err"], "ms": alone.get("ms"), "plain_ms": alone.get("plain_ms"),
+            "bound_ms": alone["bound_ms"], "bound_by": alone["bound_by"],
+            "library_ms": alone.get("library_ms"),
+            "backward_pass_ms": (bprof["kernels"]["grad_reduce"]["ms"] if isinstance(bprof, dict)
+                                 else "not measured"),
+            "alone": alone}
+
+
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
@@ -2155,11 +2257,12 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     sass = _build.sass_mma_counts() if cuda else "not measured"
     # the backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
     # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3);
-    # gn_mish_bwd (1, 2 or 4 channels a lane) on the CUDA cores
+    # gn_mish_bwd (1, 2 or 4 channels a lane) and grad_reduce on the CUDA cores
     tc = {k: check_kernel_build(_build, sass, m, n, w) if cuda else "not measured"
           for k, m, n, w in (("wgrad", "5wgrad", 2, True), ("dgrad_gn_stage", "14dgrad_gn_stage", 4, True),
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
-                             ("gn_mish_bwd", "11gn_mish_bwd", 3, False))}
+                             ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
+                             ("grad_reduce", "11grad_reduce", 1, False))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
           "ptxas": _build.ptxas_report().splitlines() if cuda else [],
@@ -2194,6 +2297,9 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     bprof = backward_profile.profile(torch, dev, train_batch) if cuda else "not measured (CPU)"
     if cuda and train_batch == GN_CTAS_BATCH:
         check_gn_ctas(bprof)
+        check_reduce_ctas(bprof)
+    # grad_reduce alone at the pass's 17 job lists: bit for bit the in-order sum
+    reduce_alone = check_grad_reduce(torch, dev, train_batch, cuda)
     sync()
     emit({"phase": "grad", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "block_tolerance": TOL, **grad,
@@ -2207,7 +2313,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
           "blocks_backward_kernel_ms": sum(r["backward_ms"] or 0.0 for r in blocks["fused_rtb_differentiable"]),
           "blocks_backward_plain_ms": sum(r["backward_plain_ms"] or 0.0
                                           for r in blocks["fused_rtb_differentiable"]),
-          "backward_kernels": bprof, **blocks})
+          "backward_kernels": bprof, "grad_reduce_alone": reduce_alone, **blocks})
 
     t0 = time.perf_counter()
     train = run_train(torch, dev, train_args, train_steps, cuda)
@@ -2291,6 +2397,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         if bwd:
             entry["backward_launches_multigpu"] = multi["launches"][bwd]
             entry["backward_launches_multigpu_ranks"] = [c[bwd] for c in per_rank]
+    line["kernels"].append(reduce_entry(reduce_alone, train, bprof))
     info["kernels"] = line
     return info
 

@@ -12,6 +12,8 @@ whose backward is the backward kernel on what it saved (the plain closed
 forms on the CPU). They count their CUDA backward passes in
 ``FusedRTB.backwards`` and ``FusedConv1dGNMish.backwards``;
 ``FusedRTB.launches`` counts the forward calls made through ``FusedRTB``.
+``grad_reduce`` (``grad_reduce.launches``) runs the backward's in-order sum
+of partials alone, beside its plain version ``grad_reduce_reference``.
 
 ``precision`` holds the bfloat16 helpers ``cast_floating`` and
 ``bf16_eps_model``; a bfloat16 model runs the plain versions.
@@ -36,6 +38,7 @@ from .fused_rtb import (
     fused_rtb_forward_saving_reference,
     fused_rtb_reference,
 )
+from .grad_reduce import grad_reduce, grad_reduce_reference
 from .precision import bf16_eps_model, cast_floating
 
 __all__ = [
@@ -55,5 +58,7 @@ __all__ = [
     "fused_rtb_differentiable",
     "fused_rtb_forward_saving_reference",
     "fused_rtb_reference",
+    "grad_reduce",
+    "grad_reduce_reference",
     "mish",
 ]

@@ -62,6 +62,9 @@ SIGNATURES = {
     "cindm_dgrad_cluster_limit": [_I, _P],
     "cindm_fused_conv1d_gn_mish_backward": [_P, _P],
     "cindm_block_backward_args_size": [],
+    # ReduceArgs*, grid, stream: grad_reduce alone
+    "cindm_grad_reduce": [_P, _I, _P],
+    "cindm_reduce_args_size": [],
 }
 
 # The tile of the implicit-GEMM stage (csrc/conv_gn_mish.cuh); these mirror
@@ -155,6 +158,19 @@ GN_PAIRS = 16
 GN_WARP_PAIRS = 2
 GN_LINE = 32
 GN_KINDS = 4
+# grad_reduce (csrc/conv_backward.cuh): REDUCE_THREADS threads a CTA, each
+# REDUCE_VEC float4 columns of an item; a ring of REDUCE_STAGES stages of
+# REDUCE_STAGE_BYTES, filled by TMA boxes of at most REDUCE_BOX columns and
+# slices; a launch cut into at least REDUCE_ITEMS items (one an SM of the
+# H100) where its bytes allow, walked by at most 2 CTAs an SM.
+REDUCE_JOBS = 10
+REDUCE_THREADS = 256
+REDUCE_VEC = 2
+REDUCE_STAGES = 2
+REDUCE_STAGE_BYTES = 49152
+REDUCE_ITEMS = H100_SMS
+REDUCE_BOX = 256
+REDUCE_MAX_WIDTH = 4 * REDUCE_VEC * REDUCE_THREADS
 
 
 def wgrad_smem_bytes() -> int:
@@ -286,6 +302,65 @@ def staged_weight_bytes(nt: int, C: int, O: int, K: int = CONV_K) -> int:
     return -(-O // nt) * -(-C // CHUNK) * 2 * K * (nt // 8) * SBO_BYTES
 
 
+def reduce_width(total: int, n: int, slices: int) -> int:
+    """grad_reduce's columns an item for a job of ``n`` columns over
+    ``slices`` in a launch whose jobs read ``total`` bytes: at most total /
+    REDUCE_ITEMS bytes an item (the launch then has at least REDUCE_ITEMS
+    items, one an SM, wherever its bytes allow) in whole float4 columns, at
+    most REDUCE_MAX_WIDTH, what a ring stage holds of all the slices and n,
+    at least 4; past one TMA box, whole boxes (the C side's reduce_width)."""
+    target = total // REDUCE_ITEMS // (16 * slices) * 4
+    fit = REDUCE_STAGE_BYTES // (16 * slices) * 4
+    w = max(4, min(target, fit, REDUCE_MAX_WIDTH, n))
+    return w // REDUCE_BOX * REDUCE_BOX if w > REDUCE_BOX else w
+
+
+def reduce_run(slices: int, width: int) -> int:
+    """Slices of an item of ``width`` columns that one ring stage, and one
+    TMA box, holds."""
+    return min(slices, REDUCE_STAGE_BYTES // (4 * width), REDUCE_BOX)
+
+
+def reduce_box(width: int) -> int:
+    """Columns of one TMA box of an item of ``width`` columns."""
+    return min(width, REDUCE_BOX)
+
+
+@dataclass(frozen=True)
+class ReducePlan:
+    """grad_reduce's launch: ``jobs`` (n, slices) in launch order, each cut
+    into items of ``widths`` columns over all its slices (the last item of
+    a job ragged), the job's first item in ``item0``; ``items`` in all,
+    walked round-robin by ``grid`` CTAs."""
+
+    jobs: tuple[tuple[int, int], ...]
+    widths: tuple[int, ...]
+    item0: tuple[int, ...]
+    items: int
+    grid: int
+
+
+def plan_reduce(jobs, num_sms: int = H100_SMS) -> ReducePlan:
+    """grad_reduce's plan for ``jobs`` [(n, slices), ...]: dst[i] = sum over
+    s of src[s n + i] for each. Each job is cut into items of whole float4
+    columns over all its slices, at least REDUCE_ITEMS in all where the
+    bytes allow (every SM gets an item), each item's slab within a ring
+    stage; at most 2 CTAs an SM walk them (the training shapes' narrow
+    launches in one round)."""
+    jobs = tuple((int(n), int(s)) for n, s in jobs)
+    if not 1 <= len(jobs) <= REDUCE_JOBS:
+        raise ValueError(f"grad_reduce takes 1 to {REDUCE_JOBS} jobs, got {len(jobs)}")
+    if any(n <= 0 or n % 4 or s <= 0 for n, s in jobs):
+        raise ValueError(f"grad_reduce takes jobs of a multiple of 4 columns over 1 or more slices: {jobs}")
+    total = sum(4 * n * s for n, s in jobs)
+    widths = tuple(reduce_width(total, n, s) for n, s in jobs)
+    item0, items = [], 0
+    for (n, _), w in zip(jobs, widths):
+        item0.append(items)
+        items += -(-n // w)
+    return ReducePlan(jobs, widths, tuple(item0), items, min(items, 2 * num_sms))
+
+
 @dataclass(frozen=True)
 class BackwardPlan:
     """The launches of one block's backward (``rtb``) or the head's.
@@ -304,7 +379,9 @@ class BackwardPlan:
     ``splits``/``sps`` cut each job's rows into ``splits`` runs of ``sps``
     ring stages of ``wgrad_stage_rows(T)`` rows (1: one run over every row,
     written to the gradient itself); ``wgrad_items`` items walked by a
-    persistent grid of ``wgrad_grid`` blocks. The byte counts size the scratch the wrapper
+    persistent grid of ``wgrad_grid`` blocks. ``reduce``: grad_reduce's
+    plan over the split jobs' partials and the column partials (None
+    without weight gradients). The byte counts size the scratch the wrapper
     allocates: the staged weights, the split jobs' partials, the column
     partials, and each cotangent in wgrad's operand layout (``wop_bytes``;
     dz1, and dz2 and g for the block)."""
@@ -335,6 +412,7 @@ class BackwardPlan:
     wpart_bytes: int
     colpart_bytes: int
     wop_bytes: int
+    reduce: ReducePlan | None
 
 
 def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool = True,
@@ -402,12 +480,18 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     # column partials: per gn_mish_bwd row tile 4 kinds of the last GroupNorm
     # (3 for the head), then per row tile and rank 3 kinds of dgrad_gn_stage's
     colpart = ((4 * gn_tiles + 3 * cs_d2 * row_tiles) if rtb else 3 * gn_tiles) * O * 4
+    # grad_reduce's jobs in the launch's order: the split gradients, then the
+    # column kinds (dgs, dgb, db, dbres of the last GroupNorm; dgs, dgb, db of
+    # the first)
+    kinds = [gn_tiles] * (4 if rtb and proj else 3) + ([cs_d2 * row_tiles] * 3 if rtb else [])
+    reduce = plan_reduce([(taps * Ca * O, n) for (Ca, taps, _), n in zip(wgrad_jobs, splits) if n > 1]
+                         + [(O, s) for s in kinds], num_sms) if want_w else None
     plan = BackwardPlan(
         samples, row_tiles, gn_samples, gn_tiles, 32 * -(-gn_samples * gpt_gn // GN_WARP_PAIRS),
         (gn_tiles, -(-O // nt_gn)), nt_gn, smem_gn, nt_d2, smem_d2, nt_d1, smem_d1, cs_d2, cs_d1, grid_d2,
         grid_d1, tuple(wgrad_jobs), tuple(splits), tuple(sps), wgrad_smem_bytes(), items,
         min(items, num_sms), wstage, wpart, colpart,
-        wgrad_operand_bytes(B * T, O, T) if want_w else 0)
+        wgrad_operand_bytes(B * T, O, T) if want_w else 0, reduce)
     if max(plan.smem_gn, plan.smem_d2, plan.smem_d1, plan.wgrad_smem) > SMEM_MAX:
         raise ValueError(f"a backward tile of T={T} does not fit the shared memory of one block: {plan}")
     return plan
@@ -428,8 +512,22 @@ class BackwardArgs(ctypes.Structure):
         + [(n, _I) for n in ("B", "T", "C", "O", "G", "samples", "gn_samples", "gn_tiles", "nt_gn",
                              "smem_gn", "nt_d2", "smem_d2", "nt_d1", "smem_d1", "cs_d2", "cs_d1",
                              "wg_grid")]
-        + [("splits", _I * 3), ("sps", _I * 3)]
+        + [("splits", _I * 3), ("sps", _I * 3), ("rd_width", _I * REDUCE_JOBS), ("rd_items", _I),
+           ("rd_grid", _I)]
     )
+
+
+class ReduceJob(ctypes.Structure):
+    """One job of ``ReduceArgs``; mirrors ``cindm::ReduceJob``."""
+
+    _fields_ = [("src", _P), ("dst", _P), ("n", _I), ("slices", _I), ("width", _I), ("item0", _I)]
+
+
+class ReduceArgs(ctypes.Structure):
+    """grad_reduce's argument block; mirrors ``cindm::ReduceArgs`` in
+    ``csrc/conv_backward.cuh`` (``load()`` checks its size)."""
+
+    _fields_ = [("job", ReduceJob * REDUCE_JOBS), ("njobs", _I), ("nitems", _I)]
 
 
 _lib = None
@@ -521,6 +619,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         if lib.cindm_block_backward_args_size() != ctypes.sizeof(BackwardArgs):
             raise RuntimeError("BackwardArgs does not match the C structure BlockBwdArgs")
+        if lib.cindm_reduce_args_size() != ctypes.sizeof(ReduceArgs):
+            raise RuntimeError("ReduceArgs does not match the C structure cindm::ReduceArgs")
         _lib = lib
     return _lib
 
@@ -709,6 +809,7 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
         if n:
             work[name] = off
             off += -(-n // 4) * 4  # 16-byte boundaries
+    rd = plan.reduce
     args = BackwardArgs(
         wstage_bytes=plan.wstage_bytes, wpart_bytes=plan.wpart_bytes,
         colpart_bytes=plan.colpart_bytes, wop_bytes=plan.wop_bytes, B=B, T=T, C=C, O=O, G=G,
@@ -716,7 +817,9 @@ def _backward_layout(B, T, C, O, K, G, proj, rtb, want_dx, want_dtemb, want_w,
         nt_gn=plan.nt_gn, smem_gn=plan.smem_gn, nt_d2=plan.nt_d2,
         smem_d2=plan.smem_d2, nt_d1=plan.nt_d1, smem_d1=plan.smem_d1, cs_d2=plan.cs_d2 or 1,
         cs_d1=plan.cs_d1, wg_grid=plan.wgrad_grid,
-        splits=(ctypes.c_int * 3)(*plan.splits), sps=(ctypes.c_int * 3)(*plan.sps))
+        splits=(ctypes.c_int * 3)(*plan.splits), sps=(ctypes.c_int * 3)(*plan.sps),
+        rd_width=(ctypes.c_int * REDUCE_JOBS)(*(rd.widths if rd else ())),
+        rd_items=rd.items if rd else 0, rd_grid=rd.grid if rd else 0)
     return _BackwardLayout(shapes, grads, work, off, args)
 
 
@@ -730,8 +833,9 @@ def launch_backward(kernel: str, rtb: bool, inputs: dict, B: int, T: int, C: int
     returns the gradients it computed, by field name (dx only with
     ``want_dx``, dtemb only with ``want_dtemb``, the weight, bias and
     GroupNorm gradients only with ``want_w``: without it wgrad does not
-    run). Checks every tensor and allocates the gradients and the scratch;
-    raises unless it is on CUDA."""
+    run, nor grad_reduce, whose launches ``launch_backward.reduce_launches``
+    counts). Checks every tensor and allocates the gradients and the
+    scratch; raises unless it is on CUDA."""
     g = inputs["g"]
     dev = g.device
     if dev.type != "cuda":
@@ -763,4 +867,9 @@ def launch_backward(kernel: str, rtb: bool, inputs: dict, B: int, T: int, C: int
         setattr(args, name, base + 4 * off)
     err = call_on(dev, getattr(lib, f"cindm_{kernel}"), ctypes.byref(args))
     raise_on_error(kernel, err)
+    if want_w:
+        launch_backward.reduce_launches += 1
     return grads
+
+
+launch_backward.reduce_launches = 0  # grad_reduce launches inside the backward (with want_w)

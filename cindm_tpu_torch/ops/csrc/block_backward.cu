@@ -8,7 +8,8 @@
 // design are in conv_backward.cuh. One call launches, in order:
 // stage_weights_t, gn_mish_bwd, dgrad_gn_stage (the block only),
 // dgrad_x_stage (when dx is wanted), wgrad and grad_reduce (when the weight
-// gradients are wanted: dw1 not null; with dw1 null every weight, bias and
+// gradients are wanted: dw1 not null; grad_reduce's items as
+// ops/_build.plan_reduce cut them; with dw1 null every weight, bias and
 // GroupNorm gradient pointer is null and only dx and dtemb are computed;
 // the GroupNorm kernels then write no operand layouts).
 #include "conv_backward.cuh"
@@ -63,6 +64,10 @@ struct BlockBwdArgs {
   int cs_d2, cs_d1;  // the dgrads' cluster sizes: the split of K
   int wg_grid;  // wgrad's persistent grid: at most one block an SM
   int splits[cindm::kWgJobs], sps[cindm::kWgJobs];  // per job: row splits, ring stages a split
+  // grad_reduce's plan (ops/_build.plan_reduce): per reduce job, in launch
+  // order, the columns of an item; the items; the CTAs that walk them
+  int rd_width[cindm::kReduceJobs];
+  int rd_items, rd_grid;
 };
 
 namespace {
@@ -172,6 +177,52 @@ cudaError_t dgrad_map(CUtensorMap* m, const float* d, int R, int C, int nt) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// grad_reduce's view of a job for TMA: src as [slices][n], boxes of
+// reduce_box(width) columns x reduce_run(slices, width) slices; what a box
+// reaches past the tensor reads zeros.
+cudaError_t reduce_map(CUtensorMap* m, const cindm::ReduceJob& jb) {
+  EncodeTiled fn;
+  CINDM_TRY(encode_tiled(&fn));
+  const cuuint64_t dims[2] = {cuuint64_t(jb.n), cuuint64_t(jb.slices)};
+  const cuuint64_t strides[1] = {cuuint64_t(jb.n) * 4};
+  const cuuint32_t box[2] = {cuuint32_t(cindm::reduce_box(jb.width)),
+                             cuuint32_t(cindm::reduce_run(jb.slices, jb.width))};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(jb.src), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// grad_reduce on a plan's items. Refuses the plan unless each job's width
+// is what reduce_width gives for the launch's jobs, the jobs' items follow
+// one another from 0 to nitems, the grid has 1 to nitems CTAs, and every
+// source and destination starts on 16 bytes and every slice row is whole
+// 16-byte units (n a multiple of 4): TMA and the float4 stores need them.
+// The jobs' tensor maps are encoded here (after the caller's first launch
+// on this thread: the encoder needs the context current).
+cudaError_t launch_reduce(const cindm::ReduceArgs& a, int grid, cudaStream_t s) {
+  using namespace cindm;
+  if (a.njobs < 1 || a.njobs > kReduceJobs) return cudaErrorInvalidValue;
+  long long total = 0;
+  for (int j = 0; j < a.njobs; ++j) total += 4LL * a.job[j].n * a.job[j].slices;
+  int items = 0;
+  ReduceMaps maps{};
+  for (int j = 0; j < a.njobs; ++j) {
+    const ReduceJob& jb = a.job[j];
+    if (jb.n <= 0 || jb.n % 4 != 0 || jb.slices <= 0 || jb.src == nullptr || jb.dst == nullptr ||
+        reinterpret_cast<uintptr_t>(jb.src) % 16 != 0 || reinterpret_cast<uintptr_t>(jb.dst) % 16 != 0 ||
+        jb.width != reduce_width(total, jb.n, jb.slices) || jb.item0 != items)
+      return cudaErrorInvalidValue;
+    items += reduce_items(jb.n, jb.width);
+    CINDM_TRY(reduce_map(&maps.map[j], jb));
+  }
+  if (items != a.nitems || grid < 1 || grid > items) return cudaErrorInvalidValue;
+  CINDM_TRY(allow_smem(grad_reduce, reduce_smem_bytes()));
+  grad_reduce<<<grid, kReduceThreads, reduce_smem_bytes(), s>>>(a, maps);
+  return cudaGetLastError();
+}
+
 bool cluster_size_ok(int cs) { return cs >= 1 && cs <= cindm::kDgClusterMax; }
 
 size_t staged_t(int nt, int Cs, int Os, int K) { return cindm::staged_weight_bytes(nt, Cs, Os, K); }
@@ -261,7 +312,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
       jb.out = jobs[j].dst;
     } else {
       jb.out = a.wpart + wpart_off;
-      ra.job[ra.njobs++] = ReduceJob{jb.out, jobs[j].dst, n, jb.splits};
+      ra.job[ra.njobs++] = ReduceJob{jb.out, jobs[j].dst, n, jb.splits, 0, 0};
       wpart_off += size_t(jb.splits) * n;
     }
     items += jb.ctiles * jb.otiles * jb.splits;
@@ -280,9 +331,17 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
                             a.dgs1, a.dgb1, a.db1};
   for (int q = 0; q < (want_w ? (rtb ? kColParts : 3) : 0); ++q)
     if (dsts[q] != nullptr)
-      ra.job[ra.njobs++] = q < 4 ? ReduceJob{a.colpart + q * pk, dsts[q], a.O, a.gn_tiles}
+      ra.job[ra.njobs++] = q < 4 ? ReduceJob{a.colpart + q * pk, dsts[q], a.O, a.gn_tiles, 0, 0}
                                  : ReduceJob{a.colpart + 4 * pk + (q - 4) * pk1, dsts[q], a.O,
-                                             row_tiles * a.cs_d2};
+                                             row_tiles * a.cs_d2, 0, 0};
+  // the plan's items: its widths, each job's items after the last one's
+  for (int j = 0; j < ra.njobs; ++j) {
+    ra.job[j].width = a.rd_width[j];
+    ra.job[j].item0 = ra.nitems;
+    if (ra.job[j].width <= 0) return cudaErrorInvalidValue;
+    ra.nitems += reduce_items(ra.job[j].n, ra.job[j].width);
+  }
+  if (ra.nitems != a.rd_items) return cudaErrorInvalidValue;
 
   // 1. the weights of the dgrad stages, flipped and transposed
   char* ws = reinterpret_cast<char*>(a.wstage);
@@ -367,11 +426,7 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
   CINDM_TRY(cudaGetLastError());
 
   // 6. the split gradients and the column sums from their partials
-  int nmax = 0;
-  for (int j = 0; j < ra.njobs; ++j) nmax = ra.job[j].n > nmax ? ra.job[j].n : nmax;
-  const int nb = (nmax + 255) / 256;
-  grad_reduce<<<dim3(nb < 264 ? nb : 264, ra.njobs), 256, 0, s>>>(ra);
-  return cudaGetLastError();
+  return launch_reduce(ra, a.rd_grid, s);
 }
 
 }  // namespace
@@ -387,6 +442,14 @@ extern "C" int cindm_dgrad_cluster_limit(int cs, int* n) {
   cudaLaunchAttribute at;
   const cudaLaunchConfig_t cfg = cluster_config(dim3(cs), cs, bytes, nullptr, &at);
   return cudaOccupancyMaxActiveClusters(n, reinterpret_cast<const void*>(k), &cfg);
+}
+
+extern "C" int cindm_reduce_args_size() { return static_cast<int>(sizeof(cindm::ReduceArgs)); }
+
+// grad_reduce alone: the jobs, widths and items of ops/_build.plan_reduce
+// on `grid` CTAs (the same kernel and checks as the backward's launch).
+extern "C" int cindm_grad_reduce(const cindm::ReduceArgs* a, int grid, void* stream) {
+  return launch_reduce(*a, grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cindm_fused_rtb_backward(const BlockBwdArgs* a, void* stream) {

@@ -28,7 +28,8 @@
 //                    product in the same accumulator, on the same main loop;
 //                    skipped when x needs no gradient;
 //   wgrad            dw1, dw2 and dwres, 3xTF32 wgmma over long runs of rows;
-//   grad_reduce      sums the row splits' and row tiles' partials.
+//   grad_reduce      sums the row splits' and row tiles' partials in order,
+//                    items of whole columns whose slabs arrive by TMA.
 // The head runs gn_mish_bwd (its only GroupNorm), dgrad_x_stage without the
 // residual, wgrad and grad_reduce.
 //
@@ -122,6 +123,18 @@
 namespace cindm {
 
 constexpr int kReduceJobs = 10;
+// grad_reduce: a CTA's threads, a thread's float4 columns of an item, the
+// ring's stages and their bytes, the fewest items a launch is cut into
+// where its bytes allow (one an SM of the H100), the TMA box's limit and an
+// item's widest run of columns
+constexpr int kReduceThreads = 256;
+constexpr int kReduceVec = 2;
+constexpr int kReduceStages = 2;
+constexpr int kReduceStageBytes = 49152;
+constexpr int kReduceItems = 132;
+constexpr int kReduceBox = 256;  // a TMA box's most columns, and most slices
+constexpr int kReduceBatch = 16;  // slices a thread loads before adding them
+constexpr int kReduceMaxWidth = 4 * kReduceVec * kReduceThreads;
 constexpr int kColParts = 7;  // dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
 
 // wgrad's work items and ring
@@ -238,6 +251,55 @@ __host__ __device__ inline int wgrad_groups(int R, int T) {
 inline size_t wgrad_operand_words(int R, int O, int T) {
   return size_t((O + kWgTile - 1) / kWgTile) * wgrad_groups(R, T) * 2 * 512;
 }
+
+// grad_reduce's jobs (the kernel and its design: below). dst[i] = sum
+// over s of src[s * n + i] for each job.
+struct ReduceJob {
+  const float* src;  // [slices][n], 16-byte aligned
+  float* dst;        // [n], 16-byte aligned
+  int n, slices;     // n a multiple of 4
+  int width;         // columns of an item, a multiple of 4 (the job's last item may be narrower)
+  int item0;         // the job's first item in the launch's list
+};
+struct ReduceArgs {
+  ReduceJob job[kReduceJobs];
+  int njobs, nitems;
+};
+
+__host__ __device__ constexpr int reduce_items(int n, int width) { return (n + width - 1) / width; }
+// Slices of an item of `width` columns that one ring stage holds: at most
+// one TMA box's kReduceBox.
+__host__ __device__ constexpr int reduce_run(int slices, int width) {
+  const int fit = kReduceStageBytes / (4 * width);
+  const int run = slices < fit ? slices : fit;
+  return run < kReduceBox ? run : kReduceBox;
+}
+// The plan's width of a job of n columns over `slices`, for a launch whose
+// jobs read `total` bytes: at most total / kReduceItems bytes an item (so
+// that a launch has at least kReduceItems items, one an SM, wherever its
+// bytes allow), in whole float4 columns, at most a thread's kReduceVec
+// float4s, a ring stage's slab and n, at least 4 columns; past one TMA
+// box, whole boxes. Mirrors ops/_build.reduce_width.
+__host__ __device__ constexpr int reduce_width(long long total, int n, int slices) {
+  const long long target = total / kReduceItems / (16LL * slices) * 4;
+  const long long fit = kReduceStageBytes / (16LL * slices) * 4;
+  long long w = target < fit ? target : fit;
+  w = w < kReduceMaxWidth ? w : kReduceMaxWidth;
+  w = w < n ? w : n;
+  w = w > 4 ? w : 4;
+  return static_cast<int>(w > kReduceBox ? w / kReduceBox * kReduceBox : w);
+}
+// Columns of one TMA box of an item of `width` columns.
+__host__ __device__ constexpr int reduce_box(int width) { return width < kReduceBox ? width : kReduceBox; }
+// 128 bytes to align the ring (TMA's destination), the ring, a barrier a stage
+constexpr size_t reduce_smem_bytes() {
+  return 128 + kReduceStages * size_t(kReduceStageBytes) + 8 * kReduceStages;
+}
+// A job's view for TMA: src as [slices][n], boxes of reduce_box(width)
+// columns x reduce_run(slices, width) slices (encoded by the launch).
+struct ReduceMaps {
+  CUtensorMap map[kReduceJobs];
+};
 
 // The GroupNorm + Mish backward's arguments (one GroupNorm of the block).
 struct GnBwd {
@@ -1375,27 +1437,159 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// dst[i] = sum over s of src[s * n + i], s in order: the split and per-tile
-// partials summed in a fixed order, so gradients repeat bit for bit.
-struct ReduceJob {
-  const float* src;
-  float* dst;
-  int n, slices;
-};
-struct ReduceArgs {
-  ReduceJob job[kReduceJobs];
-  int njobs;
+// grad_reduce: dst[i] = sum over s of src[s * n + i], v = 0 and then s = 0,
+// 1, .., S - 1 one fp32 add at a time, over each job of the launch (wgrad's
+// row splits, the GroupNorm kernels' per-tile column partials): a fixed
+// order, so that every gradient repeats bit for bit.
+//
+// It has no TPU kernel of its own: it is part of the port of
+// _fused_rtb_cv_bwd (cindm_tpu/ops/fused_rtb.py:257), whose sums over rows
+// XLA fuses into the VJP's reductions, where Hopper's blocks run in no order
+// and a sum across them takes a second pass. What bounds it: bytes, each
+// partial read once and each gradient written once (at batch 512 99.7 MB
+// and 16.3 MB over 17 launches, 0.035 ms at 3.35 TB/s); at the narrow
+// launches (0.3-5 MB) the latency of one round of loads and of each
+// column's chain of S adds (S up to 128), on top of a launch's own cost.
+//
+// Design. The launch's jobs are cut into a flat list of items
+// (ops/_build.plan_reduce; ReduceJob::width columns an item over all S
+// slices, the last item of a job ragged), at least kReduceItems items (one
+// an SM) wherever the launch's bytes allow, none wider than a thread's
+// kReduceVec float4 columns or with a slab (S x width x 4 bytes) beyond a
+// ring stage. A grid of at most two CTAs an SM walks the items
+// round-robin, most launches in one round. Each CTA copies the job table
+// into shared memory once, a word a thread. One elected thread fetches an
+// item's slab into a ring stage as TMA boxes (cp.async.bulk.tensor, the job
+// seen as [S][n]) of up to 256 columns x 256 slices, on the stage's
+// mbarrier, two stages deep: the next item's slab is in flight while this
+// one is summed. (One cp.async.bulk a slice row made the launches of 32-128
+// narrow rows an item chains of copy requests.) Each thread owns 4
+// consecutive columns (a float4 a slice, consecutive threads on
+// consecutive 16 bytes: no bank conflicts) and adds its slices in order
+// from shared memory, kReduceBatch slices loaded ahead of their adds, then
+// stores its columns with one 16-byte store: no atomics, no tree. Where a
+// slab overflows a stage or a box, it goes through the ring a run of
+// slices at a time, still in slice order.
+
+// The run of slices [s0, s0 + ns) of columns [c0, c0 + w) of job `job`:
+// what one ring stage holds.
+struct ReduceChunk {
+  ReduceJob jb;
+  int job, c0, w, s0, ns;
 };
 
-__global__ void grad_reduce(const ReduceArgs a) {
-  ReduceJob jb = a.job[0];
+// (a: the CTA's copy of the launch's ReduceArgs in shared memory)
+__device__ __forceinline__ ReduceChunk reduce_chunk(const ReduceArgs& a, int item, int run) {
+  ReduceChunk c;
+  c.job = 0;
+  for (int q = 1; q < a.njobs; ++q)
+    if (item >= a.job[q].item0) c.job = q;
+  c.jb = a.job[c.job];
+  c.c0 = (item - c.jb.item0) * c.jb.width;
+  c.w = min(c.jb.width, c.jb.n - c.c0);
+  const int per = reduce_run(c.jb.slices, c.jb.width);
+  c.s0 = run * per;
+  c.ns = min(per, c.jb.slices - c.s0);
+  return c;
+}
+
+// The next chunk after (item, run) in this CTA's walk: the item's next run
+// of slices, else its next item.
+__device__ __forceinline__ void reduce_next(const ReduceChunk& c, int& item, int& run) {
+  if (c.s0 + c.ns < c.jb.slices) {
+    ++run;
+  } else {
+    item += gridDim.x;
+    run = 0;
+  }
+}
+
+// One elected thread: the chunk into a ring stage, a TMA box of reduce_box
+// columns x reduce_run slices at a time, box after box along the columns,
+// on the stage's barrier. A box reaching past the job's columns or slices
+// lands zeros there, and its bytes count in full.
+__device__ __forceinline__ void reduce_fill(const ReduceChunk& c, const ReduceMaps& m, char* stage,
+                                            uint32_t bar) {
+  const int bw = reduce_box(c.jb.width);
+  const uint32_t box = 4u * bw * reduce_run(c.jb.slices, c.jb.width);
+  const int nbox = (c.w + bw - 1) / bw;
+  mbar_expect_tx(bar, box * nbox);
+  for (int b = 0; b < nbox; ++b) tma_load_2d(stage + b * box, &m.map[c.job], c.c0 + b * bw, c.s0, bar);
+}
+
+__global__ void __launch_bounds__(kReduceThreads, 2)
+    grad_reduce(const __grid_constant__ ReduceArgs args, const __grid_constant__ ReduceMaps m) {
+  extern __shared__ float4 smem4[];
+  __shared__ ReduceArgs a;  // the job table, copied once a word a thread
+  char* ring = reinterpret_cast<char*>(smem4);
+  ring += (128 - smem_u32(ring) % 128) % 128;  // TMA's destination alignment
+  const uint32_t full = smem_u32(ring + kReduceStages * kReduceStageBytes);
+  const int tid = threadIdx.x;
+  static_assert(sizeof(ReduceArgs) % 4 == 0 && sizeof(ReduceArgs) / 4 <= kReduceThreads, "one word a thread");
+  if (tid < static_cast<int>(sizeof(ReduceArgs) / 4))
+    reinterpret_cast<int*>(&a)[tid] = reinterpret_cast<const int*>(&args)[tid];
+  if (tid == 0)
+    for (int q = 0; q < kReduceStages; ++q) mbar_init(full + 8 * q);
+  __syncthreads();
+  // thread 0's cursor runs kReduceStages chunks ahead of the consumers'
+  int fitem = blockIdx.x, frun = 0;
+  if (tid == 0)
+    for (int q = 0; q < kReduceStages && fitem < a.nitems; ++q) {
+      const ReduceChunk c = reduce_chunk(a, fitem, frun);
+      reduce_fill(c, m, ring + q * kReduceStageBytes, full + 8 * q);
+      reduce_next(c, fitem, frun);
+    }
+  float4 v[kReduceVec];
+  int item = blockIdx.x, run = 0;
+  for (int k = 0; item < a.nitems; ++k) {
+    const ReduceChunk c = reduce_chunk(a, item, run);
+    const int slot = k % kReduceStages;
+    const float4* slab = reinterpret_cast<const float4*>(ring + slot * kReduceStageBytes);
+    if (run == 0)
 #pragma unroll
-  for (int q = 1; q < kReduceJobs; ++q)
-    if (q == static_cast<int>(blockIdx.y)) jb = a.job[q];
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < jb.n; i += gridDim.x * blockDim.x) {
-    float v = 0.0f;
-    for (int s = 0; s < jb.slices; ++s) v += jb.src[static_cast<size_t>(s) * jb.n + i];
-    jb.dst[i] = v;
+      for (int u = 0; u < kReduceVec; ++u) v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // float4 column f of the chunk, slice r: row r of box f / (bw / 4),
+    // per rows of bw columns (one box holds a whole item up to 256 columns;
+    // wider items are boxes of 256)
+    const int bw4 = reduce_box(c.jb.width) / 4, per = reduce_run(c.jb.slices, c.jb.width);
+    int at[kReduceVec];
+#pragma unroll
+    for (int u = 0; u < kReduceVec; ++u) {
+      const int f = tid + u * kReduceThreads;
+      at[u] = 4 * f >= c.w ? -1 : (f < bw4 ? f : (f / (kReduceBox / 4)) * per * bw4 + f % (kReduceBox / 4));
+    }
+    mbar_wait(full + 8 * slot, (k / kReduceStages) & 1);
+    // the slices in order, a batch of kReduceBatch rows loaded before its
+    // adds (a load's latency once a batch, not once a slice: the column
+    // jobs' 32-128 slices are each thread's chain of adds)
+#pragma unroll
+    for (int u = 0; u < kReduceVec; ++u)
+      if (at[u] >= 0)
+        for (int r0 = 0; r0 < c.ns; r0 += kReduceBatch) {
+          float4 x[kReduceBatch];
+#pragma unroll
+          for (int i = 0; i < kReduceBatch; ++i)
+            if (r0 + i < c.ns) x[i] = slab[at[u] + (r0 + i) * bw4];
+#pragma unroll
+          for (int i = 0; i < kReduceBatch; ++i)
+            if (r0 + i < c.ns) {
+              v[u].x += x[i].x;
+              v[u].y += x[i].y;
+              v[u].z += x[i].z;
+              v[u].w += x[i].w;
+            }
+        }
+    if (c.s0 + c.ns == c.jb.slices)  // the item's last run: its sums
+#pragma unroll
+      for (int u = 0; u < kReduceVec; ++u)
+        if (at[u] >= 0) reinterpret_cast<float4*>(c.jb.dst + c.c0)[tid + u * kReduceThreads] = v[u];
+    reduce_next(c, item, run);
+    __syncthreads();  // every thread is done with the slot
+    if (tid == 0 && fitem < a.nitems) {
+      const ReduceChunk f = reduce_chunk(a, fitem, frun);
+      reduce_fill(f, m, ring + slot * kReduceStageBytes, full + 8 * slot);
+      reduce_next(f, fitem, frun);
+    }
   }
 }
 

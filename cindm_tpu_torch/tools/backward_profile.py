@@ -24,7 +24,11 @@ and cotangents), and prints one JSON line:
   same shapes (the GroupNorm's backward only: no Mish, no operand layout;
   the port never calls it). The bytes of gn_mish_bwd's bound count g and z
   read, dz written and wgrad's two-plane operand layouts it writes (dz, and
-  g on a projection block), dgrad_gn_stage's its dz1 layout;
+  g on a projection block), dgrad_gn_stage's its dz1 layout; grad_reduce
+  its bound from the partials read once and the gradients written once,
+  its ``library_ms``, ``torch.sum(src.view(S, n), 0)`` over every job of
+  the pass on seeded partials of the same sizes (a yardstick the port never
+  calls), and ``per_launch``: each launch's jobs [n, S], items, CTAs and ms;
 - ``backward_ms`` (the 16 blocks' backward kernels alone, CUDA events),
   ``backward_host_ms`` (the host's time to issue them: when it exceeds the
   kernels' device time, ``backward_ms`` reads the host), ``head_backward_ms``, ``fwd_bwd_ms`` (the 16 blocks' forward and backward
@@ -57,7 +61,7 @@ HEAD_SHAPE = (64, 64, 24)
 K = 5
 KERNELS = ("stage_weights_t", "gn_mish_bwd", "dgrad_gn_stage", "dgrad_x_stage", "wgrad",
            "grad_reduce")
-PER_LAUNCH = ("gn_mish_bwd", "dgrad_gn_stage", "dgrad_x_stage")  # each launch timed on its own
+PER_LAUNCH = ("gn_mish_bwd", "dgrad_gn_stage", "dgrad_x_stage", "grad_reduce")  # each launch timed on its own
 PEAK_TF32 = 495e12  # H100 SXM dense TF32, FLOP/s
 PEAK_FP32 = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
@@ -126,19 +130,42 @@ def block_inputs(torch, g, C: int, O: int, T: int, batch: int, dev, head: bool):
     return x, p, torch.randn((batch, T, O), generator=g, device=dev)
 
 
-def timed_launches(_build, plan, C: int, O: int, head: bool) -> list[tuple[str, tuple, int]]:
-    """(kernel, grid, cluster size or threads) of the plan's gn_mish_bwd and
-    dgrad launches, in launch order; a plan without clusters (an older
+def reduce_jobs(plan, O: int, head: bool, proj: bool) -> list[tuple[int, int]]:
+    """grad_reduce's jobs (n, slices) in launch order, as the backward's C
+    launch lists them: wgrad's split gradients, then the column kinds."""
+    jobs = [(taps * Ca * O, n) for (Ca, taps, _), n in zip(plan.wgrad_jobs, plan.splits) if n > 1]
+    kinds = [plan.gn_tiles] * (4 if proj else 3) + ([] if head else [plan.row_tiles * (plan.cs_d2 or 1)] * 3)
+    return jobs + [(O, s) for s in kinds]
+
+
+def timed_launches(_build, plan, C: int, O: int, head: bool, proj: bool) -> list[tuple[str, dict]]:
+    """(kernel, fields) of the plan's gn_mish_bwd, dgrad and grad_reduce
+    launches, in launch order: grid, CTAs and cluster size or threads; for
+    grad_reduce its jobs, items and CTAs. A plan without clusters (an older
     checkout) launches one CTA a tile, one without gn_mish_bwd's own tiles
-    384 threads on the dgrads' row tiles."""
+    384 threads on the dgrads' row tiles, one without grad_reduce's items a
+    grid of min(ceil(n_max / 256), 264) x jobs CTAs of 256 threads, a
+    thread an element."""
     rt = plan.row_tiles
-    out = [("gn_mish_bwd", getattr(plan, "grid_gn", (rt, -(-O // plan.nt_gn))),
-            getattr(plan, "gn_threads", 384))]
+
+    def grid(g, key, x):
+        return {"grid": list(g), "ctas": g[0] * g[1], key: x}
+
+    out = [("gn_mish_bwd", grid(getattr(plan, "grid_gn", (rt, -(-O // plan.nt_gn))), "threads",
+                                getattr(plan, "gn_threads", 384)))]
     if not head:
-        cs = getattr(plan, "cs_d2", 1)
-        out.append(("dgrad_gn_stage", getattr(plan, "grid_d2", (rt, -(-O // plan.nt_d2))), cs))
-    cs = getattr(plan, "cs_d1", 1)
-    out.append(("dgrad_x_stage", getattr(plan, "grid_d1", (rt, -(-C // plan.nt_d1))), cs))
+        out.append(("dgrad_gn_stage", grid(getattr(plan, "grid_d2", (rt, -(-O // plan.nt_d2))), "cluster",
+                                           getattr(plan, "cs_d2", 1))))
+    out.append(("dgrad_x_stage", grid(getattr(plan, "grid_d1", (rt, -(-C // plan.nt_d1))), "cluster",
+                                      getattr(plan, "cs_d1", 1))))
+    rd = getattr(plan, "reduce", None)
+    jobs = reduce_jobs(plan, O, head, proj)
+    if rd is not None:
+        red = {"jobs": [list(j) for j in rd.jobs], "items": rd.items, "ctas": rd.grid}
+    else:
+        nb = min(-(-max(n for n, _ in jobs) // 256), 264)
+        red = {"jobs": [list(j) for j in jobs], "items": None, "ctas": nb * len(jobs)}
+    out.append(("grad_reduce", red))
     return out
 
 
@@ -158,7 +185,8 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     calls, rtb_calls, fwd_bwd, lib = [], [], [], []
     dlib = {"dgrad_gn_stage": [], "dgrad_x_stage": []}  # the dgrads' convolutions for cuDNN
     gnlib = []  # the last GroupNorm of each block: aten's GroupNorm backward on its shapes
-    launches = []  # (kernel, shape, grid, cluster or threads) of every launch timed one by one
+    launches = []  # (kernel, shape, fields) of every launch timed one by one
+    rsrc = []  # grad_reduce's jobs of the pass as seeded partials [S, n], for torch.sum
     plan_kw = {}
     if hasattr(_build, "cluster_limits"):  # the card's limits, as the launches plan with them
         plan_kw["clusters"] = _build.cluster_limits(dev)
@@ -191,7 +219,9 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
                 plan = _build.plan_backward(batch, T, C, O, 8, proj=proj, **plan_kw)
                 fa = dict(zip(names, args))
                 fwd_bwd.append((fa, cot))
-            launches += [(k, (C, O, T), grid, x) for k, grid, x in timed_launches(_build, plan, C, O, head)]
+            launches += [(k, (C, O, T), f) for k, f in timed_launches(_build, plan, C, O, head, proj)]
+            jobs = reduce_jobs(plan, O, head, proj)
+            rsrc += [torch.randn((S, n), generator=g, device=dev) for n, S in jobs]
             # the dgrads' yardstick: cuDNN's input gradients of the same convolutions
             # (weights [out, in, K]; the cotangents random, of the convs' output shapes)
             if not head:
@@ -229,8 +259,8 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
             work["dgrad_gn_stage"]["nbytes"] += 0 if head else 4 * 4 * rows * O + 8 * rows * O
             work["dgrad_x_stage"]["flops"] += TF32_PASSES * 2 * batch * d_macs
             work["dgrad_x_stage"]["nbytes"] += 4 * rows * (O + C + (O if not head else 0))
-            colparts = plan.colpart_bytes
-            work["grad_reduce"]["nbytes"] += plan.wpart_bytes + colparts
+            # the partials read once, the gradients written once
+            work["grad_reduce"]["nbytes"] += sum(4 * n * (S + 1) for n, S in jobs)
             partial_bytes += plan.wpart_bytes
     for fn in calls:
         fn()
@@ -282,14 +312,17 @@ def profile(torch, dev, batch: int = 512, reps: int = 10) -> dict:
     kernels["gn_mish_bwd"]["library"] = (
         "torch.ops.aten.native_group_norm_backward, fp32, [B, O, T]: the GroupNorm's backward only "
         "(the kernel also runs Mish's and writes wgrad's operand layouts)")
+    kernels["grad_reduce"]["library_ms"] = events_ms(torch, lambda: [torch.sum(src, 0) for src in rsrc],
+                                                     reps)
+    kernels["grad_reduce"]["library"] = ("torch.sum(src.view(S, n), 0) over every job of the pass, fp32 "
+                                         "(its own order of adds)")
+    del rsrc
     for k in PER_LAUNCH:
-        mine = [(shape, grid, x) for kk, shape, grid, x in launches if kk == k]
+        mine = [(shape, f) for kk, shape, f in launches if kk == k]
         full = [s[k] for s in each if len(s[k]) == len(mine)]  # passes that traced every launch
         kernels[k]["per_launch"] = [
-            {"shape": list(shape), "grid": list(grid), "ctas": grid[0] * grid[1],
-             ("threads" if k == "gn_mish_bwd" else "cluster"): x,
-             "ms": statistics.median(f[i] for f in full) if full else "not measured"}
-            for i, (shape, grid, x) in enumerate(mine)]
+            {"shape": list(shape), **f, "ms": statistics.median(x[i] for x in full) if full else "not measured"}
+            for i, (shape, f) in enumerate(mine)]
 
     def fwd_bwd_all():
         for a, c in fwd_bwd:

@@ -1,0 +1,72 @@
+"""Hashes of every cotangent of one backward pass, to compare two checkouts bit for bit.
+
+    python3 -m cindm_tpu_torch.tools.cotangent_hash [--batch 512] > hashes.json
+    python3 -m cindm_tpu_torch.tools.cotangent_hash --compare a.json b.json
+
+Runs the backward kernels of the denoiser's 16 fused ResidualTemporalBlocks
+and of its head once, at the shapes and on the seeded inputs of
+``tools/backward_profile`` (what the forward's saving instance kept, every
+gradient wanted), and prints one JSON object: per block, the sha256 (16 hex
+digits) of each cotangent's bytes, null where a block has none. Two
+checkouts whose backwards agree bit for bit print equal objects;
+``--compare`` prints whether two files do and the blocks that differ, and
+exits 1 when they differ. It runs against the package it is imported from,
+so a copy of this file in another checkout hashes that checkout's kernels.
+Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+
+
+def hashes(torch, dev, batch: int = 512, seed: int = 77) -> dict:
+    from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish, fused_conv1d_gn_mish_backward
+    from cindm_tpu_torch.ops.fused_rtb import _fused_rtb, fused_rtb_backward
+    from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, RTB_SHAPES, block_inputs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    out = {}
+    with torch.no_grad():
+        for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+            head = i == len(RTB_SHAPES)
+            x, p, cot = block_inputs(torch, g, C, O, T, batch, dev, head)
+            if head:
+                args = [x, p["w1"], p["b1"], p["gs1"], p["gb1"]]
+                saved = args + list(_conv_gn_mish(*args, 8, 1e-5, save=True)[1:])
+                grads = fused_conv1d_gn_mish_backward(saved, cot, [True] * 5)
+            else:
+                args = [x if n == "x" else p.get(n) for n in names]
+                saved = args + list(_fused_rtb(*args, 8, 1e-5, save=True)[1:])
+                grads = fused_rtb_backward(saved, cot, [True] * 10 + ["wres" in p] * 2)
+            out[f"{i}:{C},{O},{T}"] = [
+                None if t is None else hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                for t in grads]
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--compare", nargs=2, metavar="FILE")
+    args = ap.parse_args(argv)
+    if args.compare:
+        a, b = (json.load(open(f)) for f in args.compare)
+        differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+        print(json.dumps({"bit_identical": not differ, "blocks": len(a), "differ": differ}))
+        return 1 if differ else 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("cotangent_hash: needs a CUDA device", file=sys.stderr)
+        return 2
+    print(json.dumps(hashes(torch, torch.device("cuda", 0), args.batch)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

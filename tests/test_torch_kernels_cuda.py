@@ -27,7 +27,10 @@ from cindm_tpu_torch.ops import (
     fused_rtb_differentiable,
     fused_rtb_forward_saving_reference,
     fused_rtb_reference,
+    grad_reduce,
+    grad_reduce_reference,
 )
+from cindm_tpu_torch.ops import _build
 from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
 from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
 from cindm_tpu_torch.sampling import Diffusion1DConfig, p_losses
@@ -489,3 +492,55 @@ def test_backward_kernels_without_weight_gradients(dev, C, O, T):
     want = fused_conv1d_gn_mish_backward_reference([*head, *hsaved], hg, [True] + [False] * 4)
     assert all(x is None for x in got[1:])
     _assert_scaled(got[0], want[0], "x")
+
+
+# grad_reduce alone: the backward pass's 17 job lists at 512 (the 16 blocks
+# and the head, planned with the card's cluster limits) and odd job lists
+REDUCE_SHAPES = [(8, 64, 24, True), (64, 64, 24, True), (64, 128, 12, True), (128, 128, 12, True),
+                 (128, 256, 6, True), (256, 256, 6, True), (256, 512, 3, True), (512, 512, 3, True),
+                 (1024, 512, 3, True), (512, 256, 3, True), (512, 256, 6, True), (256, 128, 6, True),
+                 (256, 128, 12, True), (128, 64, 12, True), (64, 64, 24, False)]
+
+
+def _reduce_jobs(jobs, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((S * n,), generator=g, device=dev), S) for n, S in jobs]
+
+
+def _assert_in_order(jobs):
+    got = grad_reduce(jobs)
+    want = [grad_reduce_reference(src, S) for src, S in jobs]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, grad_reduce(jobs)))
+
+
+@pytest.mark.parametrize("C,O,T,rtb", REDUCE_SHAPES, ids=lambda v: str(v))
+def test_grad_reduce_kernel_is_the_in_order_sum(dev, C, O, T, rtb):
+    """Each sum bit-identical to grad_reduce_reference, twice, on the
+    backward's own job list; every launch at least min(items, 132) CTAs."""
+    plan = _build.plan_backward(512, T, C, O, 8, proj=rtb and C != O, rtb=rtb,
+                                num_sms=_build.num_sms(dev), clusters=_build.cluster_limits(dev)).reduce
+    assert plan.grid >= min(plan.items, 132)
+    n = grad_reduce.launches
+    _assert_in_order(_reduce_jobs(plan.jobs, dev, seed=C + O + T))
+    assert grad_reduce.launches == n + 2
+
+
+@pytest.mark.parametrize("jobs", [
+    [(4, 1)], [(12, 5000)], [(2052, 3), (8, 7), (4100, 1)], [(16384, 2)] * 10,
+    [(65536, 40), (64, 3000)],
+], ids=["one-column", "runs-of-slices", "ragged", "ten-jobs", "wide-and-deep"])
+def test_grad_reduce_kernel_at_odd_job_lists(dev, jobs):
+    """A single column group, slices beyond a ring stage (the slab in runs
+    of slices), ragged last items, ten jobs at once, and a launch whose
+    items outnumber the grid."""
+    _assert_in_order(_reduce_jobs(jobs, dev, seed=len(jobs)))
+
+
+def test_grad_reduce_refuses_what_the_kernel_cannot_take(dev):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        grad_reduce([(torch.ones(2 * 6, device=dev), 2)])
+    with pytest.raises(ValueError, match="16-byte"):
+        grad_reduce([(torch.ones(2 * 8 + 1, device=dev)[1:], 2)])
+    with pytest.raises(ValueError, match="1 to 10 jobs"):
+        grad_reduce([(torch.ones(8, device=dev), 2)] * 11)

@@ -307,16 +307,17 @@ def test_plan_backward_sizes_the_staged_weights():
 
 
 def test_backward_args_mirror_the_c_structure():
-    """BackwardArgs is 36 pointers, 4 sizes and 23 ints, in that order,
-    as BlockBwdArgs in csrc/block_backward.cu declares them."""
+    """BackwardArgs is 36 pointers, 4 sizes and 35 ints (grad_reduce's plan
+    last), in that order, as BlockBwdArgs in csrc/block_backward.cu
+    declares them."""
     import ctypes
     fields = _build.BackwardArgs._fields_
     assert [t for _, t in fields[:36]] == [ctypes.c_void_p] * 36
     assert [t for _, t in fields[36:40]] == [ctypes.c_longlong] * 4
     assert [n for n, _ in fields[36:40]] == ["wstage_bytes", "wpart_bytes", "colpart_bytes",
                                              "wop_bytes"]
-    assert [n for n, _ in fields[-3:]] == ["wg_grid", "splits", "sps"]
-    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 17 * 4 + 6 * 4 + 4  # + padding
+    assert [n for n, _ in fields[-6:]] == ["wg_grid", "splits", "sps", "rd_width", "rd_items", "rd_grid"]
+    assert ctypes.sizeof(_build.BackwardArgs) == 36 * 8 + 4 * 8 + 17 * 4 + 6 * 4 + 12 * 4 + 4  # + padding
     src = (_build.CSRC / "block_backward.cu").read_text()
     body = src[src.index("struct BlockBwdArgs {"):src.index("};", src.index("struct BlockBwdArgs {"))]
     import re
