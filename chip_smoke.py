@@ -18,7 +18,10 @@ after a ``torch.cuda.synchronize()``:
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
              ptxas's register/spill lines and the tensor-core instructions
              cuobjdump finds in each kernel (HGMMA: wgmma; HMMA: mma.sync);
-             the backward's weight-gradient kernel ``wgrad`` and its two
+             the forward's stage ``conv_gn_mish_stage`` (its twelve
+             instances in each of its two files: N tile 64, 128 or 128 on
+             the deep ring, tap window 5 or 3, plain or saving), the
+             backward's weight-gradient kernel ``wgrad`` and its two
              dgrads (``dgrad_gn_stage``, ``dgrad_x_stage``, every instance)
              must issue wgmma, no mma.sync, and spill nothing; its
              GroupNorm + Mish backward ``gn_mish_bwd`` (its three instances:
@@ -29,7 +32,10 @@ after a ``torch.cuda.synchronize()``:
              max abs and max relative error <= 1e-4), then timed with CUDA
              events beside two bounds on an H100: fp32 on the CUDA cores
              (``bound_ms``) and the kernels' own 3xTF32 on the tensor cores
-             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s). Then the shapes of
+             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s); each row also its
+             stage plan (N tile, tiles, persistent CTAs, waves over the
+             SMs) and the ms of its ``stage_weights`` launches alone.
+             Then the shapes of
              the later paths: the Conv1d+GN+Mish kernel at every distinct
              block of the forward model at horizon 24 and 2 (T down to 1,
              C up to 1,024) at batch 1,000, its Function fwd+bwd against
@@ -433,6 +439,21 @@ def rand_block_params(torch, g, C, O, dev, proj: bool):
     return p
 
 
+def stage_fields(torch, dev, weights, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+    """The plan of a row's stage launches (N tile, tiles, persistent CTAs,
+    waves of tiles over the SMs) and, on CUDA, the ms of its stage_weights
+    launches alone (CUDA events; ``weights``: its [K, C_in, O] weights in
+    launch order), the weight layout's share of a call."""
+    from cindm_tpu_torch.ops import _build
+    from cindm_tpu_torch.tools.forward_profile import stage_weights_ms
+
+    sms = _build.num_sms(dev) if cuda else _build.H100_SMS
+    plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
+    return dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, waves=plan.tiles / sms,
+                stage_weights_ms=stage_weights_ms(torch, _build, _build.load(), plan, weights, O, dev, 10)
+                if cuda else None)
+
+
 def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
     """One fused-RTB shape: kernel against plain, timed beside its bounds."""
     from cindm_tpu_torch.ops import fused_rtb, fused_rtb_reference
@@ -448,8 +469,10 @@ def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> di
     macs = batch * (taps * C * O + taps * O * O + (T * C * O if C != O else 0))
     n_par = sum(weight_numel(v, T) if k in ("w1", "w2") else v.numel() for k, v in p.items())
     nbytes = 4 * (x.numel() + temb.numel() + n_par + batch * T * O)
+    weights = [p["w1"], p["w2"]] + ([p["wres"].view(1, C, O)] if C != O else [])
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes))
+                kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes),
+                **stage_fields(torch, dev, weights, C, O, T, batch, cuda))
 
 
 def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
@@ -468,7 +491,8 @@ def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> d
                   + batch * T * O)
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
-                **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes))
+                **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes),
+                **stage_fields(torch, dev, [args[1]], C, O, T, batch, cuda))
 
 
 def conv_grad_row(torch, g, dev, C: int, O: int, T: int, batch: int, x_only: bool,
@@ -2119,6 +2143,8 @@ def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
             # one denoiser forward's worth: the sum over this kernel's shapes
             "ms": sum(r["kernel_ms"] or 0.0 for r in rows),
             "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
+            # of "ms": the weight layouts' launches alone (stage_weights)
+            "stage_weights_ms": sum(r["stage_weights_ms"] or 0.0 for r in rows),
             # the kernels run 3xTF32 on the tensor cores: their operations at
             # TF32's peak; the fp32 bound of the CUDA cores beside it
             "bound_ms": sum(r["bound_tc_ms"] for r in rows),
@@ -2255,11 +2281,14 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # "sass_hgmma": their tensor-core instructions per kernel (HGMMA: wgmma,
     # HMMA: mma.sync), from cuobjdump; wgrad's and the dgrads' beside them, checked
     sass = _build.sass_mma_counts() if cuda else "not measured"
-    # the backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
+    # the forward's stage (N tiles 64, 128 and 128 deep x tap windows 5 and 3 x
+    # plain and saving, in each of fused_rtb.cu and fused_conv_gn.cu); the
+    # backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
     # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3);
     # gn_mish_bwd (1, 2 or 4 channels a lane) and grad_reduce on the CUDA cores
     tc = {k: check_kernel_build(_build, sass, m, n, w) if cuda else "not measured"
-          for k, m, n, w in (("wgrad", "5wgrad", 2, True), ("dgrad_gn_stage", "14dgrad_gn_stage", 4, True),
+          for k, m, n, w in (("conv_gn_mish_stage", "18conv_gn_mish_stage", 24, True),
+                             ("wgrad", "5wgrad", 2, True), ("dgrad_gn_stage", "14dgrad_gn_stage", 4, True),
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
                              ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
                              ("grad_reduce", "11grad_reduce", 1, False))}

@@ -47,15 +47,17 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
     # x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, scratch,
-    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, smem_conv1, smem_conv2, stream
-    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, ctas, smem_conv1, smem_conv2, stream
+    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # x, w, b, gs, gb, out, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples,
-    # n_tile, smem, stream
-    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # n_tile, ctas, smem, stream
+    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
     # the saving instances: as above with z1, z2, mean1, rstd1, mean2, rstd2
     # (the head: z, mean, rstd) after out
-    "cindm_fused_rtb_saving": [_P] * 21 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
-    "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    "cindm_fused_rtb_saving": [_P] * 21 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # w, K, C, O, n_tile, out, stream: the stage's weight layout alone (timing)
+    "cindm_stage_weights": [_P] + [_I] * 4 + [_P, _P],
     # BackwardArgs*, stream
     "cindm_fused_rtb_backward": [_P, _P],
     # cluster size, int* out: the dgrads' clusters the device runs at once
@@ -67,31 +69,78 @@ SIGNATURES = {
     "cindm_reduce_args_size": [],
 }
 
-# The tile of the implicit-GEMM stage (csrc/conv_gn_mish.cuh); these mirror
-# its constants and stage_smem_bytes(), and the launch refuses a plan whose
-# shared-memory bytes differ from its own count.
+# The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
+# csrc/stage_ring.cuh's main loop); these mirror its constants and
+# stage_smem_bytes(), and the launch refuses a plan whose shared-memory bytes
+# or CTAs differ from its own count.
 TILE_ROWS = 192  # M: three warpgroups x 64 rows, whole samples only
 CONV_K = 5  # the stage's conv width (the projection is its K = 1 case)
-CHUNK = 8  # input channels per ring stage
-X_STRIDE = CHUNK + 4  # floats per staged input row
-X_STAGES = 4  # input stages in the ring, beside two weight stages
+CHUNK = 8  # input channels of one k8 wgmma step
 SBO_BYTES = 256  # bytes between n8 blocks of a staged weight plane
 SMEM_MAX = 232448  # the H100's dynamic shared memory per block
 H100_SMS = 132
 
 
+def _align1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def stage_ring(nt: int) -> tuple[int, int, int]:
+    """The main loop's ring for an N tile of ``nt`` (StageRing): (chunks of 8
+    input channels a stage, stages, bytes). A stage holds the tile's 192
+    input rows of the stage's channels (one TMA box) and their weight blocks
+    of five taps (one bulk copy), each part on 1,024-byte boundaries."""
+    ch = 2 if nt == 64 else 1
+    stages = 3 if nt == 64 else 2
+    stage = _align1024(_align1024(TILE_ROWS * 4 * CHUNK * ch)
+                       + ch * 2 * CONV_K * (nt // 8) * SBO_BYTES)
+    return ch, stages, stages * stage
+
+
+def _tile_bytes(nt: int) -> int:
+    return TILE_ROWS * (nt + 4) * 4
+
+
+DEEP_STAGES = 4  # the ring of a launch at nt = 128 without the projection, under its tile
+PROJ_CHUNKS = {64: 4, 128: 2}  # the projection's chunks a ring slot (ProjRing), by nt
+
+
+def stage_smem_bytes(nt: int, samples: int, groups: int, proj: bool) -> int:
+    """Shared memory of a stage launch: 1,024 bytes to align the ring; the
+    ring and the conv tile [192][nt + 4], beside it (so the next tile's
+    stages load while this one's epilogue runs), or, at nt = 128 without
+    the projection, over a ring of DEEP_STAGES slots ("deep": two slots
+    beside a tile of 128 channels do not hide a stage's loads); mean and
+    rstd of ``samples`` x ``groups`` (sample, group) pairs; a full and an
+    empty barrier a ring slot and the epilogue's (the C side's
+    stage_smem_bytes)."""
+    _, stages, ring = stage_ring(nt)
+    stage = ring // stages
+    deep = nt == 128 and not proj
+    stages = DEEP_STAGES if deep else stages
+    region = max(stages * stage, _tile_bytes(nt)) if deep else stages * stage + _tile_bytes(nt)
+    return 1024 + region + 8 * samples * groups + 16 * stages + 8
+
+
 @dataclass(frozen=True)
 class StagePlan:
-    """The tile of one stage launch: ``samples`` whole samples (``samples * T``
-    of the 192 rows) by ``n_tile`` output channels, which hold whole
-    GroupNorm groups; ``smem_bytes`` of dynamic shared memory (a ring of
-    X_STAGES input and two weight stages, the tile, the statistics);
-    ``grid`` = (row tiles, channel tiles)."""
+    """The tiles of one stage launch: ``samples`` whole samples (``samples *
+    T`` of the 192 rows) by ``n_tile`` output channels, which hold whole
+    GroupNorm groups; ``smem_bytes`` of dynamic shared memory (the ring's
+    slots: ``stage_smem_bytes``); ``grid`` =
+    (row tiles, channel tiles); ``ctas`` persistent CTAs (at most one an
+    SM), CTA q walking tiles t = q, q + ctas, .., tile t being row tile t //
+    grid[1] and channel tile t % grid[1]."""
 
     samples: int
     n_tile: int
     smem_bytes: int
     grid: tuple[int, int]
+    ctas: int
+
+    @property
+    def tiles(self) -> int:
+        return self.grid[0] * self.grid[1]
 
     def weight_bytes(self, C: int, K: int = CONV_K) -> int:
         """Bytes of weights [K, C, O] laid out for this tile: per N tile and
@@ -104,10 +153,13 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bo
                num_sms: int = H100_SMS) -> StagePlan:
     """Tile plan for a Conv1d+GN+Mish stage over x [B, T, C] -> [B, T, O].
 
-    The N tile is 64 channels for O <= 64, else 128 when 128 holds whole
-    groups, falling back to 64 when 128 leaves SMs without a block or does
-    not hold whole groups. ``proj`` adds the tile that the 1x1 residual
-    projection needs while it reuses the ring."""
+    The N tile is 64 or 128 channels of whole groups (or all of O), whichever
+    takes the fewer waves of tiles over ``num_sms`` SMs times a tile's
+    width (a tile's work), the wide one on a tie; a tile whose launch with
+    the projection would not fit the shared memory is not taken. ``proj``
+    (the 1x1 projection, a second part of K on the same ring) keeps the conv
+    tile beside the ring, which changes the bytes at nt = 128
+    (``stage_smem_bytes``), not the tile."""
     if K != CONV_K:
         raise ValueError(f"the CUDA stage kernel takes K={CONV_K}, got K={K}")
     if T > TILE_ROWS:
@@ -115,25 +167,20 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bo
     if O % G:
         raise ValueError(f"O={O} not divisible by groups={G}")
     og = O // G
-    fits = [nt for nt in (64, 128) if O <= nt or nt % og == 0]
-    if not fits:
-        raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
     samples = TILE_ROWS // T
-    rows_tiles = -(-B // samples)
-
-    def smem(nt: int) -> int:
-        ring = X_STAGES * TILE_ROWS * X_STRIDE * 4 + 2 * 2 * CONV_K * (nt // 8) * SBO_BYTES
-        tile = TILE_ROWS * (nt + 4) * 4
-        stats = 2 * samples * (min(O, nt) // og) * 4
-        return max(ring, tile) + (tile if proj else 0) + stats + 16  # + two mbarriers
-
-    n_tile = 64 if O <= 64 or 128 not in fits else 128
-    if n_tile == 128 and 64 in fits and (rows_tiles * -(-O // 128) < num_sms
-                                         or smem(128) > SMEM_MAX):
-        n_tile = 64
-    plan = StagePlan(samples, n_tile, smem(n_tile), (rows_tiles, -(-O // n_tile)))
-    if plan.smem_bytes > SMEM_MAX:
-        raise ValueError(f"no tile of T={T} fits the shared memory of one block: {plan}")
+    row_tiles = -(-B // samples)
+    smem = {nt: stage_smem_bytes(nt, samples, min(O, nt) // og, proj) for nt in (64, 128)}
+    # the tile does not depend on proj (a block's two stages share it): a
+    # tile fits where the projection's layout, the larger, does
+    fits = [nt for nt in (128, 64) if (O <= nt or nt % og == 0)
+            and stage_smem_bytes(nt, samples, min(O, nt) // og, True) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels "
+                         f"within the shared memory at T={T}")
+    tiles = {nt: row_tiles * -(-O // nt) for nt in fits}
+    n_tile = min(fits, key=lambda nt: -(-tiles[nt] // num_sms) * nt)  # 128 first: it wins a tie
+    plan = StagePlan(samples, n_tile, smem[n_tile], (row_tiles, -(-O // n_tile)),
+                     min(tiles[n_tile], num_sms))
     assert samples >= 1 and samples * T <= TILE_ROWS, plan
     assert O <= n_tile or n_tile % og == 0, plan
     return plan
@@ -146,9 +193,8 @@ WG_STAGES = 4  # stages in wgrad's ring
 WG_HALO = CONV_K // 2  # activation rows either side of a stage that its taps reach
 WG_MIN_STAGES = 4  # a split of a job's rows runs at least this many ring stages
 COL_PARTS = 7  # kinds of column partials of the block: dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
-# The dgrads' main loop (csrc/conv_backward.cuh, DgRing): a ring of stages of
-# 16 input channels (8 at an N tile of 128) fed by a producer warp, K split
-# over a cluster of one of CLUSTER_SIZES CTAs.
+# The dgrads run the stage's main loop (stage_ring), K split over a cluster
+# of one of CLUSTER_SIZES CTAs.
 CLUSTER_SIZES = (1, 2, 3, 4)
 DG_MIN_STAGES = 2  # each rank of a cluster runs at least this many ring stages
 # gn_mish_bwd (csrc/conv_backward.cuh): at most GN_PAIRS (sample, group)
@@ -195,26 +241,6 @@ def wgrad_operand_bytes(R: int, O: int, T: int) -> int:
     words; at T = 3 the groups fill whole stages of 48 rows."""
     groups = -(-R // WG_ROWS_T3) * (WG_ROWS_T3 // 8) if T == 3 else -(-R // 8)
     return -(-O // WG_TILE) * groups * 2 * 512 * 4
-
-
-def _tile_bytes(nt: int) -> int:
-    return TILE_ROWS * (nt + 4) * 4
-
-
-def _align1024(n: int) -> int:
-    return -(-n // 1024) * 1024
-
-
-def dgrad_ring(nt: int) -> tuple[int, int, int]:
-    """A dgrad ring for an N tile of ``nt``: (chunks of 8 input channels a
-    stage, stages, bytes). A stage holds the tile's 192 cotangent rows of
-    the stage's channels and their weight blocks of five taps, each part on
-    1,024-byte boundaries."""
-    ch = 2 if nt == 64 else 1
-    stages = 3 if nt == 64 else 2
-    stage = _align1024(_align1024(TILE_ROWS * 4 * CHUNK * ch)
-                       + ch * 2 * CONV_K * (nt // 8) * SBO_BYTES)
-    return ch, stages, stages * stage
 
 
 def gn_stride(nt: int) -> int:
@@ -266,7 +292,7 @@ def dgrad_gn_smem_bytes(nt: int, samples: int, cs: int) -> int:
     sums of its GroupNorm backward (3 kinds x a rank's samples, of
     ``samples`` over a cluster of ``cs``, x nt); the rank's summed share of
     the tile; two barriers a stage."""
-    _, stages, ring = dgrad_ring(nt)
+    _, stages, ring = stage_ring(nt)
     return (1024 + max(ring, _tile_bytes(nt), 12 * -(-samples // cs) * nt) + _tile_bytes(nt)
             + 16 * stages)
 
@@ -274,7 +300,7 @@ def dgrad_gn_smem_bytes(nt: int, samples: int, cs: int) -> int:
 def dgrad_x_smem_bytes() -> int:
     """dgrad_x_stage (N tile 64): the aligned ring, which then holds the
     partial tile, and the barriers."""
-    _, stages, ring = dgrad_ring(64)
+    _, stages, ring = stage_ring(64)
     return 1024 + max(ring, _tile_bytes(64)) + 16 * stages
 
 
@@ -450,12 +476,12 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
         if not (whole(64) or whole(128)):
             raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels")
         nt_d2 = 64 if whole(64) else 128
-        ch = dgrad_ring(nt_d2)[0]
+        ch = stage_ring(nt_d2)[0]
         cs_d2 = dgrad_cluster(row_tiles * -(-O // nt_d2), -(-O // (CHUNK * ch)), clusters)
         smem_d2 = dgrad_gn_smem_bytes(nt_d2, samples, cs_d2)
         grid_d2 = (row_tiles * cs_d2, -(-O // nt_d2))
     nt_d1, smem_d1 = 64, dgrad_x_smem_bytes()
-    cs_d1 = dgrad_cluster(row_tiles * -(-C // 64), -(-O // (CHUNK * dgrad_ring(64)[0])), clusters)
+    cs_d1 = dgrad_cluster(row_tiles * -(-C // 64), -(-O // (CHUNK * stage_ring(64)[0])), clusters)
     grid_d1 = (row_tiles * cs_d1, -(-C // 64))
     jobs = [(C, CONV_K)] + ([(O, CONV_K)] if rtb else []) + ([(C, 1)] if rtb and proj else [])
     wgrad_jobs = [(Ca, taps, -(-Ca // WG_TILE) * -(-O // WG_TILE)) for Ca, taps in jobs]

@@ -78,12 +78,6 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-#define CINDM_TRY(expr)                       \
-  do {                                        \
-    const cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return e_;         \
-  } while (0)
-
 // gn_mish_bwd: a grid of row tiles x N tiles, a warp kGnWarpPairs (sample,
 // group) pairs of its tile
 template <int V>
@@ -100,7 +94,7 @@ cudaError_t launch_gn(const float* d, const cindm::GnBwd& a, int tiles, int samp
 cudaLaunchConfig_t cluster_config(dim3 grid, int cs, size_t bytes, cudaStream_t s, cudaLaunchAttribute* at) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(cindm::kDgThreads);
+  cfg.blockDim = dim3(cindm::kRingThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
   at->id = cudaLaunchAttributeClusterDimension;
@@ -122,33 +116,12 @@ cudaError_t launch_cluster(Kernel k, dim3 grid, int cs, size_t bytes, cudaStream
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime once: the library
-// links no driver library.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-    if (e != cudaSuccess) return e;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
 // wgrad's view of an activation act [R, C]: boxes of kWgARows rows x
 // kWgABox channels (128 bytes) in the 128-byte swizzle; what a box reaches
 // past the tensor reads zeros.
 cudaError_t act_map(CUtensorMap* m, const float* act, int R, int C) {
-  EncodeTiled fn;
-  CINDM_TRY(encode_tiled(&fn));
+  cindm::EncodeTiled fn;
+  CINDM_TRY(cindm::encode_tiled(&fn));
   const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(R)};
   const cuuint64_t strides[1] = {cuuint64_t(C) * 4};
   const cuuint32_t box[2] = {cindm::kWgABox, cindm::kWgARows};
@@ -159,30 +132,12 @@ cudaError_t act_map(CUtensorMap* m, const float* act, int R, int C) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A dgrad's view of its cotangent d [R, C]: boxes of the tile's 192 rows x
-// one ring stage's channels (rows of DgRing<nt>::kPitch bytes, swizzled
-// over as many); what a box reaches past the tensor reads zeros.
-cudaError_t dgrad_map(CUtensorMap* m, const float* d, int R, int C, int nt) {
-  EncodeTiled fn;
-  CINDM_TRY(encode_tiled(&fn));
-  const int pitch = nt == 64 ? cindm::DgRing<64>::kPitch : cindm::DgRing<128>::kPitch;
-  const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(R)};
-  const cuuint64_t strides[1] = {cuuint64_t(C) * 4};
-  const cuuint32_t box[2] = {cuuint32_t(pitch / 4), cindm::kTileRows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims, strides, box,
-                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // grad_reduce's view of a job for TMA: src as [slices][n], boxes of
 // reduce_box(width) columns x reduce_run(slices, width) slices; what a box
 // reaches past the tensor reads zeros.
 cudaError_t reduce_map(CUtensorMap* m, const cindm::ReduceJob& jb) {
-  EncodeTiled fn;
-  CINDM_TRY(encode_tiled(&fn));
+  cindm::EncodeTiled fn;
+  CINDM_TRY(cindm::encode_tiled(&fn));
   const cuuint64_t dims[2] = {cuuint64_t(jb.n), cuuint64_t(jb.slices)};
   const cuuint64_t strides[1] = {cuuint64_t(jb.n) * 4};
   const cuuint32_t box[2] = {cuuint32_t(cindm::reduce_box(jb.width)),
@@ -388,7 +343,8 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
     g1.dz = a.dz1; g1.part = a.colpart + 4 * pk; g1.dtemb = a.dtemb; g1.colsum = 0;
     g1.dzw = want_w ? a.dz1w : nullptr; g1.gw = nullptr; g1.row_tiles = row_tiles * a.cs_d2;
     CUtensorMap m{};
-    CINDM_TRY(dgrad_map(&m, a.dz2, a.B * a.T, a.O, a.nt_d2));
+    CINDM_TRY(cindm::ring_map(&m, a.dz2, a.B * a.T, a.O,
+                              a.nt_d2 == 64 ? cindm::StageRing<64>::kPitch : cindm::StageRing<128>::kPitch));
     const dim3 grid(row_tiles * a.cs_d2, (a.O + a.nt_d2 - 1) / a.nt_d2);
     CINDM_TRY(a.nt_d2 == 64
                   ? (t3 ? launch_cluster(dgrad_gn_stage<64, 3>, grid, a.cs_d2, smem_d2, s, d, g1, m)
@@ -407,8 +363,8 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
     d.B = a.B; d.T = a.T; d.Cin = a.O; d.Cout = a.C; d.Cres = a.O; d.samples = a.samples;
     d.cs = a.cs_d1;
     CUtensorMap mdz{}, mg{};
-    CINDM_TRY(dgrad_map(&mdz, a.dz1, a.B * a.T, a.O, 64));
-    if (d.wress != nullptr) CINDM_TRY(dgrad_map(&mg, a.g, a.B * a.T, a.O, 64));
+    CINDM_TRY(cindm::ring_map(&mdz, a.dz1, a.B * a.T, a.O, cindm::StageRing<64>::kPitch));
+    if (d.wress != nullptr) CINDM_TRY(cindm::ring_map(&mg, a.g, a.B * a.T, a.O, cindm::StageRing<64>::kPitch));
     const dim3 grid(row_tiles * a.cs_d1, (a.C + 63) / 64);
     CINDM_TRY(t3 ? launch_cluster(dgrad_x_stage<64, 3>, grid, a.cs_d1, smem_d1, s, d, mdz, mg)
                  : launch_cluster(dgrad_x_stage<64, kConvK>, grid, a.cs_d1, smem_d1, s, d, mdz, mg));

@@ -65,16 +65,13 @@
 // fixed order, no atomics. dgrad_gn_stage's share is whole samples (whole
 // (sample, group) pairs), so the first GroupNorm's backward runs on it there
 // with no round trip of dh through device memory; its column partials are
-// then per (row tile, rank). The main loop is the dgrads' own: a producer
-// warp fills a ring of kStages stages of 16 input channels (8 at NT = 128),
-// the tile's 192 cotangent rows by one TMA box (rows of 64 bytes, the
-// 64-byte swizzle: a warp's fragment reads fall on distinct banks) and the
-// stage's weight blocks, contiguous in stage_weights_t's layout, by one
-// bulk copy, both completing on the slot's full barrier. Three consumer
-// warpgroups (64 rows each) issue per k8 chunk and tap one wgmma group (3
-// passes of m64nNk8) and keep it in flight while they load and split the
-// next tap's A fragments into another register set (wait_group 1); a warp
-// releases a slot on its empty barrier once its wgmmas on it are done.
+// then per (row tile, rank). The main loop is stage_ring.cuh's, which the
+// forward stage runs too: a producer warp fills a ring of stages of 16
+// input channels (8 at NT = 128), the tile's 192 cotangent rows by one TMA
+// box and the stage's weight blocks, contiguous in stage_weights_t's
+// layout, by one bulk copy; three consumer warpgroups keep one wgmma group
+// in flight while they load and split the next tap's A fragments
+// (split_tf32_fast: Split::kFast).
 //
 // What bounds the dgrads (PERF.md): their 3xTF32 operations take about 0.31
 // ms at batch 512; each stage re-reads its N tile's weight blocks (two tf32
@@ -116,8 +113,6 @@
 // (loads, masks, splits) cost about as much issue time as its wgmmas.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap (a type only: the library calls no driver function by name)
-
 #include "conv_gn_mish.cuh"
 
 namespace cindm {
@@ -155,25 +150,7 @@ constexpr int kWgThreads = kWgConsumers + 32;  // and the producer warp
 constexpr int kWgJobs = 3;                     // dw1, dw2, dwres
 static_assert(kWgStageBytes % 1024 == 0, "every stage's boxes start on the swizzle's period");
 
-// the dgrads: three consumer warpgroups and a producer warp
-constexpr int kDgThreads = kThreads + 32;
 constexpr int kDgClusterMax = 4;  // cluster sizes 1 to 4
-
-__host__ __device__ constexpr size_t align1024(size_t b) { return (b + 1023) / 1024 * 1024; }
-
-// A dgrad's ring for an N tile of NT channels: per stage kCh chunks of 8
-// input channels, the tile's 192 cotangent rows (kPitch bytes a row, swizzled
-// over kPitch bytes by TMA) and the chunks' weight blocks of five taps.
-template <int NT>
-struct DgRing {
-  static constexpr int kCh = NT == 64 ? 2 : 1;
-  static constexpr int kPitch = 4 * kChunk * kCh;  // 64 or 32 bytes: the swizzle's span
-  static constexpr int kStages = NT == 64 ? 3 : 2;
-  static constexpr size_t kABytes = align1024(size_t(kTileRows) * kPitch);
-  static constexpr size_t kWBytes = kCh * weight_block_bytes(NT, kConvK);
-  static constexpr size_t kStageBytes = align1024(kABytes + kWBytes);
-  static constexpr size_t kRingBytes = kStages * kStageBytes;
-};
 
 // Mirror ops/_build.plan_backward; the launches refuse a plan that differs.
 // gn_mish_bwd's tile: at most kGnPairs (sample, group) pairs, kGnWarpPairs a
@@ -207,19 +184,19 @@ __host__ __device__ inline size_t gn_bwd_smem_bytes(int nt, int samples, int T, 
 // GroupNorm backward's column sums, 3 x a rank's samples x nt); the rank's
 // share of the summed tile; each slot's full and empty barriers.
 __host__ __device__ inline size_t dgrad_gn_region0(int nt, int samples, int cs) {
-  const size_t ring = nt == 64 ? DgRing<64>::kRingBytes : DgRing<128>::kRingBytes;
+  const size_t ring = nt == 64 ? StageRing<64>::kRingBytes : StageRing<128>::kRingBytes;
   const size_t cols = 3 * 4 * size_t((samples + cs - 1) / cs) * nt;
   const size_t after = tile_bytes(nt) > cols ? tile_bytes(nt) : cols;
   return ring > after ? ring : after;
 }
 inline size_t dgrad_gn_smem_bytes(int nt, int samples, int cs) {
   return 1024 + dgrad_gn_region0(nt, samples, cs) + tile_bytes(nt) +
-         16 * (nt == 64 ? DgRing<64>::kStages : DgRing<128>::kStages);
+         16 * (nt == 64 ? StageRing<64>::kStages : StageRing<128>::kStages);
 }
 // dgrad_x: the ring (after the main loop the partial tile), the barriers
 inline size_t dgrad_x_smem_bytes() {
-  const size_t ring = DgRing<64>::kRingBytes;
-  return 1024 + (ring > tile_bytes(64) ? ring : tile_bytes(64)) + 16 * DgRing<64>::kStages;
+  const size_t ring = StageRing<64>::kRingBytes;
+  return 1024 + (ring > tile_bytes(64) ? ring : tile_bytes(64)) + 16 * StageRing<64>::kStages;
 }
 // the ring (aligned up to 1,024 bytes in the kernel), then each slot's
 // full and empty barriers
@@ -334,54 +311,6 @@ __device__ __forceinline__ float mish_grad(float y) {
   const float r = __fdividef(1.0f, n + 2.0f);
   return n * r + y * __fdividef(e, 1.0f + e) * (4.0f * (n + 1.0f)) * (r * r);
 }
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar) : "memory");
-}
-// Arrive on the barrier and expect `bytes` more of transfers on it.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// A contiguous copy from global to shared memory by the bulk-copy engine,
-// counted on the barrier's transfer count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// A box of a 2D tensor (coordinates: channel c, row r; outside the tensor
-// zeros) into shared memory by the Tensor Memory Accelerator, counted on
-// the barrier's transfer count.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c, int r, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
-      : "memory");
-}
-
-// wgrad's split of an A fragment value, in 3 operations where split_tf32
-// takes 9: big = v rounded to tf32 (nearest, ties away; NaN and inf are
-// not kept apart, which only a NaN or inf input could tell), small = v -
-// big exactly in fp32, handed over unrounded: the tensor cores read a tf32
-// operand's top 19 bits, so small is truncated there, 2^-11 of |small| <=
-// 2^-22 of |v|.
-__device__ __forceinline__ void split_tf32_fast(float v, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// Waits until at most one of this warpgroup's wgmma groups is in flight.
-__device__ __forceinline__ void wgmma_wait_1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// The 384 threads of the three warpgroups (in the dgrads, not the producer warp).
-__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory"); }
 
 // Every thread of every CTA of the cluster; what each wrote to shared memory
 // before is visible to the others after.
@@ -747,134 +676,6 @@ struct DgradArgs {
   int cs;                  // CTAs of a cluster: the split of K
 };
 
-// One part of a dgrad's K: chunks [c0, c1) of 8 input channels, a run of
-// whole ring stages, and the weight blocks of this N tile (one a chunk, of
-// `taps` taps).
-struct DgPart {
-  int c0, c1, taps;
-  const char* w;
-};
-
-// Rank q's part of a K of `cin` channels: the q-th of cs runs of whole
-// ring stages (kCh chunks a stage).
-template <int NT>
-__device__ __forceinline__ DgPart dgrad_part(const uint32_t* ws, int cin, int taps, int q, int cs) {
-  constexpr int kCh = DgRing<NT>::kCh;
-  const int nch = (cin + kChunk - 1) / kChunk;
-  const int nst = (nch + kCh - 1) / kCh;
-  DgPart p;
-  p.c0 = min(nch, nst * q / cs * kCh);
-  p.c1 = min(nch, nst * (q + 1) / cs * kCh);
-  p.taps = taps;
-  p.w = reinterpret_cast<const char*>(ws) + blockIdx.y * nch * weight_block_bytes(NT, taps);
-  return p;
-}
-
-// The producer warp: for each stage of the part, once the slot is free, one
-// thread loads the tile's 192 rows of the stage's channels (one TMA box,
-// rows past the tensor zero) and the stage's weight blocks (one bulk copy),
-// both completing on the slot's full barrier. `it` counts the ring's stages.
-template <int NT>
-__device__ __forceinline__ void dgrad_produce(const CUtensorMap* map, const DgPart& p, int row0, char* ring,
-                                              uint32_t full, uint32_t empty, int& it) {
-  using R = DgRing<NT>;
-  const uint32_t block = weight_block_bytes(NT, p.taps);
-  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
-    const int slot = it % R::kStages;
-    mbar_wait(empty + 8 * slot, ((it / R::kStages) & 1) ^ 1);
-    if ((threadIdx.x & 31) == 0) {
-      const uint32_t wbytes = min(R::kCh, p.c1 - c) * block;
-      char* st = ring + slot * R::kStageBytes;
-      mbar_expect_tx(full + 8 * slot, kTileRows * R::kPitch + wbytes);
-      tma_load_2d(st, map, c * kChunk, row0, full + 8 * slot);
-      bulk_load(st + R::kABytes, p.w + size_t(c) * block, wbytes, full + 8 * slot);
-    }
-    __syncwarp();
-  }
-}
-
-// Float index of (row, 16-byte unit u, word w) in a TMA box of kPitch-byte
-// rows under the kPitch-byte swizzle: unit u of row r lies at unit u ^ ((r
-// kPitch / 128) mod (kPitch / 16)).
-template <int kPitch>
-__device__ __forceinline__ int swizzled(int row, int u, int w) {
-  return row * (kPitch / 4) + 4 * (u ^ ((row * kPitch >> 7) & (kPitch / 16 - 1))) + w;
-}
-
-// The register set of the u-th wgmma group of a unit: consecutive groups,
-// the last and the next unit's first included, take distinct sets.
-__host__ __device__ constexpr int dg_set(int unit, int u) { return unit == 5 && u == 4 ? 2 : (unit == 3 ? u : u & 1); }
-
-// A consumer warpgroup's share of one part: per chunk of the stage and tap
-// of the warpgroup's window (KW from tr.klo) one wgmma group, 3 passes of
-// m64nNTk8 (3xTF32) with A, the thread's fragment rows shifted by the tap
-// and zero outside their sample, from registers and B, the tap's weight
-// planes, from the stage. A group stays in flight while the next one's
-// fragments load into another register set. The groups go in units,
-// unrolled: a chunk's KW taps (K = 5), or a stage's chunks (K = 1); a unit
-// of 5 takes three sets, so that no two consecutive groups share one, and
-// ptxas sees one chunk's taps at a time. A stage's slot is released (each
-// warp arrives on its empty barrier) once its last group is done. Ends
-// with every group done.
-template <int NT, int K, int KW>
-__device__ __forceinline__ void dgrad_consume(const TileRows& tr, const DgPart& p, const char* ring,
-                                              uint32_t full, uint32_t empty, int& it, float (&acc)[NT / 2]) {
-  using R = DgRing<NT>;
-  constexpr int kPad = K / 2;
-  constexpr int kUnit = K == 1 ? R::kCh : KW;
-  static_assert(kUnit == 2 || kUnit == 3 || kUnit == 5, "consecutive groups need distinct register sets");
-  constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
-  constexpr uint32_t kBlock = weight_block_bytes(NT, K);
-  const int lane = threadIdx.x & 31;
-  const int q4 = lane & 3;
-  uint32_t abig[3][4], asmall[3][4];
-  int held = -1;  // a slot whose last group may still be in flight
-  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
-    const int slot = it % R::kStages;
-    const int nch = min(R::kCh, p.c1 - c);
-    const char* st = ring + slot * R::kStageBytes;
-    const float* xs = reinterpret_cast<const float*>(st);
-    const uint32_t ws = smem_u32(st + R::kABytes);
-    mbar_wait(full + 8 * slot, (it / R::kStages) & 1);
-    for (int ch0 = 0; ch0 < (K == 1 ? 1 : nch); ++ch0) {
-#pragma unroll
-      for (int u = 0; u < kUnit; ++u) {
-        const int ch = K == 1 ? u : ch0;
-        if (ch < nch) {
-          const int k = tr.klo + (K == 1 ? 0 : u);
-          const int set = dg_set(kUnit, u);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {  // a0: (g, t), a1: (g + 8, t), a2: (g, t + 4), a3: (g + 8, t + 4)
-            const int h = v & 1;
-            const bool ok = (tr.ok[h] >> k) & 1u;
-            const float x = xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)];
-            split_tf32_fast(ok ? x : 0.0f, abig[set][v], asmall[set][v]);
-          }
-          const uint32_t big = ws + ch * kBlock + 2 * k * kPlane;
-          wgmma_fence();
-          wgmma_tf32(acc, asmall[set], weight_desc(big));
-          wgmma_tf32(acc, abig[set], weight_desc(big + kPlane));
-          wgmma_tf32(acc, abig[set], weight_desc(big));
-          wgmma_commit();
-          wgmma_wait_1();
-          if (ch0 == 0 && u == 0 && held >= 0) {  // the previous stage's last group is done
-            __syncwarp();
-            if (lane == 0) mbar_arrive(empty + 8 * held);
-            held = -1;
-          }
-        }
-      }
-    }
-    held = slot;
-  }
-  wgmma_wait_all();
-  fence_acc(acc);
-  if (held >= 0) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * held);
-  }
-}
-
 // The consumers' accumulators into this CTA's partial tile [192][NT + 4]
 // at their natural rows (which alias the ring: the caller has synced).
 template <int NT>
@@ -902,7 +703,7 @@ struct DgFrame {
 template <int NT>
 __device__ __forceinline__ DgFrame dgrad_frame(const DgradArgs& a, uint32_t full, uint32_t empty) {
   if (threadIdx.x == 0)
-    for (int q = 0; q < DgRing<NT>::kStages; ++q) {
+    for (int q = 0; q < StageRing<NT>::kStages; ++q) {
       mbar_init(full + 8 * q);
       mbar_init(empty + 8 * q, kThreads / 32);  // one arrival a consumer warp
     }
@@ -921,9 +722,9 @@ __device__ __forceinline__ DgFrame dgrad_frame(const DgradArgs& a, uint32_t full
 // over the cluster; each rank sums its share of the tile's samples over the
 // cluster's partials and runs the first GroupNorm's backward on them.
 template <int NT, int KW>
-__global__ void __launch_bounds__(kDgThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     dgrad_gn_stage(const DgradArgs a, const GnBwd gn, const __grid_constant__ CUtensorMap mdz) {
-  using R = DgRing<NT>;
+  using R = StageRing<NT>;
   constexpr int kS = NT + 4;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -934,16 +735,16 @@ __global__ void __launch_bounds__(kDgThreads, 1)
   const uint32_t full = smem_u32(smem + r0 + tile_bytes(NT));
   const uint32_t empty = full + 8 * R::kStages;
   const DgFrame f = dgrad_frame<NT>(a, full, empty);
-  const DgPart p = dgrad_part<NT>(a.ws, a.Cin, kConvK, f.rank, a.cs);
+  const RingPart p = ring_part<StageRing<NT>>(a.ws, a.Cin, kConvK, f.rank, a.cs, blockIdx.y);
   int it = 0;
   if (f.producer) {
-    dgrad_produce<NT>(&mdz, p, f.row0, smem, full, empty, it);
+    ring_produce<StageRing<NT>>(&mdz, p, f.row0, smem, full, empty, it);
   } else {
     float acc[NT / 2];
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
     const TileRows tr = tile_rows<kConvK, KW>(a.samples, f.ns, a.T);
-    dgrad_consume<NT, kConvK, KW>(tr, p, smem, full, empty, it, acc);
+    ring_consume<StageRing<NT>, kConvK, KW, Split::kFast>(tr, p, smem, full, empty, it, acc);
     consumer_sync();  // every warpgroup is done with the ring
     dgrad_store_partial<NT>(tr, acc, part);
   }
@@ -993,10 +794,10 @@ __global__ void __launch_bounds__(kDgThreads, 1)
 // cluster's partials and writes them. No GroupNorm, so the N tile needs no
 // whole groups (C = 8 runs 8 live columns of 64).
 template <int NT, int KW>
-__global__ void __launch_bounds__(kDgThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     dgrad_x_stage(const DgradArgs a, const __grid_constant__ CUtensorMap mdz,
                   const __grid_constant__ CUtensorMap mg) {
-  using R = DgRing<NT>;
+  using R = StageRing<NT>;
   constexpr int kS = NT + 4;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -1007,25 +808,25 @@ __global__ void __launch_bounds__(kDgThreads, 1)
   const uint32_t empty = full + 8 * R::kStages;
   const DgFrame f = dgrad_frame<NT>(a, full, empty);
   const bool proj = a.wress != nullptr;
-  const DgPart pc = dgrad_part<NT>(a.ws, a.Cin, kConvK, f.rank, a.cs);
-  DgPart pr = proj ? dgrad_part<NT>(a.wress, a.Cres, 1, f.rank, a.cs) : pc;
+  const RingPart pc = ring_part<StageRing<NT>>(a.ws, a.Cin, kConvK, f.rank, a.cs, blockIdx.y);
+  RingPart pr = proj ? ring_part<StageRing<NT>>(a.wress, a.Cres, 1, f.rank, a.cs, blockIdx.y) : pc;
   if (!proj) pr.c1 = pr.c0;  // no projection: an empty part
   int it = 0;
   if (f.producer) {
-    dgrad_produce<NT>(&mdz, pc, f.row0, smem, full, empty, it);
-    dgrad_produce<NT>(&mg, pr, f.row0, smem, full, empty, it);
+    ring_produce<StageRing<NT>>(&mdz, pc, f.row0, smem, full, empty, it);
+    ring_produce<StageRing<NT>>(&mg, pr, f.row0, smem, full, empty, it);
   } else {
     float acc[NT / 2];
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
     const TileRows tr = tile_rows<kConvK, KW>(a.samples, f.ns, a.T);
-    dgrad_consume<NT, kConvK, KW>(tr, pc, smem, full, empty, it, acc);
+    ring_consume<StageRing<NT>, kConvK, KW, Split::kFast>(tr, pc, smem, full, empty, it, acc);
     // the same fragment rows (position-major at T <= 3), one tap
     TileRows t1 = tr;
     t1.klo = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) t1.ok[i] = tr.live[i] ? 1u : 0u;
-    dgrad_consume<NT, 1, 1>(t1, pr, smem, full, empty, it, acc);
+    ring_consume<StageRing<NT>, 1, 1, Split::kFast>(t1, pr, smem, full, empty, it, acc);
     consumer_sync();  // every warpgroup is done with the ring
     dgrad_store_partial<NT>(tr, acc, part);
   }

@@ -12,12 +12,15 @@
 // 495 TFLOP/s is 0.030 ms at batch 5,376, above the 0.020 ms that its 66 MB
 // of x and out need at 3.35 TB/s.
 //
-// Design: one launch of the implicit-GEMM stage in conv_gn_mish.cuh, after
-// stage_weights has laid w out for it in `scratch`. A block owns 192 rows
-// (8 whole samples at T=24) and all 64 channels (8 whole groups), so each
-// weight staged from L2 serves 192 rows; the conv output stays in shared
-// memory for the GroupNorm statistics and goes to device memory once,
-// normalised and Mish'd.
+// Design: one launch of the stage in conv_gn_mish.cuh, after stage_weights
+// has laid w out for it in `scratch`. A tile is 192 rows (8 whole samples
+// at T=24) and all 64 channels (8 whole groups), so each weight staged from
+// L2 serves 192 rows; the conv output stays in shared memory for the
+// GroupNorm statistics and goes to device memory once, normalised and
+// Mish'd. The launch is a persistent grid of at most one CTA an SM on
+// stage_ring.cuh's main loop (a producer warp's TMA and bulk-copy ring,
+// three wgmma consumer warpgroups), so that one tile's epilogue overlaps
+// the next tile's loads (672 tiles at batch 5,376).
 //
 // cindm_fused_conv1d_gn_mish_saving is the forward of the autograd
 // Function: the stage's saving instance, which also writes z [B, T, O] (the
@@ -30,7 +33,7 @@ namespace {
 int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs, const float* gb,
                  float* out, float* z, float* mean, float* rstd, void* scratch,
                  long long scratch_bytes, int B, int T, int C, int O, int K, int G, float eps,
-                 int samples, int nt, int smem_bytes, void* stream) {
+                 int samples, int nt, int ctas, int smem_bytes, void* stream) {
   if (nt <= 0 || static_cast<long long>(cindm::staged_weight_bytes(nt, C, O, K)) > scratch_bytes)
     return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
@@ -38,9 +41,9 @@ int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs
   a.ws = static_cast<uint32_t*>(scratch);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
   a.z = z; a.mean = mean; a.rstd = rstd;
-  return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, stream)
+  return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, ctas, stream)
                       : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                            smem_bytes, stream);
+                                            smem_bytes, ctas, stream);
 }
 
 }  // namespace
@@ -49,9 +52,9 @@ extern "C" int cindm_fused_conv1d_gn_mish(const float* x, const float* w, const 
                                           const float* gs, const float* gb, float* out,
                                           void* scratch, long long scratch_bytes, int B, int T,
                                           int C, int O, int K, int G, float eps, int samples,
-                                          int nt, int smem_bytes, void* stream) {
+                                          int nt, int ctas, int smem_bytes, void* stream) {
   return conv_gn_mish(x, w, b, gs, gb, out, nullptr, nullptr, nullptr, scratch, scratch_bytes, B,
-                      T, C, O, K, G, eps, samples, nt, smem_bytes, stream);
+                      T, C, O, K, G, eps, samples, nt, ctas, smem_bytes, stream);
 }
 
 extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const float* w, const float* b,
@@ -59,9 +62,19 @@ extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const float* w,
                                                  float* z, float* mean, float* rstd,
                                                  void* scratch, long long scratch_bytes, int B,
                                                  int T, int C, int O, int K, int G, float eps,
-                                                 int samples, int nt, int smem_bytes,
+                                                 int samples, int nt, int ctas, int smem_bytes,
                                                  void* stream) {
   if (z == nullptr || mean == nullptr || rstd == nullptr) return cudaErrorInvalidValue;
   return conv_gn_mish(x, w, b, gs, gb, out, z, mean, rstd, scratch, scratch_bytes, B, T, C, O, K,
-                      G, eps, samples, nt, smem_bytes, stream);
+                      G, eps, samples, nt, ctas, smem_bytes, stream);
+}
+
+// stage_weights alone, as the stage's launches run it: w [K][C][O] laid out
+// for N tiles of nt into `out` (staged_weight_bytes(nt, C, O, K) bytes).
+// The stage's callers never use it; it times the layout's share of a call.
+extern "C" int cindm_stage_weights(const float* w, int K, int C, int O, int nt, void* out,
+                                   void* stream) {
+  if ((nt != 64 && nt != 128) || K <= 0 || C <= 0 || O <= 0) return cudaErrorInvalidValue;
+  return cindm::launch_stage_weights(w, K, C, O, nt, static_cast<uint32_t*>(out),
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -12,20 +12,21 @@
 // only) at 495 TFLOP/s: 3.26 ms for the denoiser's 16 blocks at batch 5,376,
 // against the 8.02 ms that fp32 on the CUDA cores would need.
 //
-// Design: two launches of the implicit-GEMM stage in conv_gn_mish.cuh per
-// call, each after stage_weights has laid its weights out in `scratch`
-// (tf32 big/small blocks that one bulk copy moves into shared memory).
-// The first launch writes h [B, T, O] to device memory once, the second
-// reads it (with x for the residual). The TPU kernel fused the whole block
-// to keep h out of HBM; here h costs about 33 MB each way at batch 5,376
-// (0.02 ms at 3.35 TB/s), while keeping it on chip pinned a block to one
-// CTA's 24 rows and made every weight come from L2 once per 24 rows (about
-// 64 GB of L2 reads per forward). A stage block owns 192 rows of whole
-// samples and an N tile of whole GroupNorm groups, so each weight it
-// stages from L2 feeds 192 rows: about 8 GB of weights per forward (16 GB
-// as big/small pairs). The 1x1 residual projection is a second GEMM over
-// the same rows inside the second launch, in the registers its conv
-// accumulator vacated.
+// Design: two launches of the stage in conv_gn_mish.cuh per call, each
+// after stage_weights has laid its weights out in `scratch` (tf32 big/small
+// blocks that one bulk copy moves into shared memory). The first launch
+// writes h [B, T, O] to device memory once, the second reads it (with x for
+// the residual). The TPU kernel fused the whole block to keep h out of HBM;
+// here h costs about 33 MB each way at batch 5,376 (0.02 ms at 3.35 TB/s),
+// while a tile of whole samples x whole groups of 192 rows lets each weight
+// the ring stages from L2 feed 192 rows. Each launch is a persistent grid of
+// at most one CTA an SM on stage_ring.cuh's main loop: a producer warp
+// stages the tile's input rows by TMA and its weight blocks by bulk copy
+// into a ring, three consumer warpgroups run the taps on wgmma with one
+// group in flight, and a tile's GroupNorm, Mish and stores overlap the
+// loads of the CTA's next tile. The 1x1 residual projection is a second
+// part of K = 1 on the same ring inside the second launch, in the
+// registers its conv accumulator vacated.
 //
 // cindm_fused_rtb_saving is the forward of the autograd Function: the same
 // two launches through the stage's saving instance, which also writes what
@@ -41,7 +42,7 @@ int fused_rtb(const float* x, const float* temb, const float* w1, const float* b
               const float* gs2, const float* gb2, const float* wres, const float* bres, float* h,
               float* out, float* z1, float* z2, float* mean1, float* rstd1, float* mean2,
               float* rstd2, void* scratch, long long scratch_bytes, int B, int T, int C, int O,
-              int K, int G, float eps, int samples, int nt, int smem1, int smem2, void* stream) {
+              int K, int G, float eps, int samples, int nt, int ctas, int smem1, int smem2, void* stream) {
   if ((wres == nullptr) != (bres == nullptr) || (wres == nullptr && C != O) || nt <= 0)
     return cudaErrorInvalidValue;
   // scratch: w1, w2 and wres laid out by stage_weights, one after another
@@ -62,12 +63,12 @@ int fused_rtb(const float* x, const float* temb, const float* w1, const float* b
   b.wress = wres != nullptr ? reinterpret_cast<uint32_t*>(ws + n1 + n2) : nullptr;
   b.z = z2; b.mean = mean2; b.rstd = rstd2;
   const bool save = z1 != nullptr;
-  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, stream)
+  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, ctas, stream)
                          : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                               smem1, stream);
+                                               smem1, ctas, stream);
   if (err != cudaSuccess) return err;
-  return save ? cindm::launch_stage(b, K, nt, smem2, stream)
-              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, stream);
+  return save ? cindm::launch_stage(b, K, nt, smem2, ctas, stream)
+              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, ctas, stream);
 }
 
 }  // namespace
@@ -78,10 +79,10 @@ extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w
                                const float* gb2, const float* wres, const float* bres, float* h,
                                float* out, void* scratch, long long scratch_bytes, int B, int T,
                                int C, int O, int K, int G, float eps, int samples, int nt,
-                               int smem1, int smem2, void* stream) {
+                               int ctas, int smem1, int smem2, void* stream) {
   return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, nullptr,
                    nullptr, nullptr, nullptr, nullptr, nullptr, scratch, scratch_bytes, B, T, C, O,
-                   K, G, eps, samples, nt, smem1, smem2, stream);
+                   K, G, eps, samples, nt, ctas, smem1, smem2, stream);
 }
 
 extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const float* w1,
@@ -91,12 +92,12 @@ extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const f
                                       float* h, float* out, float* z1, float* z2, float* mean1,
                                       float* rstd1, float* mean2, float* rstd2, void* scratch,
                                       long long scratch_bytes, int B, int T, int C, int O, int K,
-                                      int G, float eps, int samples, int nt, int smem1, int smem2,
-                                      void* stream) {
+                                      int G, float eps, int samples, int nt, int ctas, int smem1,
+                                      int smem2, void* stream) {
   if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
       mean2 == nullptr || rstd2 == nullptr)
     return cudaErrorInvalidValue;
   return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, z1, z2, mean1,
                    rstd1, mean2, rstd2, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples, nt,
-                   smem1, smem2, stream);
+                   ctas, smem1, smem2, stream);
 }

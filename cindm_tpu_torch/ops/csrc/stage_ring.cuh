@@ -1,0 +1,471 @@
+// The implicit-GEMM main loop of the Conv1d stages on Hopper (sm_90a), one
+// for both directions: the forward stage (conv_gn_mish.cuh, the conv of x
+// or h and the 1x1 projection) and the backward's two dgrads
+// (conv_backward.cuh, the conv of a cotangent with the flipped weights).
+//
+// GEMM: M = a tile of kTileRows = 192 rows of whole samples (r = s*T + t),
+// N = an N tile of NT = 64 or 128 output channels, K = taps x input
+// channels. Three consumer warpgroups own 64 rows of the tile each and
+// keep a 64 x NT fp32 accumulator in registers; a producer warp (the
+// dgrads' 13th, the first of the forward's producer warpgroup) feeds them
+// through a ring of slots in shared memory (StageRing). A stage holds kCh chunks of 8 input channels: the tile's
+// 192 input rows of those channels, by one TMA box (rows of kPitch bytes
+// under the kPitch-byte swizzle, so a warp's fragment reads fall on
+// distinct banks; rows and channels past the tensor read zero), and their
+// weight blocks, contiguous in the stage_weights (forward) or
+// stage_weights_t (dgrads) layout, by one bulk copy; both complete on the
+// slot's full mbarrier, and each consumer warp releases the slot on its
+// empty mbarrier once its wgmmas on it are done.
+//
+// Arithmetic: 3xTF32. Each fp32 operand v is split into big = tf32(v) and
+// small = v - big; each product is small*big + big*small + big*big, three
+// wgmma .tf32 passes (m64nNTk8) into one accumulator, which keeps fp32
+// accuracy. The weights (B) arrive split by the layout kernels. A, the
+// input, goes to wgmma from registers: a thread loads its fragment rows
+// shifted by the tap, zero where the tap falls outside the row's sample
+// (the conv's zero padding), and splits them while the previous tap's
+// wgmma group is in flight (wait_group 1). The forward splits with
+// round-to-nearest for both halves (split_tf32, Split::kRna); the dgrads
+// keep small unrounded (split_tf32_fast, Split::kFast).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no driver function is called by name)
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace cindm {
+
+constexpr int kTileRows = 192;   // M tile: three warpgroups x 64 rows
+constexpr int kThreads = 384;    // the three consumer warpgroups
+constexpr int kWarps = kThreads / 32;
+constexpr int kRingThreads = kThreads + 32;  // and the producer warp
+static_assert(kThreads % 128 == 0, "an N tile's columns map onto threads");
+constexpr int kConvK = 5;        // conv width of every block of the denoiser
+constexpr int kChunk = 8;        // input channels of one k8 wgmma step
+// A weight plane (one tap, big or small) in wgmma's K-major, unswizzled
+// layout: core matrices of 8 channels (N) x 4 inputs (K), 16 B per row.
+// The two K halves of an n8 block lie 128 B apart (LBO); n8 blocks lie
+// 256 B apart (SBO).
+constexpr int kLboBytes = 128;
+constexpr int kSboBytes = 256;
+constexpr size_t kSmemMax = 232448;  // the H100's per-block limit
+
+// Bytes of one weight block: the K taps' big and small planes for one chunk
+// of 8 input channels and one N tile, laid out as wgmma reads them.
+__host__ __device__ constexpr size_t weight_block_bytes(int nt, int k) {
+  return size_t(2 * k) * (nt / 8) * kSboBytes;
+}
+// A conv tile [192][NT + 4] of fp32 (the pad spreads a column's rows over banks).
+__host__ __device__ constexpr size_t tile_bytes(int nt) { return size_t(kTileRows) * (nt + 4) * 4; }
+__host__ __device__ constexpr size_t align1024(size_t b) { return (b + 1023) / 1024 * 1024; }
+
+// The ring for an N tile of NT channels: Stages slots of SlotBytes, each
+// holding kCh chunks of 8 input channels of one part of K: the tile's 192
+// input rows (kPitch bytes a row, swizzled over kPitch bytes by TMA) and
+// the chunks' weight blocks. By default (the dgrads, and the forward's
+// conv) 2 chunks a slot at NT = 64, 1 at NT = 128, with blocks of five
+// taps; 3 slots at NT = 64, 2 at NT = 128, beside a tile of their own. A
+// K = 1 part's blocks are a fifth of a conv's, so the forward's projection
+// packs more chunks into the same slots (SlotBytes given).
+template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0>
+struct StageRing {
+  static constexpr int kNT = NT;
+  static constexpr int kCh = Ch;
+  static constexpr int kPitch = 4 * kChunk * kCh;  // bytes of a staged row: the swizzle's span
+  static constexpr int kStages = Stages;
+  static constexpr size_t kABytes = align1024(size_t(kTileRows) * kPitch);
+  static constexpr size_t kStageBytes =
+      SlotBytes != 0 ? SlotBytes : align1024(kABytes + kCh * weight_block_bytes(NT, kConvK));
+  static constexpr size_t kRingBytes = kStages * kStageBytes;
+};
+
+enum class Split { kRna, kFast };
+
+#define CINDM_TRY(expr)                       \
+  do {                                        \
+    const cudaError_t e_ = (expr);            \
+    if (e_ != cudaSuccess) return e_;         \
+  } while (0)
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// tf32 with round-to-nearest, ties away from zero (the low 13 bits zero),
+// as cvt.rna.tf32.f32 rounds, in integer operations. Adding half a tf32 ulp
+// to the magnitude bits and truncating rounds ties away from zero; a carry
+// moves into the exponent as it should, the largest floats round to inf,
+// inf stays inf, and a NaN becomes the canonical NaN 0x7FFFFFFF.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  const uint32_t r = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  return v != v ? 0x7FFFFFFFu : r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// The split in 3 operations where split_tf32 takes 9: big = v rounded to
+// tf32 (nearest, ties away; NaN and inf are not kept apart, which only a
+// NaN or inf input could tell), small = v - big exactly in fp32, handed
+// over unrounded: the tensor cores read a tf32 operand's top 19 bits, so
+// small is truncated there, 2^-11 of |small| <= 2^-22 of |v|.
+__device__ __forceinline__ void split_tf32_fast(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// An mbarrier whose phase completes after `count` arrivals (and the bytes they expect).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar) : "memory");
+}
+// Arrive on the barrier and expect `bytes` more of transfers on it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// A contiguous copy from global to shared memory by the bulk-copy engine,
+// counted on the barrier's transfer count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A box of a 2D tensor (coordinates: channel c, row r; outside the tensor
+// zeros) into shared memory by the Tensor Memory Accelerator, counted on
+// the barrier's transfer count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c, int r, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most one of this warpgroup's wgmma groups is in flight.
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The 384 threads of the three consumer warpgroups (not the producer warp).
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory"); }
+
+// A warpgroup's register budget from here on (multiples of 8 in 24 .. 256):
+// the producer gives registers back, the consumers take them.
+template <int N>
+__device__ __forceinline__ void regs_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+template <int N>
+__device__ __forceinline__ void regs_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
+
+// Keeps the compiler from moving accumulator reads across a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: K-major, no swizzle, LBO/SBO as above.
+__device__ __forceinline__ uint64_t weight_desc(uint32_t plane) {
+  return static_cast<uint64_t>((plane & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kLboBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kSboBytes >> 4) << 32);
+}
+
+// D[64 x N] += A[64 x 8] * B[8 x N]: A in registers (fragment rows g and
+// g+8 of the warp's 16, columns t and t+4), B from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The thread's two fragment rows and the taps its warpgroup issues.
+// Row-major tiles (KW = 5) put natural row r = s*T + t at tile row r. At
+// T <= 3 the tile is position-major instead (tile row j holds position
+// t = j / S of sample s = j % S), so each warpgroup holds a single
+// position or two: it issues a window of KW = 3 taps that covers every
+// tap landing inside a sample, where row-major tiles would multiply 6 of
+// every 15 taps at T = 3 by the zero padding.
+struct TileRows {
+  int r[2];        // natural rows of the thread's fragment rows g and g+8
+  uint32_t ok[2];  // bit k: tap k of that row lands inside its sample
+  bool live[2];    // the row exists (its sample is in the batch)
+  int klo;         // the warpgroup issues taps klo .. klo + KW - 1
+};
+
+template <int K, int KW>
+__device__ __forceinline__ TileRows tile_rows(int S, int ns, int T) {
+  constexpr int kPad = K / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;
+  TileRows tr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * i;
+    const int t = KW < K ? j / S : j % T;
+    const int s = KW < K ? j - t * S : j / T;
+    tr.live[i] = s < ns && (KW == K || t < T);
+    tr.r[i] = s * T + t;
+    tr.ok[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (tr.live[i] && t + k - kPad >= 0 && t + k - kPad < T) tr.ok[i] |= 1u << k;
+  }
+  tr.klo = KW < K ? max(0, kPad - min((wg * 64 + 63) / S, T - 1)) : 0;
+  return tr;
+}
+
+// One part of K: chunks [c0, c1) of 8 input channels, a run of whole ring
+// stages, and the weight blocks of one N tile (one a chunk, of `taps` taps).
+struct RingPart {
+  int c0, c1, taps;
+  const char* w;
+};
+
+// Part q of cs of a K of `cin` channels for N tile `ntile` on ring R: the
+// q-th of cs runs of whole ring stages (R::kCh chunks a stage); q = 0 of
+// cs = 1 is all of K.
+template <class R>
+__device__ __forceinline__ RingPart ring_part(const uint32_t* ws, int cin, int taps, int q, int cs,
+                                              int ntile) {
+  constexpr int NT = R::kNT;
+  constexpr int kCh = R::kCh;
+  const int nch = (cin + kChunk - 1) / kChunk;
+  const int nst = (nch + kCh - 1) / kCh;
+  RingPart p;
+  p.c0 = min(nch, nst * q / cs * kCh);
+  p.c1 = min(nch, nst * (q + 1) / cs * kCh);
+  p.taps = taps;
+  p.w = reinterpret_cast<const char*>(ws) + size_t(ntile) * nch * weight_block_bytes(NT, taps);
+  return p;
+}
+
+// The producer warp: for each stage of the part, once the slot is free, one
+// thread loads the tile's 192 rows of the stage's channels (one TMA box,
+// rows past the tensor zero) and the stage's weight blocks (one bulk copy),
+// both completing on the slot's full barrier. `it` counts the ring's stages.
+template <class R>
+__device__ __forceinline__ void ring_produce(const CUtensorMap* map, const RingPart& p, int row0, char* ring,
+                                             uint32_t full, uint32_t empty, int& it) {
+  const uint32_t block = weight_block_bytes(R::kNT, p.taps);
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    mbar_wait(empty + 8 * slot, ((it / R::kStages) & 1) ^ 1);
+    if ((threadIdx.x & 31) == 0) {
+      const uint32_t wbytes = min(R::kCh, p.c1 - c) * block;
+      char* st = ring + slot * R::kStageBytes;
+      mbar_expect_tx(full + 8 * slot, kTileRows * R::kPitch + wbytes);
+      tma_load_2d(st, map, c * kChunk, row0, full + 8 * slot);
+      bulk_load(st + R::kABytes, p.w + size_t(c) * block, wbytes, full + 8 * slot);
+    }
+    __syncwarp();
+  }
+}
+
+// Float index of (row, 16-byte unit u, word w) in a TMA box of kPitch-byte
+// rows under the kPitch-byte swizzle: unit u of row r lies at unit u ^ ((r
+// kPitch / 128) mod (kPitch / 16)).
+template <int kPitch>
+__device__ __forceinline__ int swizzled(int row, int u, int w) {
+  return row * (kPitch / 4) + 4 * (u ^ ((row * kPitch >> 7) & (kPitch / 16 - 1))) + w;
+}
+
+// The register set of the u-th wgmma group of a unit: consecutive groups,
+// the last and the next unit's first included, take distinct sets.
+__host__ __device__ constexpr int ring_set(int unit, int u) { return unit == 5 && u == 4 ? 2 : (unit == 3 ? u : u & 1); }
+
+// A consumer warpgroup's share of one part: per chunk of the stage and tap
+// of the warpgroup's window (KW from tr.klo) one wgmma group, 3 passes of
+// m64nNTk8 (3xTF32: small*big, big*small, big*big) with A, the thread's
+// fragment rows shifted by the tap and zero outside their sample, from
+// registers and B, the tap's weight planes, from the stage. A group stays
+// in flight while the next one's fragments load into another register
+// set. The groups go in units, unrolled: a chunk's KW taps (K = 5), or a
+// stage's chunks (K = 1); a unit of 5 takes three sets, so that no two
+// consecutive groups share one, and ptxas sees one chunk's taps at a time. A stage's slot is released (each warp
+// arrives on its empty barrier) once its last group is done. Ends with
+// every group done.
+template <class R, int K, int KW, Split kSplit>
+__device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart& p, const char* ring,
+                                             uint32_t full, uint32_t empty, int& it,
+                                             float (&acc)[R::kNT / 2]) {
+  constexpr int NT = R::kNT;
+  constexpr int kPad = K / 2;
+  constexpr int kUnit = K == 1 ? R::kCh : KW;
+  static_assert(kUnit == 2 || kUnit == 3 || kUnit == 4 || kUnit == 5,
+                "consecutive groups need distinct register sets");
+  constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
+  constexpr uint32_t kBlock = weight_block_bytes(NT, K);
+  const int lane = threadIdx.x & 31;
+  const int q4 = lane & 3;
+  uint32_t abig[3][4], asmall[3][4];
+  // A of one group: chunk ch of the stage at st, tap k, into the set (ab, as)
+  auto load_a = [&](const char* st, int ch, int k, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+    const float* xs = reinterpret_cast<const float*>(st);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {  // a0: (g, t), a1: (g + 8, t), a2: (g, t + 4), a3: (g + 8, t + 4)
+      const int h = v & 1;
+      const bool ok = (tr.ok[h] >> k) & 1u;
+      const float x = xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)];
+      if constexpr (kSplit == Split::kRna)
+        split_tf32(ok ? x : 0.0f, ab[v], as[v]);
+      else
+        split_tf32_fast(ok ? x : 0.0f, ab[v], as[v]);
+    }
+  };
+  // its 3 passes on the tap's weight planes, committed as one group
+  auto issue = [&](const char* st, int ch, int k, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
+    const uint32_t big = smem_u32(st + R::kABytes) + ch * kBlock + 2 * k * kPlane;
+    wgmma_fence();
+    wgmma_tf32(acc, as, weight_desc(big));
+    wgmma_tf32(acc, ab, weight_desc(big + kPlane));
+    wgmma_tf32(acc, ab, weight_desc(big));
+    wgmma_commit();
+  };
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+  };
+  int held = -1;  // a slot whose last group may still be in flight
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    const int nch = min(R::kCh, p.c1 - c);
+    const char* st = ring + slot * R::kStageBytes;
+    mbar_wait(full + 8 * slot, (it / R::kStages) & 1);
+    for (int ch0 = 0; ch0 < (K == 1 ? 1 : nch); ++ch0) {
+#pragma unroll
+      for (int u = 0; u < kUnit; ++u) {
+        const int ch = K == 1 ? u : ch0;
+        if (ch < nch) {
+          const int set = ring_set(kUnit, u);
+          const int k = tr.klo + (K == 1 ? 0 : u);
+          load_a(st, ch, k, abig[set], asmall[set]);
+          issue(st, ch, k, abig[set], asmall[set]);
+          wgmma_wait_1();
+          if (ch0 == 0 && u == 0 && held >= 0) {  // the previous stage's last group is done
+            release(held);
+            held = -1;
+          }
+        }
+      }
+    }
+    held = slot;
+  }
+  wgmma_wait_all();
+  fence_acc(acc);
+  if (held >= 0) release(held);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime once: the library
+// links no driver library.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// The ring's view of a part's input d [R, C]: boxes of the tile's 192 rows
+// x one ring stage's channels (rows of `pitch` = R::kPitch bytes, 32, 64
+// or 128, swizzled over as many); what a box reaches past the tensor reads
+// zeros. C must be a multiple of 4 (16-byte rows).
+cudaError_t ring_map(CUtensorMap* m, const float* d, int R, int C, int pitch) {
+  EncodeTiled fn;
+  CINDM_TRY(encode_tiled(&fn));
+  const cuuint64_t dims[2] = {cuuint64_t(C), cuuint64_t(R)};
+  const cuuint64_t strides[1] = {cuuint64_t(C) * 4};
+  const cuuint32_t box[2] = {cuuint32_t(pitch / 4), kTileRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = pitch == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Sets kernel k's dynamic shared memory limit to the card's kSmemMax once
+// per device (the attribute holds for the device's context), so that no
+// launch pays for the call; `done` is the caller's record for k, a bit a
+// device.
+template <class Kernel>
+cudaError_t allow_smem_once(Kernel k, unsigned long long& done) {
+  int dev = 0;
+  CINDM_TRY(cudaGetDevice(&dev));
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (__atomic_load_n(&done, __ATOMIC_ACQUIRE) & bit) != 0) return cudaSuccess;
+  CINDM_TRY(cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemMax)));
+  __atomic_fetch_or(&done, bit, __ATOMIC_RELEASE);
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace cindm

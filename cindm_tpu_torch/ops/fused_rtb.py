@@ -8,10 +8,10 @@ Port of ``cindm_tpu/ops/fused_rtb.py``: the whole block
     out = h + (x @ wres + bres | x)
 
 in one call of ``csrc/fused_rtb.cu`` for CUDA tensors: two launches of the
-3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh`` (tiled by
-``_build.plan_stage``), the first writing h [B, T, O] to device memory once
-and the second reading it, with the 1x1 residual projection inside the
-second. ``fused_rtb.launches`` counts calls. CPU tensors use
+3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh`` (persistent CTAs on
+the main loop of ``csrc/stage_ring.cuh``, tiled by ``_build.plan_stage``),
+the first writing h [B, T, O] to device memory once and the second reading
+it, with the 1x1 residual projection inside the second. ``fused_rtb.launches`` counts calls. CPU tensors use
 ``fused_rtb_reference``.
 
 ``fused_rtb`` itself has no autograd history: it raises when a gradient is
@@ -204,7 +204,7 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
         *map(_build.ptr, (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out,
                           *saved, scratch)),
         scratch.numel() * 4, B, T, C, O, K, groups, eps, plan1.samples, plan1.n_tile,
-        plan1.smem_bytes, plan2.smem_bytes,
+        plan1.ctas, plan1.smem_bytes, plan2.smem_bytes,
     )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1

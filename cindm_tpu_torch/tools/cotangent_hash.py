@@ -1,6 +1,7 @@
 """Hashes of every cotangent of one backward pass, to compare two checkouts bit for bit.
 
     python3 -m cindm_tpu_torch.tools.cotangent_hash [--batch 512] > hashes.json
+    python3 -m cindm_tpu_torch.tools.cotangent_hash --forward [--batch 512 5376] > fwd.json
     python3 -m cindm_tpu_torch.tools.cotangent_hash --compare a.json b.json
 
 Runs the backward kernels of the denoiser's 16 fused ResidualTemporalBlocks
@@ -10,7 +11,11 @@ gradient wanted), and prints one JSON object: per block, the sha256 (16 hex
 digits) of each cotangent's bytes, null where a block has none. Two
 checkouts whose backwards agree bit for bit print equal objects;
 ``--compare`` prints whether two files do and the blocks that differ, and
-exits 1 when they differ. It runs against the package it is imported from,
+exits 1 when they differ. ``--forward`` hashes the forward kernels instead:
+per block and batch (512 and 5,376 unless ``--batch`` names others), out
+of the plain instance and out, h, z1, z2, mean1, rstd1, mean2, rstd2 of
+the saving instance (the head: out, then out, z, mean, rstd). It runs
+against the package it is imported from,
 so a copy of this file in another checkout hashes that checkout's kernels.
 Needs one CUDA device.
 """
@@ -49,9 +54,37 @@ def hashes(torch, dev, batch: int = 512, seed: int = 77) -> dict:
     return out
 
 
+def forward_hashes(torch, dev, batches=(512, 5376), seed: int = 77) -> dict:
+    from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
+    from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
+    from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, RTB_SHAPES, block_inputs
+
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    out = {}
+    with torch.no_grad():
+        for batch in batches:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+                head = i == len(RTB_SHAPES)
+                x, p, _ = block_inputs(torch, g, C, O, T, batch, dev, head)
+                if head:
+                    args = [x, p["w1"], p["b1"], p["gs1"], p["gb1"]]
+                    got = list(_conv_gn_mish(*args, 8, 1e-5, save=False))
+                    got += list(_conv_gn_mish(*args, 8, 1e-5, save=True))
+                else:
+                    args = [x if n == "x" else p.get(n) for n in names]
+                    got = list(_fused_rtb(*args, 8, 1e-5, save=False))
+                    got += list(_fused_rtb(*args, 8, 1e-5, save=True))
+                out[f"{i}:{C},{O},{T}@{batch}"] = [
+                    hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in got]
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--batch", type=int, nargs="+", default=None)
+    ap.add_argument("--forward", action="store_true",
+                    help="hash the forward kernels' outputs and saved tensors instead")
     ap.add_argument("--compare", nargs=2, metavar="FILE")
     args = ap.parse_args(argv)
     if args.compare:
@@ -64,7 +97,11 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("cotangent_hash: needs a CUDA device", file=sys.stderr)
         return 2
-    print(json.dumps(hashes(torch, torch.device("cuda", 0), args.batch)), flush=True)
+    dev = torch.device("cuda", 0)
+    if args.forward:
+        print(json.dumps(forward_hashes(torch, dev, tuple(args.batch or (512, 5376)))), flush=True)
+    else:
+        print(json.dumps(hashes(torch, dev, (args.batch or [512])[0])), flush=True)
     return 0
 
 

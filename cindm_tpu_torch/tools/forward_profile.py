@@ -1,0 +1,171 @@
+"""Where the time of the forward kernels goes, shape by shape.
+
+    python3 -m cindm_tpu_torch.tools.forward_profile [--batch 5376] [--reps 20] [--design]
+
+Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
+16 block shapes of the flagship denoiser (TemporalUnet1D(24, 8, dim 64)) and
+the head's Conv1d+GN+Mish kernel, at one batch (the flagship's folded 5,376
+by default) on seeded random inputs, and beside each its stage plan (N tile,
+tiles, persistent CTAs) and, where the checkout's library has the C entry
+``cindm_stage_weights``, the ms of its weight-layout launches alone; then
+one forward of the full-width denoiser on the kernel path at that batch.
+With ``--design`` it also runs ``cli.design_1d`` once at the flagship
+geometry (B 64, 8 bodies, n_composed 2, standard-recurrence-10) on a 20-step
+schedule from those weights and gives pair-window denoiser forwards per
+second (reverse steps x 10 x 3 windows x 28 pairs x B over its seconds).
+
+Prints one JSON line, then the nvidia-smi name and power limit line. It
+runs against the package it is imported from, so a copy of this file in
+another checkout measures that checkout's kernels. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, K, RTB_SHAPES
+
+DESIGN_ARGS = ["--batch_size", "64", "--compose_n_bodies", "8", "--n_composed", "2",
+               "--compose_start_step", "4", "--design_guidance", "standard-recurrence-10"]
+DESIGN_STEPS = 20
+RECURRENCE, N_WINDOWS, N_PAIRS = 10, 3, 28
+
+
+def events_ms(torch, fn, reps: int) -> float:
+    """Mean ms a call of ``fn`` over ``reps`` calls, CUDA events, after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def block_params(torch, g, C: int, O: int, dev, head: bool) -> dict:
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale
+    p = dict(w1=r(K, C, O, scale=(K * C) ** -0.5), b1=r(O, scale=0.1), gs1=1 + r(O, scale=0.1),
+             gb1=r(O, scale=0.1))
+    if not head:
+        p.update(w2=r(K, O, O, scale=(K * O) ** -0.5), b2=r(O, scale=0.1), gs2=1 + r(O, scale=0.1),
+                 gb2=r(O, scale=0.1))
+        if C != O:
+            p.update(wres=r(C, O, scale=C ** -0.5), bres=r(O, scale=0.1))
+    return p
+
+
+def stage_weights_ms(torch, _build, lib, plan, weights, O: int, dev, reps: int):
+    """ms of the weight-layout launches of one call alone, or None where the
+    library has no ``cindm_stage_weights``."""
+    fn = getattr(lib, "cindm_stage_weights", None)
+    if fn is None:
+        return None
+    sizes = [plan.weight_bytes(w.shape[1], w.shape[0]) for w in weights]
+    scratch = _build.scratch(sum(sizes), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def layout():
+        off = scratch.data_ptr()
+        for w, n in zip(weights, sizes):
+            _build.raise_on_error("stage_weights", fn(w.data_ptr(), w.shape[0], w.shape[1], O, plan.n_tile,
+                                                      off, stream))
+            off += n
+
+    return events_ms(torch, layout, reps)
+
+
+def design_rate(torch, dev, model) -> dict:
+    """One design_1d run on ``model``'s weights written as a snapshot."""
+    import numpy as np
+
+    from cindm_tpu_torch.cli.design_1d import main as design_main
+    from cindm_tpu_torch.models import flax_from_params
+    from cindm_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT, prefix="forward-profile-") as tmp:
+        flat = {"['ema_params']['params']" + k: v for k, v in flax_from_params(model).items()}
+        flat["['step']"] = np.asarray(0)
+        np.savez(os.path.join(tmp, "persisted_m0.npz"), **flat)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the CLI's record: stdout is this tool's line
+            design_main(["--model_path", tmp, "--timesteps", str(DESIGN_STEPS), "--device", str(dev),
+                         *DESIGN_ARGS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    fwds = DESIGN_STEPS * RECURRENCE * N_WINDOWS * N_PAIRS * int(DESIGN_ARGS[1])
+    return {"design_seconds": seconds, "pair_window_fwds_per_s": fwds / seconds}
+
+
+def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False) -> dict:
+    from cindm_tpu_torch.models import TemporalUnet1D
+    from cindm_tpu_torch.ops import _build, fused_conv1d_gn_mish, fused_rtb
+
+    lib = _build.load()
+    sms = _build.num_sms(dev)
+    g = torch.Generator(device=dev).manual_seed(1234)
+    rows = []
+    with torch.no_grad():
+        for C, O, T in RTB_SHAPES + [HEAD_SHAPE]:
+            head = len(rows) == len(RTB_SHAPES)
+            x = torch.randn((batch, T, C), generator=g, device=dev)
+            p = block_params(torch, g, C, O, dev, head)
+            if head:
+                call = lambda x=x, p=p: fused_conv1d_gn_mish(x, p["w1"], p["b1"], p["gs1"], p["gb1"])
+                weights = [p["w1"]]
+            else:
+                temb = torch.randn((batch, O), generator=g, device=dev)
+                call = lambda x=x, p=p, temb=temb: fused_rtb(x, temb, **p)
+                weights = [p["w1"], p["w2"]] + ([p["wres"].view(1, C, O)] if "wres" in p else [])
+            plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
+            rows.append({"C": C, "O": O, "T": T, "kernel": "fused_conv1d_gn_mish" if head else "fused_rtb",
+                         "ms": events_ms(torch, call, reps), "n_tile": plan.n_tile,
+                         "tiles": plan.grid[0] * plan.grid[1], "ctas": getattr(plan, "ctas", None),
+                         "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps)})
+            del x, p
+        model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        xd = torch.randn((batch, 24, 8), generator=g, device=dev)
+        td = torch.randint(0, 20, (batch,), generator=g, device=dev)
+        den_ms = events_ms(torch, lambda: model(xd, td), max(3, reps // 4))
+    rtb = [r for r in rows if r["kernel"] == "fused_rtb"]
+    out = {"batch": batch, "shapes": rows, "fused_rtb_ms": sum(r["ms"] for r in rtb),
+           "head_ms": rows[-1]["ms"], "denoiser_forward_ms": den_ms,
+           "device": torch.cuda.get_device_name(dev)}
+    sw = [r["stage_weights_ms"] for r in rtb]
+    out["fused_rtb_stage_weights_ms"] = None if None in sw else sum(sw)
+    if design:
+        out.update(design_rate(torch, dev, model))
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=5376)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--design", action="store_true", help="also time one flagship design run")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("forward_profile: needs a CUDA device", file=sys.stderr)
+        return 2
+    from cindm_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")  # TF32 off, as every entry point of the port sets it
+    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design)), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

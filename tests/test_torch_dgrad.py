@@ -30,6 +30,7 @@ from cindm_tpu.ops.fused_rtb import _fused_rtb_cv_bwd
 from cindm_tpu_torch.ops import _build, fused_rtb_forward_saving_reference
 from cindm_tpu_torch.ops.fused_conv_gn import conv1d_dgrad, gn_mish_backward_reference
 from torch_port_helpers import tf32_rna, tf32_split
+from torch_stage_emulation import tile_rows
 
 K = 5
 TOL = 1e-4  # of the closed form's largest entry, as the kernels are held on the card
@@ -45,26 +46,8 @@ def split_a(a):
     return big, (small.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def tile_rows(S, ns, T):
-    """tile_rows<5, KW> of conv_gn_mish.cuh for every tile row j: its natural
-    row r (relative to the tile), whether it is live, which of the 5 taps land
-    inside its sample, and the first tap of its warpgroup's window of KW."""
-    KW = 3 if T <= 3 else K
-    j = np.arange(ROWS)
-    if KW < K:
-        t = j // S
-        s = j - t * S
-        live = (s < ns) & (t < T)
-    else:
-        t, s = j % T, j // T
-        live = s < ns
-    ok = np.stack([live & (t + k - 2 >= 0) & (t + k - 2 < T) for k in range(K)], 1)
-    klo = [max(0, 2 - min((w * 64 + 63) // S, T - 1)) if KW < K else 0 for w in range(3)]
-    return s * T + t, live, ok, klo, KW
-
-
 def rank_chunks(cin, q, cs, ch):
-    """dgrad_part: rank q's chunks [c0, c1) of 8 channels, whole ring stages of ch chunks."""
+    """ring_part: rank q's chunks [c0, c1) of 8 channels, whole ring stages of ch chunks."""
     nch = -(-cin // 8)
     nst = -(-nch // ch)
     return min(nch, nst * q // cs * ch), min(nch, nst * (q + 1) // cs * ch)
@@ -112,7 +95,7 @@ def cluster_sum(d, ws, T, cs, nt, res=None, passes=3):
     cout = ws.shape[2]
     S = ROWS // T
     B = R // T
-    ch = _build.dgrad_ring(nt)[0]
+    ch = _build.stage_ring(nt)[0]
     out = np.zeros((R, cout), np.float32)
     for rt in range(-(-B // S)):
         ns = min(S, B - rt * S)

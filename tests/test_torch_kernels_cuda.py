@@ -120,6 +120,45 @@ def test_fused_conv1d_gn_mish_ragged_batch_matches_plain(dev, C, O, T, B):
                                **TOL)
 
 
+# grids of more tiles than SMs whose last row tile is ragged: each persistent
+# CTA walks several tiles, one of them partly empty (a T = 3 block with the
+# projection on N tiles of 128, a T = 6 one on 64, the head's shape)
+WALK_CASES = [(1024, 512, 3, 64 * 40 + 5), (512, 256, 6, 32 * 70 + 1), (64, 64, 24, 8 * 200 + 3)]
+
+
+@pytest.mark.parametrize("C,O,T,B", WALK_CASES, ids=lambda v: str(v))
+def test_persistent_walk_with_a_ragged_last_tile(dev, C, O, T, B):
+    plan = _build.plan_stage(B, T, C, O, 8, num_sms=_build.num_sms(dev))
+    assert plan.tiles > plan.ctas and B % plan.samples, plan
+    a = _args(C, O, B, T, dev, seed=C + T + B)
+    torch.testing.assert_close(fused_rtb(**a), fused_rtb_reference(**a), **TOL)
+    args = (a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
+    torch.testing.assert_close(fused_conv1d_gn_mish(*args), fused_conv1d_gn_mish_reference(*args),
+                               **TOL)
+
+
+@pytest.mark.parametrize("C,O,T,B", [(16, 32, 24, 11), (32, 32, 3, 70), (64, 128, 3, 6), (24, 64, 12, 17)],
+                         ids=lambda v: str(v))
+def test_saved_z_follows_the_emulated_ring_order(dev, C, O, T, B):
+    """z1 and z2 of the saving instance against the numpy emulation of the
+    ring's chunk, tap and pass order (tests/torch_stage_emulation.py) on
+    the same inputs, at the plan's N tile: within 1e-5 of z's largest
+    entry (the tensor cores sum a k8 step in their own order); h and out
+    within the kernels' limit."""
+    from torch_stage_emulation import block_emulated
+
+    a = _args(C, O, B, T, dev, seed=3 * C + O + T)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    got = _fused_rtb(*[a.get(n) for n in names], 8, 1e-5, save=True)
+    nt = _build.plan_stage(B, T, C, O, 8, num_sms=_build.num_sms(dev)).n_tile
+    out, h, z1, z2, _ = block_emulated({k: v.cpu().numpy() for k, v in a.items()}, nt)
+    for name, want, have in (("z1", z1, got[2]), ("z2", z2, got[3])):
+        err = float(np.abs(have.cpu().numpy() - want).max())
+        assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
+    for want, have in ((h, got[1]), (out, got[0])):  # after GroupNorm: the kernels' own limit
+        torch.testing.assert_close(have.cpu(), torch.from_numpy(want), **TOL)
+
+
 def test_kernels_reject_mixed_devices(dev):
     a = _args(16, 32, 3, 6, dev, seed=1)
     a["w1"] = a["w1"].cpu()

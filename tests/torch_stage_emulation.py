@@ -1,0 +1,184 @@
+"""A numpy emulation of the port's forward stage kernel on its main loop
+(``cindm_tpu_torch/ops/csrc/conv_gn_mish.cuh`` on ``stage_ring.cuh``),
+shared by the CPU tests and the card tests. It imports no JAX.
+
+A tile is 192 rows of whole samples x an N tile of nt channels. Its three
+warpgroups hold 64 tile rows each (row-major, or position-major at T <= 3,
+where a warpgroup issues only a window of 3 of the 5 taps; ``tile_rows``).
+K streams through a ring: a stage holds kCh = 2 chunks of 8 input channels
+at nt = 64 (1 at nt = 128; the projection's part 4 and 2) as one TMA box
+of the tile's 192 rows, laid out
+under the box's swizzle (``tma_box``, ``swizzled``), with zeros past the
+tensor. Per chunk and tap of each warpgroup's window, A (the fragment rows
+shifted by the tap, zero outside their sample) is read from the box and
+split for 3xTF32 with round-to-nearest (split_tf32), B is the tap's weight
+planes (tf32 big and small); the product is small*big + big*small +
+big*big into the accumulator. The 1x1 projection is a second part of K = 1
+over the tile's natural rows. ``order="chunks"`` reads A instead from the
+earlier cp.async loop's layout, one padded [192][12] plane a chunk, so
+that the two orders can be held to each other bit for bit."""
+
+import numpy as np
+import torch
+
+from cindm_tpu_torch.ops import _build
+from cindm_tpu_torch.ops.fused_conv_gn import mish
+from torch_port_helpers import tf32_split
+
+K = 5
+ROWS = _build.TILE_ROWS
+
+
+def tile_rows(S, ns, T):
+    """tile_rows<5, KW> of stage_ring.cuh for every tile row j: its natural
+    row r (relative to the tile), whether it is live, which of the 5 taps land
+    inside its sample, and the first tap of its warpgroup's window of KW."""
+    KW = 3 if T <= 3 else K
+    j = np.arange(ROWS)
+    if KW < K:
+        t = j // S
+        s = j - t * S
+        live = (s < ns) & (t < T)
+    else:
+        t, s = j % T, j // T
+        live = s < ns
+    ok = np.stack([live & (t + k - 2 >= 0) & (t + k - 2 < T) for k in range(K)], 1)
+    klo = [max(0, 2 - min((w * 64 + 63) // S, T - 1)) if KW < K else 0 for w in range(3)]
+    return s * T + t, live, ok, klo, KW
+
+
+def swizzled(row, u, w, pitch):
+    """Float index of (row, 16-byte unit u, word w) in a TMA box of
+    ``pitch``-byte rows under the ``pitch``-byte swizzle (stage_ring.cuh)."""
+    return row * (pitch // 4) + 4 * (u ^ ((row * pitch >> 7) & (pitch // 16 - 1))) + w
+
+
+def tma_box(src, row0, c0, pitch):
+    """The ring's TMA box: rows row0 .. row0 + 191 x channels c0 .. c0 +
+    pitch / 4 - 1 of src [R, C], flat, in swizzled order; zeros past the tensor."""
+    R, C = src.shape
+    n = pitch // 4
+    rows, cols = np.arange(ROWS)[:, None], np.arange(n)[None, :]
+    gr, gc = row0 + rows, c0 + cols
+    val = np.where((gr < R) & (gc < C), src[np.minimum(gr, R - 1), np.minimum(gc, C - 1)], 0.0)
+    flat = np.full(ROWS * n, np.nan, np.float32)
+    flat[swizzled(rows, cols // 4, cols % 4, pitch)] = val
+    assert not np.isnan(flat).any()  # the box is written whole
+    return flat
+
+
+def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring"):
+    """One part of K for one tile into a [192, nt] accumulator (tile rows):
+    src [R, Cin] the part's input, wk [taps, Cin, nt] the N tile's weights
+    (channels past O zero), ``rows`` from ``tile_rows`` (taps = 5) or
+    natural rows (taps = 1). The ring's stages (``order="ring"``) or the
+    earlier loop's chunks (``"chunks"``)."""
+    r, live, ok, klo, KW = rows
+    cin = src.shape[1]
+    nch = -(-cin // 8)
+    wpad = np.zeros((taps, nch * 8, nt), np.float32)
+    wpad[:, :cin] = wk
+    wb, wsm = tf32_split(wpad)
+    ch_stage = _build.stage_ring(nt)[0] if taps == K else _build.PROJ_CHUNKS[nt]
+    pitch = 32 * ch_stage
+    acc = np.zeros((ROWS, nt), np.float32)
+    cols = np.arange(8)[None, :]
+    for c in range(0, nch, ch_stage):  # a ring stage
+        if order == "ring":
+            box = tma_box(src, row0, 8 * c, pitch)
+        for ch in range(min(ch_stage, nch - c)):
+            if order == "chunks":  # the cp.async plane: live rows of the tile, channels < Cin
+                plane = np.zeros((ROWS, 12), np.float32)
+                hi = min(cin, 8 * (c + ch) + 8)
+                plane[:nrows, :hi - 8 * (c + ch)] = src[row0:row0 + nrows, 8 * (c + ch):hi]
+            for wg in range(3):
+                j = slice(64 * wg, 64 * wg + 64)
+                for k in ([0] if taps == 1 else range(klo[wg], klo[wg] + KW)):
+                    m = live[j] if taps == 1 else ok[j, k]
+                    src_row = np.where(m, r[j] + (0 if taps == 1 else k - 2), 0)[:, None]
+                    if order == "ring":
+                        a = box[swizzled(src_row, 2 * ch + cols // 4, cols % 4, pitch)]
+                    else:
+                        a = plane[src_row, cols]
+                    ab, asm = tf32_split(np.where(m[:, None], a, 0.0).astype(np.float32))
+                    cc = slice(8 * (c + ch), 8 * (c + ch) + 8)
+                    acc[j] += asm @ wb[k, cc] + ab @ wsm[k, cc] + ab @ wb[k, cc]
+    return acc
+
+
+def natural_rows(ns, T):
+    """The projection's rows (tile_rows<1, 1>): tile row j is natural row j."""
+    j = np.arange(ROWS)
+    live = j < ns * T
+    return j, live, live[:, None], [0, 0, 0], 1
+
+
+def group_stats(z, G, eps):
+    """Per (sample, group) mean and 1/sqrt(var + eps) of z [B, T, O], two-pass
+    fp32 with biased variance, as tile_stats takes them."""
+    B, T, O = z.shape
+    v = z.reshape(B, T, G, O // G).transpose(0, 2, 1, 3).reshape(B, G, -1)
+    m = (v.sum(-1, dtype=np.float32) / np.float32(v.shape[-1])).astype(np.float32)
+    d = v - m[..., None]
+    var = ((d * d).sum(-1, dtype=np.float32) / np.float32(v.shape[-1])).astype(np.float32)
+    return m, (1.0 / np.sqrt(var + np.float32(eps))).astype(np.float32)
+
+
+def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wres=None, bres=None,
+                   order="ring"):
+    """One launch of the stage over x [B, T, C], w [5, C, O]: (out, z, mean,
+    rstd, parts), ``parts`` the accumulators of every tile and part (conv,
+    then projection) in the CTAs' walk order. ``temb`` adds after Mish;
+    ``xres`` alone is the identity residual, with ``wres`` and ``bres`` the
+    projection's input."""
+    B, T, C = x.shape
+    O = w.shape[2]
+    S = ROWS // T
+    plan_tiles = -(-B // S), -(-O // nt)
+    x2 = x.reshape(B * T, C)
+    z = np.zeros((B * T, O), np.float32)
+    projected = np.zeros((B * T, O), np.float32)
+    parts = []
+    for rt in range(plan_tiles[0]):
+        ns = min(S, B - rt * S)
+        row0, nrows = rt * S * T, ns * T
+        rows = tile_rows(S, ns, T)
+        for n0 in range(0, O, nt):
+            ncols = min(nt, O - n0)
+            wk = np.zeros((K, C, nt), np.float32)
+            wk[..., :ncols] = w[..., n0:n0 + ncols]
+            acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order)
+            parts.append(acc)
+            live_r = rows[0][rows[1]]
+            tile = np.zeros((nrows, nt), np.float32)
+            tile[live_r] = acc[rows[1]]
+            z[row0:row0 + nrows, n0:n0 + ncols] = tile[:, :ncols] + b[n0:n0 + ncols]
+            if wres is not None:
+                wr = np.zeros((1, wres.shape[0], nt), np.float32)
+                wr[0, :, :ncols] = wres[:, n0:n0 + ncols]
+                pr = natural_rows(ns, T)
+                pacc = ring_gemm(xres.reshape(B * T, -1), wr, row0, nrows, pr, nt, 1, order)
+                parts.append(pacc)
+                projected[row0:row0 + nrows, n0:n0 + ncols] = pacc[:nrows, :ncols]
+    z = z.reshape(B, T, O)
+    mean, rstd = group_stats(z, G, eps)
+    yh = (z.reshape(B, T, G, O // G) - mean[:, None, :, None]) * rstd[:, None, :, None]
+    y = yh.reshape(B, T, O) * gs + gb
+    out = mish(torch.from_numpy(np.ascontiguousarray(y, np.float32))).numpy()
+    if temb is not None:
+        out = out + temb[:, None, :]
+    if wres is not None:
+        out = out + projected.reshape(B, T, O) + bres
+    elif xres is not None:
+        out = out + xres
+    return out.astype(np.float32), z, mean, rstd, parts
+
+
+def block_emulated(a, nt, order="ring"):
+    """The fused ResidualTemporalBlock as its two stage launches compute it:
+    (out, h, z1, z2, parts of both launches)."""
+    h, z1, _, _, p1 = stage_emulated(a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"], nt, temb=a["temb"],
+                                     order=order)
+    out, z2, _, _, p2 = stage_emulated(h, a["w2"], a["b2"], a["gs2"], a["gb2"], nt, xres=a["x"],
+                                       wres=a.get("wres"), bres=a.get("bres"), order=order)
+    return out, h, z1, z2, p1 + p2
