@@ -202,6 +202,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -219,6 +220,7 @@ TF32_PASSES = 3  # the kernels' 3xTF32: every product is three tensor-core produ
 FOLD_BATCH = 5376  # 3 windows x 28 body pairs x B=64: one composed denoiser call
 K = 5
 TOL = 1e-4  # kernel vs plain, fp32: max abs error and max error / max |plain|
+ODD_BATCH = 5000  # the kernels' shapes are also checked here: an odd count of row tiles at every T
 DENOISER_TOL = 1e-3  # full forward, relative to the output's max magnitude
 DESIGN_ARGS = [
     "--batch_size", "64", "--compose_n_bodies", "8", "--n_composed", "2",
@@ -449,7 +451,8 @@ def stage_fields(torch, dev, weights, C: int, O: int, T: int, batch: int, cuda: 
 
     sms = _build.num_sms(dev) if cuda else _build.H100_SMS
     plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
-    return dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, waves=plan.tiles / sms,
+    return dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, cluster=plan.cluster,
+                waves=plan.items / (sms // plan.cluster),
                 stage_weights_ms=stage_weights_ms(torch, _build, _build.load(), plan, weights, O, dev, 10)
                 if cuda else None)
 
@@ -535,12 +538,37 @@ def conv_grad_row(torch, g, dev, C: int, O: int, T: int, batch: int, x_only: boo
                 kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(flops, nbytes))
 
 
-def check_kernels(torch, dev, batch: int, cuda: bool) -> dict:
-    """Phase 3: every flagship block shape, kernel against plain, timed on CUDA."""
+def odd_batch_errors(torch, g, dev, C: int, O: int, T: int, batch: int, head: bool) -> dict:
+    """A kernel against its plain version at a second batch, untimed: its
+    errors and the plan's row tiles and cluster size (an odd count of row
+    tiles leaves the last cluster's partner without a tile)."""
+    from cindm_tpu_torch.ops import (_build, fused_conv1d_gn_mish, fused_conv1d_gn_mish_reference,
+                                     fused_rtb, fused_rtb_reference)
+
+    x = torch.randn((batch, T, C), generator=g, device=dev)
+    p = rand_block_params(torch, g, C, O, dev, proj=not head and C != O)
+    if head:
+        args = (x, p["w1"], p["b1"], p["gs1"], p["gb1"])
+        abs_err, rel_err = errors(torch, fused_conv1d_gn_mish(*args), fused_conv1d_gn_mish_reference(*args))
+    else:
+        temb = torch.randn((batch, O), generator=g, device=dev)
+        abs_err, rel_err = errors(torch, fused_rtb(x, temb, **p), fused_rtb_reference(x, temb, **p))
+    plan = _build.plan_stage(batch, T, C, O, 8)
+    return dict(B=batch, max_abs_err=abs_err, max_rel_err=rel_err, row_tiles=plan.grid[0],
+                cluster=plan.cluster)
+
+
+def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = ODD_BATCH) -> dict:
+    """Phase 3: every flagship block shape, kernel against plain, timed on
+    CUDA; each also checked, untimed, at ``odd_batch`` (its row ``odd``)."""
     g = torch.Generator(device=dev).manual_seed(1234)
     rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda) for C, O, T in RTB_SHAPES]
     head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda)]
-    bad = [r for r in rtb_rows + head_rows if not (r["max_abs_err"] <= TOL and r["max_rel_err"] <= TOL)]
+    if odd_batch:
+        for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
+            r["odd"] = odd_batch_errors(torch, g, dev, C, O, T, odd_batch, r is head_rows[0])
+    bad = [r for r in rtb_rows + head_rows
+           if not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL for e in (r, r.get("odd", r)))]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
     return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows}
@@ -2106,8 +2134,9 @@ def check_kernel_build(_build, sass, name: str, instances: int, wgmma: bool = Tr
     """The registers and spills from ptxas of the kernels whose mangled name
     holds ``name`` and their tensor-core instructions from cuobjdump, each
     of the ``instances``: they must spill nothing and, with ``wgmma``, issue
-    wgmma (HGMMA) and no mma.sync (HMMA). ptxas's notes on them (a
-    serialized wgmma pipeline, C7512) are kept beside."""
+    wgmma (HGMMA) and no mma.sync (HMMA). ptxas's notes on them (C75xx: a
+    serialized wgmma pipeline, C7512; an injected fence, C7519) are kept
+    beside."""
     res = _build.ptxas_kernel(name)
     counts = {k: v for k, v in sass.items() if name in k} if isinstance(sass, dict) else sass
     if not isinstance(res, dict) or len(res) != instances:
@@ -2118,8 +2147,36 @@ def check_kernel_build(_build, sass, name: str, instances: int, wgmma: bool = Tr
             c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values())):
         raise AssertionError(f"{name} should issue wgmma and no mma.sync: {counts}")
     notes = [l.split("ptxas info    : ")[-1] for l in _build.ptxas_report().splitlines()
-             if name in l and "Performance" in l]
+             if name in l and "(C75" in l]
     return {"ptxas": res, "sass": counts, "notes": notes}
+
+
+def stage_instances(_build, record: dict, batches) -> dict:
+    """The forward stage's instances in the build record, each with its
+    template arguments (N tile, tap window KW: 3 = position-major with A by
+    descriptor, 5 = row-major with A from registers; deep: N tile 128, the
+    conv tile over the ring; spill_z: deep with the projection; saving), its
+    registers, spills, tensor-core instructions and ptxas notes, and the
+    cluster sizes that the flagship's plans give its launches at
+    ``batches``."""
+    clusters = {}
+    for B in batches:
+        for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+            plan = _build.plan_stage(B, T, C, O, 8)
+            for proj in {False, i < len(RTB_SHAPES) and C != O}:  # a block's stages: the second projects
+                key = (plan.n_tile, 3 if T == 3 else 5, plan.n_tile == 128 and proj)
+                clusters.setdefault(key, set()).add(plan.cluster)
+    sass = record["sass"] if isinstance(record["sass"], dict) else {}
+    out = {}
+    for name, regs in record["ptxas"].items():
+        m = re.search(r"conv_gn_mish_stageILi(\d+)ELi(\d)ELb([01])E", name)
+        key = (int(m[1]), int(m[2]), m[3] == "1")
+        out[name] = {"n_tile": key[0], "kw": key[1], "deep": key[0] == 128, "spill_z": key[2],
+                     "saving": "SaveArgs" in name,
+                     **regs, **sass.get(name, {}),
+                     "notes": [n for n in record["notes"] if name in n],
+                     "clusters": sorted(clusters.get(key, ()))}
+    return out
 
 
 def kernels_line(checks: dict, counts: dict, slice5: dict) -> dict:
@@ -2281,8 +2338,9 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # "sass_hgmma": their tensor-core instructions per kernel (HGMMA: wgmma,
     # HMMA: mma.sync), from cuobjdump; wgrad's and the dgrads' beside them, checked
     sass = _build.sass_mma_counts() if cuda else "not measured"
-    # the forward's stage (N tiles 64, 128 and 128 deep x tap windows 5 and 3 x
-    # plain and saving, in each of fused_rtb.cu and fused_conv_gn.cu); the
+    # the forward's stage (N tiles 64, 128 (deep) and 128 with the projection
+    # x tap windows 5 and 3 x plain and saving, in each of fused_rtb.cu and
+    # fused_conv_gn.cu); the
     # backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
     # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3);
     # gn_mish_bwd (1, 2 or 4 channels a lane) and grad_reduce on the CUDA cores
@@ -2292,13 +2350,16 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
                              ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
                              ("grad_reduce", "11grad_reduce", 1, False))}
+    if cuda:  # per stage instance: its template arguments and the cluster sizes of its launches
+        tc["conv_gn_mish_stage"]["instances"] = stage_instances(
+            _build, tc["conv_gn_mish_stage"], (fold_batch, ODD_BATCH, train_batch))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(_build.build()) if cuda else None,
           "ptxas": _build.ptxas_report().splitlines() if cuda else [],
           "sass_hgmma": sass, **tc})
 
     t0 = time.perf_counter()
-    checks = check_kernels(torch, dev, fold_batch, cuda)
+    checks = check_kernels(torch, dev, fold_batch, cuda, ODD_BATCH if cuda else None)
     slice5 = check_slice5_kernels(torch, dev, cuda)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],

@@ -47,15 +47,16 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
     # x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, scratch,
-    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, ctas, smem_conv1, smem_conv2, stream
-    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster, smem_conv1,
+    # smem_conv2, stream
+    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     # x, w, b, gs, gb, out, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples,
-    # n_tile, ctas, smem, stream
-    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # n_tile, ctas, cluster, smem, stream
+    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # the saving instances: as above with z1, z2, mean1, rstd1, mean2, rstd2
     # (the head: z, mean, rstd) after out
-    "cindm_fused_rtb_saving": [_P] * 21 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    "cindm_fused_rtb_saving": [_P] * 21 + [_L] + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # w, K, C, O, n_tile, out, stream: the stage's weight layout alone (timing)
     "cindm_stage_weights": [_P] + [_I] * 4 + [_P, _P],
     # BackwardArgs*, stream
@@ -71,8 +72,8 @@ SIGNATURES = {
 
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
 # csrc/stage_ring.cuh's main loop); these mirror its constants and
-# stage_smem_bytes(), and the launch refuses a plan whose shared-memory bytes
-# or CTAs differ from its own count.
+# stage_smem_bytes(), and the launch refuses a plan whose shared-memory bytes,
+# CTAs or cluster size differ from its own count.
 TILE_ROWS = 192  # M: three warpgroups x 64 rows, whole samples only
 CONV_K = 5  # the stage's conv width (the projection is its K = 1 case)
 CHUNK = 8  # input channels of one k8 wgmma step
@@ -86,10 +87,11 @@ def _align1024(n: int) -> int:
 
 
 def stage_ring(nt: int) -> tuple[int, int, int]:
-    """The main loop's ring for an N tile of ``nt`` (StageRing): (chunks of 8
-    input channels a stage, stages, bytes). A stage holds the tile's 192
-    input rows of the stage's channels (one TMA box) and their weight blocks
-    of five taps (one bulk copy), each part on 1,024-byte boundaries."""
+    """The dgrads' ring for an N tile of ``nt`` (StageRing's defaults):
+    (chunks of 8 input channels a stage, stages, bytes). A stage holds the
+    tile's 192 input rows of the stage's channels (one TMA box) and their
+    weight blocks of five taps (one bulk copy), each part on 1,024-byte
+    boundaries."""
     ch = 2 if nt == 64 else 1
     stages = 3 if nt == 64 else 2
     stage = _align1024(_align1024(TILE_ROWS * 4 * CHUNK * ch)
@@ -101,25 +103,42 @@ def _tile_bytes(nt: int) -> int:
     return TILE_ROWS * (nt + 4) * 4
 
 
-DEEP_STAGES = 4  # the ring of a launch at nt = 128 without the projection, under its tile
-PROJ_CHUNKS = {64: 4, 128: 2}  # the projection's chunks a ring slot (ProjRing), by nt
+DEEP_STAGES = 4  # the ring at nt = 128, under the conv tile
+NARROW_STAGES = 5  # the ring at nt = 64, beside the conv tile
+PROJ_CHUNKS = 2  # the projection's chunks a ring slot (ProjRing)
+STAGE_CLUSTER = 2  # CTAs of a cluster that share an N tile's weight blocks (multicast)
 
 
-def stage_smem_bytes(nt: int, samples: int, groups: int, proj: bool) -> int:
+def fwd_ring(nt: int) -> tuple[int, int]:
+    """The forward stage's ring (ConvRing): (stages, bytes of a slot). A
+    slot holds one chunk of 8 input channels: the tile's 192 rows of 32
+    bytes by TMA, the split's small plane beside them (the big plane
+    replaces the box in place), then the chunk's weight blocks of five taps,
+    each part on 1,024-byte boundaries; 5 slots at nt = 64 (beside the conv
+    tile), 4 at nt = 128 (under it: "deep")."""
+    box = _align1024(TILE_ROWS * 4 * CHUNK)
+    slot = _align1024(2 * box + 2 * CONV_K * (nt // 8) * SBO_BYTES)
+    return (NARROW_STAGES if nt == 64 else DEEP_STAGES), slot
+
+
+def stage_cluster(row_tiles: int) -> int:
+    """The cluster of a stage launch (stage_cluster in conv_gn_mish.cuh): two
+    CTAs that take row tiles 2q and 2q + 1 of one N tile and share its weight
+    blocks, where there are two row tiles or more."""
+    return STAGE_CLUSTER if row_tiles > 1 else 1
+
+
+def stage_smem_bytes(nt: int, samples: int, groups: int) -> int:
     """Shared memory of a stage launch: 1,024 bytes to align the ring; the
-    ring and the conv tile [192][nt + 4], beside it (so the next tile's
-    stages load while this one's epilogue runs), or, at nt = 128 without
-    the projection, over a ring of DEEP_STAGES slots ("deep": two slots
-    beside a tile of 128 channels do not hide a stage's loads); mean and
-    rstd of ``samples`` x ``groups`` (sample, group) pairs; a full and an
-    empty barrier a ring slot and the epilogue's (the C side's
-    stage_smem_bytes)."""
-    _, stages, ring = stage_ring(nt)
-    stage = ring // stages
-    deep = nt == 128 and not proj
-    stages = DEEP_STAGES if deep else stages
-    region = max(stages * stage, _tile_bytes(nt)) if deep else stages * stage + _tile_bytes(nt)
-    return 1024 + region + 8 * samples * groups + 16 * stages + 8
+    ring (``fwd_ring``) and the conv tile [192][nt + 4], beside it at nt =
+    64 (so the next tile's stages load while this one's epilogue runs),
+    under it at nt = 128 ("deep"); mean and rstd of ``samples`` x ``groups``
+    (sample, group) pairs; a full, an empty and an A-box barrier a ring
+    slot and the epilogue's (the C side's stage_smem_bytes)."""
+    deep = nt == 128
+    stages, slot = fwd_ring(nt)
+    region = max(stages * slot, _tile_bytes(nt)) if deep else stages * slot + _tile_bytes(nt)
+    return 1024 + region + 8 * samples * groups + 24 * stages + 8
 
 
 @dataclass(frozen=True)
@@ -127,20 +146,35 @@ class StagePlan:
     """The tiles of one stage launch: ``samples`` whole samples (``samples *
     T`` of the 192 rows) by ``n_tile`` output channels, which hold whole
     GroupNorm groups; ``smem_bytes`` of dynamic shared memory (the ring's
-    slots: ``stage_smem_bytes``); ``grid`` =
-    (row tiles, channel tiles); ``ctas`` persistent CTAs (at most one an
-    SM), CTA q walking tiles t = q, q + ctas, .., tile t being row tile t //
-    grid[1] and channel tile t % grid[1]."""
+    slots: ``stage_smem_bytes``); ``grid`` = (row tiles, channel tiles);
+    ``ctas`` persistent CTAs (at most one an SM) in clusters of ``cluster``.
+    Cluster q walks items i = q, q + clusters, .. of (row-tile pair i //
+    grid[1], channel tile i % grid[1]); its rank r takes row tile
+    ``cluster`` * (i // grid[1]) + r, none past the last (the partner of an
+    odd last row tile runs the item's ring and stores nothing)."""
 
     samples: int
     n_tile: int
     smem_bytes: int
     grid: tuple[int, int]
     ctas: int
+    cluster: int = 1
 
     @property
     def tiles(self) -> int:
         return self.grid[0] * self.grid[1]
+
+    @property
+    def items(self) -> int:
+        """Cluster items: row-tile groups of ``cluster`` x channel tiles."""
+        return -(-self.grid[0] // self.cluster) * self.grid[1]
+
+    def walk(self, cta: int) -> list[tuple[int, int]]:
+        """The (row tile, channel tile) pairs CTA ``cta`` runs, in order, row
+        tiles past the last included."""
+        cs, clusters = self.cluster, self.ctas // self.cluster
+        return [(i // self.grid[1] * cs + cta % cs, i % self.grid[1])
+                for i in range(cta // cs, self.items, clusters)]
 
     def weight_bytes(self, C: int, K: int = CONV_K) -> int:
         """Bytes of weights [K, C, O] laid out for this tile: per N tile and
@@ -149,17 +183,17 @@ class StagePlan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bool = False,
+def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K,
                num_sms: int = H100_SMS) -> StagePlan:
     """Tile plan for a Conv1d+GN+Mish stage over x [B, T, C] -> [B, T, O].
 
-    The N tile is 64 or 128 channels of whole groups (or all of O), whichever
-    takes the fewer waves of tiles over ``num_sms`` SMs times a tile's
-    width (a tile's work), the wide one on a tie; a tile whose launch with
-    the projection would not fit the shared memory is not taken. ``proj``
-    (the 1x1 projection, a second part of K on the same ring) keeps the conv
-    tile beside the ring, which changes the bytes at nt = 128
-    (``stage_smem_bytes``), not the tile."""
+    Row tiles pair into clusters of ``stage_cluster`` CTAs that share each
+    N tile's weight blocks. The N tile is 64 or 128 channels of whole groups
+    (or all of O), whichever takes the fewer waves of cluster items over the
+    ``num_sms`` SMs' clusters times a tile's width (a tile's work), the wide
+    one on a tie; a tile whose launch would not fit the shared memory is not
+    taken. The plan does not depend on C, so a block's two stages (and the
+    second's 1x1 projection, a second part of K on the same ring) share it."""
     if K != CONV_K:
         raise ValueError(f"the CUDA stage kernel takes K={CONV_K}, got K={K}")
     if T > TILE_ROWS:
@@ -169,18 +203,17 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K, proj: bo
     og = O // G
     samples = TILE_ROWS // T
     row_tiles = -(-B // samples)
-    smem = {nt: stage_smem_bytes(nt, samples, min(O, nt) // og, proj) for nt in (64, 128)}
-    # the tile does not depend on proj (a block's two stages share it): a
-    # tile fits where the projection's layout, the larger, does
-    fits = [nt for nt in (128, 64) if (O <= nt or nt % og == 0)
-            and stage_smem_bytes(nt, samples, min(O, nt) // og, True) <= SMEM_MAX]
+    cs = stage_cluster(row_tiles)
+    clusters = num_sms // cs
+    smem = {nt: stage_smem_bytes(nt, samples, min(O, nt) // og) for nt in (64, 128)}
+    fits = [nt for nt in (128, 64) if (O <= nt or nt % og == 0) and smem[nt] <= SMEM_MAX]
     if not fits:
         raise ValueError(f"no N tile of 64 or 128 channels holds whole groups of {og} channels "
                          f"within the shared memory at T={T}")
-    tiles = {nt: row_tiles * -(-O // nt) for nt in fits}
-    n_tile = min(fits, key=lambda nt: -(-tiles[nt] // num_sms) * nt)  # 128 first: it wins a tie
+    items = {nt: -(-row_tiles // cs) * -(-O // nt) for nt in fits}
+    n_tile = min(fits, key=lambda nt: -(-items[nt] // clusters) * nt)  # 128 first: it wins a tie
     plan = StagePlan(samples, n_tile, smem[n_tile], (row_tiles, -(-O // n_tile)),
-                     min(tiles[n_tile], num_sms))
+                     cs * min(items[n_tile], clusters), cs)
     assert samples >= 1 and samples * T <= TILE_ROWS, plan
     assert O <= n_tile or n_tile % og == 0, plan
     return plan
@@ -652,12 +685,12 @@ def load() -> ctypes.CDLL:
 
 
 def ptxas_report() -> str:
-    """Register / shared-memory / spill lines (and ptxas's performance notes)
-    from the last build's log."""
+    """Register / shared-memory / spill lines (and ptxas's notes: C75xx, a
+    serialized or fenced wgmma pipeline) from the last build's log."""
     log = BUILD_ROOT / source_hash() / "build.log"
     if not log.exists():
         return ""
-    keep = ("Compiling entry", "registers", "spill", "Performance")
+    keep = ("Compiling entry", "registers", "spill", "Performance", "(C75")
     return "\n".join(l for l in log.read_text().splitlines() if any(k in l for k in keep))
 
 

@@ -312,16 +312,6 @@ __device__ __forceinline__ float mish_grad(float y) {
   return n * r + y * __fdividef(e, 1.0f + e) * (4.0f * (n + 1.0f)) * (r * r);
 }
 
-// Every thread of every CTA of the cluster; what each wrote to shared memory
-// before is visible to the others after.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
 // 16 bytes at shared address `addr` of CTA `rank` of the cluster (distributed shared memory).
 __device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
   uint32_t a;

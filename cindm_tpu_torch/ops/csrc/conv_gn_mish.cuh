@@ -20,46 +20,59 @@
 // group) it owns is complete inside it and its epilogue reads nothing of
 // another tile: no atomics, no sums across CTAs.
 //
-// Main loop: the one of stage_ring.cuh, which the backward's dgrads run
-// too. A producer warp fills a ring of slots, each with the tile's 192
-// input rows of 8-16 channels by one TMA box and their weight blocks
-// (stage_weights lays w out once per call as tf32 big/small planes, one
-// contiguous block per (N tile, chunk)) by one bulk copy, on full/empty
-// mbarriers. Three consumer warpgroups (64 rows each) issue per chunk and
-// tap one group of 3 wgmma m64nNk8 passes (small*big, big*small, big*big,
-// A split by split_tf32 with round-to-nearest) and keep one group in
-// flight while they load and split the next tap's A fragments; at T <= 3
-// the tile is position-major and a warpgroup issues only a 3-tap window.
-// The 1x1 projection is a second part of K = 1 on the same slots (2-4
-// chunks a slot: ProjRing), in the registers the conv accumulator vacated.
-// The chunks, taps and passes go in the order the earlier cp.async loop
-// took, so z, and with it out, is the same bit for bit.
+// Main loop: the forward's of stage_ring.cuh (its dgrads' loop beside it).
+// A producer warpgroup feeds three consumer warpgroups (64 rows each)
+// through a ring of slots of one chunk of 8 input channels: its first warp
+// loads the tile's 192 input rows of the chunk by TMA and the chunk's
+// weight blocks (stage_weights lays w out once per call as tf32 big/small
+// planes, one contiguous block per (N tile, chunk)) by bulk copy; its other
+// three warps split each box, once it is in, into tf32 big and small planes
+// (split_tf32, round-to-nearest) in the slot. Two CTAs of a cluster take
+// row tiles 2q and 2q + 1 of the same N tile, and each copies half of a
+// slot's weight blocks into both (multicast), so the weights cross L2 once
+// for two tiles; a slot is refilled once both CTAs' consumers released it.
+// At T = 3 the tile is position-major (tile row t * 64 + s: a warpgroup per
+// position) and a warpgroup issues only the 3 taps that stay inside the
+// samples. Its boxes are loaded position-major too, so that the three
+// taps read whole 64-row blocks of the planes: each consumer issues a
+// slot's 3 taps x 3 passes (small*big, big*small, big*big) of m64nNk8
+// wgmmas, A and B from shared memory by descriptor, as one group, and
+// keeps one group in flight. At other T the tile is row-major and the
+// consumers load each tap's A fragments (shifted by the tap, zero outside
+// their sample) from the planes into registers, one tap's 3 passes a
+// group. The 1x1
+// projection is a second part of K = 1 on the same slots (2 chunks a slot:
+// ProjRing), A by descriptor. The chunks, taps and passes go in the order
+// the earlier loops took, and the split is theirs, so z, and with it out,
+// is the same bit for bit.
 //
-// Persistent CTAs: at most one CTA an SM (the plan's `ctas`), each walking
-// tiles t = blockIdx.x, + gridDim.x, .. (row tile t / N tiles, N tile t %
-// N tiles). The conv tile [192][NT+4] lies beside 3 slots at NT = 64 and 2
-// at NT = 128 with the projection, so while the consumers run one tile's
-// GroupNorm statistics, Mish and stores, the producer already fills the
-// ring with the next tile's stages. At NT = 128 without the projection it
-// lies over a ring of 4 slots instead ("deep"): two slots do not hide a
-// stage's load round trip there, and the producer starts a tile once the
-// previous tile's epilogue is done. The plan (ops/_build.plan_stage)
-// takes the N tile by the waves of tiles over the SMs times a tile's
-// width, the wide one on a tie, so that the last wave of the smaller
-// grids (168 tiles of 128 at batch 5,376) is not left mostly idle; the
-// launch recomputes the plan's shared-memory bytes and CTAs and refuses
-// one that differs.
+// Persistent clusters: at most one CTA an SM (the plan's `ctas`, in
+// clusters of the plan's `cs`, 2 wherever there are two row tiles), each
+// cluster walking items i = cluster, + clusters, .. (row-tile pair i / N
+// tiles, N tile i % N tiles); the partner of an odd last row tile runs the
+// ring with zeros and stores nothing. At NT = 64 the conv tile [192][NT+4]
+// lies beside 5 slots, so while the consumers run one tile's GroupNorm
+// statistics, Mish and stores, the producer already fills the ring with the
+// next tile's stages. At NT = 128 it lies over a ring of 4 slots instead
+// ("deep": two slots beside it do not hide a slot's load round trip), the
+// producer starts a tile once the previous tile's epilogue is done in both
+// CTAs; with the projection, z goes out to device memory while the
+// projection's part runs in the conv's registers, and comes back into the
+// tile for the epilogue. The plan (ops/_build.plan_stage) takes the N tile by the
+// waves of cluster items over the SMs times a tile's width, the wide one on
+// a tie; the launch recomputes the plan's shared-memory bytes, CTAs and
+// cluster size and refuses one that differs.
 //
 // The saving instance (Args = SaveArgs) is the forward of the autograd
 // Functions: it also stores z = conv + bias and each (sample, group)'s mean
 // and rstd, which conv_backward.cuh reads instead of recomputing the stage.
 // The plain instances (Args = StageArgs) compile without it.
 //
-// L2 traffic: a tile reads its N tile's weight blocks once (5 taps x big
-// and small of C x NT, and the projection's) and its 192 input rows once:
-// 16.1 GB of staged weights and 3.3 GB of input rows per denoiser forward
-// at batch 5,376 (plan_stage's tiles), all from L2 (the staged weights of
-// one stage fit it).
+// L2 traffic: a cluster reads its N tile's weight blocks once for two
+// tiles (5 taps x big and small of C x NT, and the projection's) and each
+// tile its 192 input rows once: about 8 GB of staged weights and 3.3 GB
+// of input rows per denoiser forward at batch 5,376 (plan_stage's tiles),
+// all from L2 (the staged weights of one stage fit it).
 #pragma once
 
 #include <type_traits>
@@ -69,51 +82,71 @@
 namespace cindm {
 
 // The stage's threads: the three consumer warpgroups and a producer
-// warpgroup, whose first warp fills the ring. A whole warpgroup, so that
-// setmaxnreg can move its registers to the consumers: with a producer
-// warp alone (416 threads) ptxas gave a thread 128 registers, as for 512,
-// and the N-tile-128 instances spilled, or serialized their wgmmas
-// (C7512) with two groups in flight.
+// warpgroup, whose first warp fills the ring and whose other three split
+// each slot's A box (ring_split). A whole warpgroup, so that setmaxnreg can
+// move its registers to the consumers: with a producer warp alone (416
+// threads) ptxas gave a thread 128 registers, as for 512, and the
+// N-tile-128 instances spilled, or serialized their wgmmas (C7512) with two
+// groups in flight.
 constexpr int kStageThreads = kThreads + 128;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 152;  // 3 x 128 x 152 + 128 x 40 <= 65,536
 static_assert(3 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536, "the SM's register file");
+static_assert(kThreads + 32 * (1 + kSplitWarps) == kStageThreads, "the producer warpgroup");
 
-// A launch at NT = 128 without the projection is "deep": its ring has
-// kDeepStages slots and the conv tile lies over them, so the producer
-// starts a tile's loads once the previous tile's epilogue is done (an
-// mbarrier, `epi`). At NT = 128 a tile of its own leaves room for two
-// slots only, and two do not hide a stage's load round trip. The
-// projection needs the tile beside the ring (the conv output waits there
-// while its K = 1 part streams through), and at NT = 64 the tile of its
-// own keeps three slots and lets the producer run ahead during the
-// epilogue.
+// The forward's ring: one chunk of 8 input channels a slot (rows of 32
+// bytes), its A box split into two planes beside it (Planes), then the
+// chunk's weight blocks: 32,768 bytes a slot at NT = 64, 53,248 at 128.
+// NT = 64 keeps 5 slots beside its conv tile, so the producer runs ahead
+// during a tile's epilogue. At NT = 128 a tile of its own leaves room for
+// two slots only, and two do not hide a slot's load round trip, so the
+// conv tile lies over a ring of kDeepStages slots instead ("deep"): the
+// producer starts a tile's loads once the previous tile's epilogue is done
+// in both CTAs of the cluster (an mbarrier, `epi`), and the projection's
+// part runs before the epilogue (the tile can take the conv output only
+// once the ring is through), while z waits in device memory (kSpillZ).
 constexpr int kDeepStages = 4;
-template <int NT, bool kDeep>
-using ConvRing = StageRing<NT, kDeep ? kDeepStages : StageRing<NT>::kStages>;
+constexpr int kNarrowStages = 5;
+template <int NT>
+using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kDeepStages, 1, 0, true>;
 // The projection's part on the same slots: its 1-tap blocks are a fifth of
-// a conv's, so a slot takes 4 chunks at NT = 64 (128-byte rows), 2 at
-// NT = 128 (64-byte rows), and the part runs a quarter or half the stages.
-template <int NT, bool kDeep>
-using ProjRing = StageRing<NT, ConvRing<NT, kDeep>::kStages, NT == 64 ? 4 : 2, ConvRing<NT, kDeep>::kStageBytes>;
-template <int NT, bool kDeep>
+// a conv's, so a slot takes 2 chunks (rows of 64 bytes) and the part runs
+// half as many stages.
+constexpr int kProjChunks = 2;
+template <int NT>
+using ProjRing = StageRing<NT, ConvRing<NT>::kStages, kProjChunks, ConvRing<NT>::kStageBytes, true>;
+template <int NT>
 constexpr bool proj_fits() {
-  using P = ProjRing<NT, kDeep>;
-  return P::kABytes + P::kCh * weight_block_bytes(NT, 1) <= P::kStageBytes;
+  using P = ProjRing<NT>;
+  return P::kWOff + P::kCh * weight_block_bytes(NT, 1) <= P::kStageBytes;
 }
-static_assert(proj_fits<64, false>() && proj_fits<128, false>(), "a projection stage fits a slot");
+static_assert(proj_fits<64>() && proj_fits<128>(), "a projection stage fits a slot");
+
+// Where a warpgroup's taps read A from shared memory by descriptor: the
+// position-major tiles (KW = 3, T = 3). At NT = 64 an m64n64k8 with both
+// operands in shared memory reads 4 KB a 32-cycle step, the SM's whole
+// shared-memory rate; A's fragments loaded from the split planes into
+// registers instead were slower all the same (one 512 -> 256 stage at
+// batch 5,376 on an H100: 0.213 against 0.196 ms; PERF.md).
+template <int NT, int KW>
+constexpr bool kDescA = KW == 3;
+
+// The cluster of a launch of `row_tiles` row tiles: pairs of row tiles of
+// the same N tile share its weight blocks (mirrors ops/_build.plan_stage).
+__host__ __device__ constexpr int stage_cluster(int row_tiles) { return row_tiles > 1 ? 2 : 1; }
 
 // Shared memory of a stage launch (mirrors ops/_build.plan_stage; the
 // launch refuses a plan whose bytes differ): 1,024 bytes to align the ring
-// to the swizzle's period, the ring and the conv tile (beside it, or over
-// it when deep), mean and rstd of the tile's (sample, group) pairs, each
-// ring slot's full and empty barriers and the epilogue's barrier.
-__host__ __device__ inline size_t stage_smem_bytes(int nt, int samples, int groups_per_tile, bool deep) {
-  const size_t stage = nt == 64 ? StageRing<64>::kStageBytes : StageRing<128>::kStageBytes;
-  const int stages = deep ? kDeepStages : (nt == 64 ? StageRing<64>::kStages : StageRing<128>::kStages);
-  const size_t ring = stages * stage;
+// to the swizzle's period, the ring and the conv tile (beside it at NT =
+// 64, over it at 128), mean and rstd of the tile's (sample, group) pairs,
+// each ring slot's full, empty and abox barriers and the epilogue's
+// barrier.
+__host__ __device__ inline size_t stage_smem_bytes(int nt, int samples, int groups_per_tile) {
+  const bool deep = nt == 128;
+  const size_t ring = deep ? ConvRing<128>::kRingBytes : ConvRing<64>::kRingBytes;
+  const int stages = deep ? kDeepStages : kNarrowStages;
   const size_t region = deep ? (ring > tile_bytes(nt) ? ring : tile_bytes(nt)) : ring + tile_bytes(nt);
-  return 1024 + region + 8 * size_t(samples) * groups_per_tile + 16 * stages + 8;
+  return 1024 + region + 8 * size_t(samples) * groups_per_tile + 24 * stages + 8;
 }
 
 struct StageArgs {
@@ -132,6 +165,7 @@ struct StageArgs {
   int B, T, C, O, G, Cres;
   float eps;
   int samples;        // whole samples per tile (samples * T <= 192)
+  int cs;             // CTAs of a cluster (1 or 2): row tiles 2q and 2q + 1 share an N tile's weights
 };
 
 // The saving instance's arguments: what the backward (conv_backward.cuh)
@@ -234,45 +268,80 @@ __device__ void tile_stats(const float* tile, int ns, int T, int gpt, int og, fl
 }
 
 // One tile of a persistent CTA's walk, on the consumer warpgroups: row
-// tile rt (samples [rt S, rt S + ns)) x N tile nti. `it` counts the ring's
-// stages as the producer does.
-template <int NT, int KW, bool kDeep, class Args>
+// tile rt (samples [rt S, rt S + ns); none where rt is past the last row
+// tile: a cluster's partner that only keeps the ring going) x N tile nti.
+// `it` counts the ring's stages as the producer does. KW = 3: T = 3, the
+// tile position-major, A by descriptor (ring_consume_ss); KW = 5: the tile
+// row-major, A's fragments from the split planes (ring_consume, kPre).
+template <int NT, int KW, bool kSpillZ, class Args>
 __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const char* ring, float* tile,
-                                           float* mean, float* rstd, uint32_t full, uint32_t empty,
-                                           uint32_t epi, int& it) {
+                                           float* mean, float* rstd, const FwdRing& f, uint32_t epi, int& it) {
   constexpr bool kSave = !std::is_same<Args, StageArgs>::value;
-  using CR = ConvRing<NT, kDeep>;
-  using PR = ProjRing<NT, kDeep>;
+  constexpr bool kDeep = NT == 128;
+  using CR = ConvRing<NT>;
+  using PR = ProjRing<NT>;
   const int b0 = rt * a.samples;
-  const int ns = min(a.samples, a.B - b0);
+  const int ns = max(0, min(a.samples, a.B - b0));
   const int nrows = ns * a.T;
   const int row0 = b0 * a.T;
   const int n0 = nti * NT;
   const int ncols = min(NT, a.O - n0);
   const int og = a.O / a.G;
   const int gpt = ncols / og;  // whole groups: n0 and ncols are multiples of og
-  const bool proj = a.wres != nullptr;
+  const bool proj = kDeep ? kSpillZ : a.wres != nullptr;  // deep: an instance of its own with it
   const int lane = threadIdx.x & 31;
+  const int wg = threadIdx.x >> 7;
 
+  // Deep with the projection: the ring under the tile still has the
+  // projection's part to run once the conv's is through, so z = acc + b
+  // goes out to device memory (z where the instance saves it, else the rows'
+  // own out, which the final pass overwrites), the projection's part takes
+  // the accumulator, and the tile is read back from there.
+  float* zg;
+  if constexpr (kSave)
+    zg = a.z;
+  else
+    zg = a.out;
+  constexpr bool spill_z = kSpillZ;
   float acc[NT / 2];
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
   {
     const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
-    ring_consume<CR, kConvK, KW, Split::kRna>(tr, ring_part<CR>(a.ws, a.C, kConvK, 0, 1, nti), ring, full,
-                                              empty, it, acc);
-    consumer_sync();  // the previous tile's epilogue is done with the tile and the statistics
-    // tile[r][c] = acc + b[n0 + c] at the fragment positions, rows in natural order
+    const RingPart part = ring_part<CR>(a.ws, a.C, kConvK, 0, 1, nti);
+    if constexpr (kDescA<NT, KW>)  // position t = wg: taps 2 - t .. 4 - t read positions 0 .. 2
+      ring_consume_ss<CR, kConvK>(tr.klo, 0, part, ring, f, it, acc);
+    else
+      ring_consume<CR, kConvK, KW, Split::kPre, true>(tr, part, ring, f.full, f.empty, it, acc, f.peer);
+    if (!spill_z) consumer_sync();  // the previous tile's epilogue is done with the tile and the statistics
+    // z[r][c] = acc + b[n0 + c] at the fragment positions, rows in natural
+    // order: into the tile, or out to zg
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j) {
       const int c = 8 * j + 2 * (lane & 3);
       const float bias0 = c < ncols ? __ldg(a.b + n0 + c) : 0.0f;
       const float bias1 = c + 1 < ncols ? __ldg(a.b + n0 + c + 1) : 0.0f;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (tr.live[i])
-          *reinterpret_cast<float2*>(tile + tr.r[i] * (NT + 4) + c) =
-              make_float2(acc[4 * j + 2 * i] + bias0, acc[4 * j + 2 * i + 1] + bias1);
+      for (int i = 0; i < 2; ++i) {
+        const float2 v = make_float2(acc[4 * j + 2 * i] + bias0, acc[4 * j + 2 * i + 1] + bias1);
+        if (!tr.live[i]) continue;
+        if (!spill_z)
+          *reinterpret_cast<float2*>(tile + tr.r[i] * (NT + 4) + c) = v;
+        else if (c < ncols)  // ncols is even: c + 1 < ncols too
+          *reinterpret_cast<float2*>(zg + static_cast<size_t>(row0 + tr.r[i]) * a.O + n0 + c) = v;
+      }
+    }
+  }
+  if (spill_z) {
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    ring_consume_ss<PR, 1>(0, 64 * wg, ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it, acc);
+    consumer_sync();  // the ring is through; z is out
+    for (int i = threadIdx.x; i < nrows * (NT / 4); i += kThreads) {
+      const int r = i / (NT / 4), c = 4 * (i % (NT / 4));
+      if (c < ncols)
+        *reinterpret_cast<float4*>(tile + r * (NT + 4) + c) =
+            *reinterpret_cast<const float4*>(zg + static_cast<size_t>(row0 + r) * a.O + n0 + c);
     }
   }
   consumer_sync();
@@ -295,7 +364,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
       a.mean[gi] = mean[p];
       a.rstd[gi] = rstd[p];
     }
-    if (c < ncols)
+    if (c < ncols && !spill_z)
       for (int r = r0; r < nrows; r += kRowStep)
         *reinterpret_cast<float4*>(a.z + static_cast<size_t>(row0 + r) * a.O + o) =
             *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
@@ -311,13 +380,13 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
     return v;
   };
 
-  if (!kDeep && proj) {
+  if (proj) {
     // The 1x1 projection: a second part of K = 1 over the same rows in the
-    // registers the conv accumulator vacated. The tile is normalised in
-    // place first (GN(z), Mish's argument y), Mish meets the product at the
-    // fragment positions and bres comes in the final pass: (Mish(y) + xres
-    // wres) + bres, Mish's last product fused with the first add as the
-    // compiler fuses it in the plain form.
+    // registers the conv accumulator vacated (deep: run already). The tile
+    // is normalised in place first (GN(z), Mish's argument y), Mish meets
+    // the product at the fragment positions and bres comes in the final
+    // pass: (Mish(y) + xres wres) + bres, Mish's last product fused with the
+    // first add as the compiler fuses it in the plain form.
     if constexpr (kSave) consumer_sync();  // z is stored before the tile changes
     if (c < ncols) {
       const float4 scale = __ldg(reinterpret_cast<const float4*>(a.gs + o));
@@ -326,10 +395,11 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
         *reinterpret_cast<float4*>(tile + r * (NT + 4) + c) = affine(r, scale, shift);
     }
     const TileRows tr = tile_rows<1, 1>(a.samples, ns, a.T);
+    if constexpr (!kDeep) {
 #pragma unroll
-    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-    ring_consume<PR, 1, 1, Split::kRna>(tr, ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, full, empty,
-                                        it, acc);
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+      ring_consume_ss<PR, 1>(0, 64 * wg, ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it, acc);
+    }
     consumer_sync();  // the tile is normalised
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j) {
@@ -354,7 +424,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
     for (int r = r0; r < nrows; r += kRowStep) {
       const size_t gi = static_cast<size_t>(row0 + r) * a.O + o;
       float4 v;
-      if (!kDeep && proj) {
+      if (proj) {
         v = *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
         v.x += bres.x, v.y += bres.y, v.z += bres.z, v.w += bres.w;
       } else {
@@ -374,18 +444,29 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
     }
   }
   __syncwarp();  // the warp converges before the next tile's wgmmas
-  if (kDeep && lane == 0) mbar_arrive(epi);  // this warp is done with the tile over the ring
+  if (kDeep && lane == 0) {  // this warp is done with the tile over the ring
+    mbar_arrive(epi);
+    if (f.peer != kNoPeer) mbar_arrive_peer(epi, f.peer);
+  }
 }
 
 // Args = SaveArgs: the saving instance, which also writes z, mean and rstd
 // for the backward (conv_backward.cuh); with StageArgs it compiles without.
-// mx: x as ring_map views it; mres: xres likewise where the projection
-// runs (else unused). kDeep: NT = 128 without the projection (FwdRing).
-template <int NT, int KW, bool kDeep, class Args>
+// mx: x as position_map views it (kDescA) or ring_map; mres: xres
+// as ring_map views it where the projection runs (else unused). Deep: NT =
+// 128, the conv tile over the ring; kSpillZ: deep with the projection (z
+// goes out to device memory while the projection's part runs), an
+// instance of its own so that the deep one without keeps its code.
+// Launched in clusters of a.cs CTAs:
+// cluster q walks items i = q, q + clusters, .. of (row-tile pair i / N
+// tiles, N tile i % N tiles), rank r taking row tile 2 (i / N tiles) + r.
+template <int NT, int KW, bool kSpillZ, class Args>
 __global__ void __launch_bounds__(kStageThreads, 1)
     conv_gn_mish_stage(const Args a, const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mres) {
-  using R = ConvRing<NT, kDeep>;
+  constexpr bool kDeep = NT == 128;
+  using R = ConvRing<NT>;
+  using P = ProjRing<NT>;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   smem += (1024 - smem_u32(smem) % 1024) % 1024;  // the swizzle's period
@@ -395,41 +476,65 @@ __global__ void __launch_bounds__(kStageThreads, 1)
                               : R::kRingBytes + tile_bytes(NT);
   float* mean = reinterpret_cast<float*>(smem + region);
   float* rstd = mean + a.samples * gmax;
-  const uint32_t full = smem_u32(rstd + a.samples * gmax);
-  const uint32_t empty = full + 8 * R::kStages;
-  const uint32_t epi = empty + 8 * R::kStages;
+  FwdRing f;
+  f.full = smem_u32(rstd + a.samples * gmax);
+  f.empty = f.full + 8 * R::kStages;
+  f.abox = f.empty + 8 * R::kStages;
+  f.cs = a.cs;
+  f.rank = cluster_rank();
+  f.peer = a.cs == 2 ? f.rank ^ 1u : kNoPeer;
+  const uint32_t epi = f.abox + 8 * R::kStages;
   if (threadIdx.x == 0) {
     for (int q = 0; q < R::kStages; ++q) {
-      mbar_init(full + 8 * q);
-      mbar_init(empty + 8 * q, kWarps);  // one arrival a consumer warp
+      mbar_init(f.full + 8 * q, 1 + kSplitWarps);  // the producer's, one a splitting warp
+      mbar_init(f.empty + 8 * q, a.cs * kWarps);   // one arrival a consumer warp of the cluster
+      mbar_init(f.abox + 8 * q);
     }
-    mbar_init(epi, kWarps);
+    mbar_init(epi, a.cs * kWarps);
   }
-  __syncthreads();
+  cluster_sync();  // the barriers of both CTAs are set before either copies or arrives into the other
   // the role, warp-uniform as the compiler can see (a shuffle of lane 0's
   // value): wgmma is issued only in code it knows no warp diverges into
   const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
   const int ntiles = (a.O + NT - 1) / NT;
-  const int tiles = (a.B + a.samples - 1) / a.samples * ntiles;
+  const int row_tiles = (a.B + a.samples - 1) / a.samples;
+  const int items = (row_tiles + a.cs - 1) / a.cs * ntiles;
+  const int cluster = blockIdx.x / a.cs, clusters = gridDim.x / a.cs;
+  const bool proj = kDeep ? kSpillZ : a.wres != nullptr;
   int it = 0;
   if (warp >= kWarps) {
     regs_dec<kProducerRegs>();
-    if (warp > kWarps) return;
     int local = 0;  // this CTA's tiles so far
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++local) {
-      const int row0 = t / ntiles * a.samples * a.T, nti = t % ntiles;
-      if (kDeep && local > 0) mbar_wait(epi, (local - 1) & 1);  // the tile over the ring is free
-      ring_produce<R>(&mx, ring_part<R>(a.ws, a.C, kConvK, 0, 1, nti), row0, smem, full, empty, it);
-      if (!kDeep && a.wres != nullptr) {
-        using P = ProjRing<NT, kDeep>;
-        ring_produce<P>(&mres, ring_part<P>(a.wress, a.Cres, 1, 0, 1, nti), row0, smem, full, empty, it);
+    for (int i = cluster; i < items; i += clusters, ++local) {
+      const int rt = i / ntiles * a.cs + static_cast<int>(f.rank), nti = i % ntiles;
+      const int b0 = rt * a.samples, row0 = b0 * a.T;
+      const RingPart conv = ring_part<R>(a.ws, a.C, kConvK, 0, 1, nti);
+      const RingPart pres = ring_part<P>(a.wress, a.Cres, 1, 0, 1, nti);
+      if (warp == kWarps) {
+        if (kDeep && local > 0) mbar_wait(epi, (local - 1) & 1);  // the tile over both rings is free
+        if constexpr (kDescA<NT, KW>)  // T = 3: positions 0, 1, 2 of 64 samples, one box each
+          ring_feed<R>(conv, [&](char* st, int c, uint32_t bar) {
+            for (int t = 0; t < 3; ++t) tma_load_3d(st + t * 64 * R::kPitch, &mx, c, t, b0, bar);
+          }, smem, f, it);
+        else
+          ring_feed<R>(conv, [&](char* st, int c, uint32_t bar) { tma_load_2d(st, &mx, c, row0, bar); }, smem, f,
+                       it);
+        if (proj)
+          ring_feed<P>(pres, [&](char* st, int c, uint32_t bar) { tma_load_2d(st, &mres, c, row0, bar); },
+                       smem, f, it);
+      } else {
+        const int t = threadIdx.x - kThreads - 32;
+        ring_split<R>(conv, smem, f, t, it);
+        if (proj) ring_split<P>(pres, smem, f, t, it);
       }
     }
-    return;
+  } else {
+    regs_inc<kConsumerRegs>();
+    for (int i = cluster; i < items; i += clusters)
+      stage_tile<NT, KW, kSpillZ>(a, i / ntiles * a.cs + static_cast<int>(f.rank), i % ntiles, smem, tile, mean,
+                                rstd, f, epi, it);
   }
-  regs_inc<kConsumerRegs>();
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    stage_tile<NT, KW, kDeep>(a, t / ntiles, t % ntiles, smem, tile, mean, rstd, full, empty, epi, it);
+  cluster_sync();  // no CTA leaves while its peer may still copy or arrive into it
 }
 
 cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, uint32_t* out,
@@ -440,65 +545,86 @@ cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, ui
   return cudaGetLastError();
 }
 
-// The CTAs of a stage launch of `tiles` tiles on the current device: one an
+// The CTAs of a stage launch of `items` cluster items (row-tile pairs x N
+// tiles) in clusters of cs on the current device: cs CTAs an item, one an
 // SM at most (mirrors ops/_build.plan_stage).
-cudaError_t stage_ctas(int tiles, int* ctas) {
+cudaError_t stage_ctas(int items, int cs, int* ctas) {
   int dev = 0, sms = 0;
   CINDM_TRY(cudaGetDevice(&dev));
   CINDM_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  *ctas = tiles < sms ? tiles : sms;
+  *ctas = cs * (items < sms / cs ? items : sms / cs);
   return cudaSuccess;
 }
 
-template <int NT, int KW, bool kDeep, class Args>
+template <int NT, int KW, bool kSpillZ, class Args>
 cudaError_t launch_nt(const Args& a, size_t bytes, int ctas, const CUtensorMap& mx, const CUtensorMap& mres,
                       cudaStream_t stream) {
   static unsigned long long smem_set = 0;  // devices where the attribute is set
-  CINDM_TRY(allow_smem_once(conv_gn_mish_stage<NT, KW, kDeep, Args>, smem_set));
-  conv_gn_mish_stage<NT, KW, kDeep, Args><<<ctas, kStageThreads, bytes, stream>>>(a, mx, mres);
+  const auto k = conv_gn_mish_stage<NT, KW, kSpillZ, Args>;
+  CINDM_TRY(allow_smem_once(k, smem_set));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kStageThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = a.cs;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  void* params[] = {const_cast<Args*>(&a), const_cast<CUtensorMap*>(&mx), const_cast<CUtensorMap*>(&mres)};
+  CINDM_TRY(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(k), params));
   return cudaGetLastError();
 }
 
 // One stage: lay the weights out (stage_weights into a.ws, a.wress), then
 // launch the stage kernel with the planner's tile: `samples` whole samples
 // per tile, an N tile of `nt` channels, `smem_bytes` of dynamic shared
-// memory, `ctas` persistent CTAs. With SaveArgs it launches the saving
-// instance. Refuses (cudaErrorInvalidValue) a plan that breaks the
-// tiling's rules or differs from the one recomputed here.
+// memory, `ctas` persistent CTAs in clusters of `cs`. With SaveArgs it
+// launches the saving instance. Refuses (cudaErrorInvalidValue) a plan that
+// breaks the tiling's rules or differs from the one recomputed here.
 template <class Args>
-cudaError_t launch_stage(const Args& a, int K, int nt, int smem_bytes, int ctas, void* stream) {
+cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas, int cs, void* stream) {
+  Args a = a0;
   const bool proj = a.wres != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || K != kConvK || (nt != 64 && nt != 128) ||
-      a.samples <= 0 || a.samples * a.T > kTileRows || a.ws == nullptr ||
+      a.samples <= 0 || a.samples * a.T > kTileRows || (a.T == 3 && a.samples != 64) || a.ws == nullptr ||
       (proj && (a.Cres <= 0 || a.Cres % 4 != 0 || a.wress == nullptr || a.xres == nullptr)) ||
       (proj != (a.bres != nullptr)))
     return cudaErrorInvalidValue;
   const int og = a.O / a.G;
   if (a.O > nt && nt % og != 0) return cudaErrorInvalidValue;  // an N tile holds whole groups
   const int gpt = (a.O < nt ? a.O : nt) / og;
-  const bool deep = nt == 128 && !proj;
-  const size_t bytes = stage_smem_bytes(nt, a.samples, gpt, deep);
+  const size_t bytes = stage_smem_bytes(nt, a.samples, gpt);
   if (static_cast<size_t>(smem_bytes) != bytes || bytes > kSmemMax) return cudaErrorInvalidValue;
+  const int row_tiles = (a.B + a.samples - 1) / a.samples;
+  a.cs = stage_cluster(row_tiles);
   int want = 0;
-  CINDM_TRY(stage_ctas((a.B + a.samples - 1) / a.samples * ((a.O + nt - 1) / nt), &want));
-  if (ctas != want) return cudaErrorInvalidValue;
+  CINDM_TRY(stage_ctas((row_tiles + a.cs - 1) / a.cs * ((a.O + nt - 1) / nt), a.cs, &want));
+  if (cs != a.cs || ctas != want) return cudaErrorInvalidValue;
+  constexpr int kPitch = ConvRing<64>::kPitch;  // one chunk a slot at either N tile
+  static_assert(ConvRing<128>::kPitch == kPitch && ProjRing<128>::kPitch == ProjRing<64>::kPitch, "");
   CUtensorMap mx, mres;
-  CINDM_TRY(ring_map(&mx, a.x, a.B * a.T, a.C, nt == 64 ? StageRing<64>::kPitch : StageRing<128>::kPitch));
+  if (a.T == 3)  // kDescA
+    CINDM_TRY(position_map(&mx, a.x, a.B, a.T, a.C, kPitch));
+  else
+    CINDM_TRY(ring_map(&mx, a.x, a.B * a.T, a.C, kPitch));
   if (proj)
-    CINDM_TRY(ring_map(&mres, a.xres, a.B * a.T, a.Cres,
-                       nt == 64 ? ProjRing<64, false>::kPitch : ProjRing<128, false>::kPitch));
+    CINDM_TRY(ring_map(&mres, a.xres, a.B * a.T, a.Cres, ProjRing<64>::kPitch));
   else
     mres = mx;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CINDM_TRY(launch_stage_weights(a.w, K, a.C, a.O, nt, a.ws, s));
   if (proj) CINDM_TRY(launch_stage_weights(a.wres, 1, a.Cres, a.O, nt, a.wress, s));
-  if (a.T <= 3)
+  if (a.T == 3)
     return nt == 64 ? launch_nt<64, 3, false>(a, bytes, ctas, mx, mres, s)
-                    : deep ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, s)
+                    : proj ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, s)
                            : launch_nt<128, 3, false>(a, bytes, ctas, mx, mres, s);
   return nt == 64 ? launch_nt<64, kConvK, false>(a, bytes, ctas, mx, mres, s)
-                  : deep ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, s)
+                  : proj ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, s)
                          : launch_nt<128, kConvK, false>(a, bytes, ctas, mx, mres, s);
 }
 

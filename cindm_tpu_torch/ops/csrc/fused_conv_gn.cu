@@ -33,7 +33,7 @@ namespace {
 int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs, const float* gb,
                  float* out, float* z, float* mean, float* rstd, void* scratch,
                  long long scratch_bytes, int B, int T, int C, int O, int K, int G, float eps,
-                 int samples, int nt, int ctas, int smem_bytes, void* stream) {
+                 int samples, int nt, int ctas, int cs, int smem_bytes, void* stream) {
   if (nt <= 0 || static_cast<long long>(cindm::staged_weight_bytes(nt, C, O, K)) > scratch_bytes)
     return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
@@ -41,9 +41,9 @@ int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs
   a.ws = static_cast<uint32_t*>(scratch);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
   a.z = z; a.mean = mean; a.rstd = rstd;
-  return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, ctas, stream)
+  return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, ctas, cs, stream)
                       : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                            smem_bytes, ctas, stream);
+                                            smem_bytes, ctas, cs, stream);
 }
 
 }  // namespace
@@ -52,9 +52,9 @@ extern "C" int cindm_fused_conv1d_gn_mish(const float* x, const float* w, const 
                                           const float* gs, const float* gb, float* out,
                                           void* scratch, long long scratch_bytes, int B, int T,
                                           int C, int O, int K, int G, float eps, int samples,
-                                          int nt, int ctas, int smem_bytes, void* stream) {
+                                          int nt, int ctas, int cs, int smem_bytes, void* stream) {
   return conv_gn_mish(x, w, b, gs, gb, out, nullptr, nullptr, nullptr, scratch, scratch_bytes, B,
-                      T, C, O, K, G, eps, samples, nt, ctas, smem_bytes, stream);
+                      T, C, O, K, G, eps, samples, nt, ctas, cs, smem_bytes, stream);
 }
 
 extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const float* w, const float* b,
@@ -62,11 +62,11 @@ extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const float* w,
                                                  float* z, float* mean, float* rstd,
                                                  void* scratch, long long scratch_bytes, int B,
                                                  int T, int C, int O, int K, int G, float eps,
-                                                 int samples, int nt, int ctas, int smem_bytes,
-                                                 void* stream) {
+                                                 int samples, int nt, int ctas, int cs,
+                                                 int smem_bytes, void* stream) {
   if (z == nullptr || mean == nullptr || rstd == nullptr) return cudaErrorInvalidValue;
   return conv_gn_mish(x, w, b, gs, gb, out, z, mean, rstd, scratch, scratch_bytes, B, T, C, O, K,
-                      G, eps, samples, nt, ctas, smem_bytes, stream);
+                      G, eps, samples, nt, ctas, cs, smem_bytes, stream);
 }
 
 // stage_weights alone, as the stage's launches run it: w [K][C][O] laid out

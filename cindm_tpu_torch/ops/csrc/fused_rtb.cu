@@ -42,7 +42,8 @@ int fused_rtb(const float* x, const float* temb, const float* w1, const float* b
               const float* gs2, const float* gb2, const float* wres, const float* bres, float* h,
               float* out, float* z1, float* z2, float* mean1, float* rstd1, float* mean2,
               float* rstd2, void* scratch, long long scratch_bytes, int B, int T, int C, int O,
-              int K, int G, float eps, int samples, int nt, int ctas, int smem1, int smem2, void* stream) {
+              int K, int G, float eps, int samples, int nt, int ctas, int cs, int smem1, int smem2,
+              void* stream) {
   if ((wres == nullptr) != (bres == nullptr) || (wres == nullptr && C != O) || nt <= 0)
     return cudaErrorInvalidValue;
   // scratch: w1, w2 and wres laid out by stage_weights, one after another
@@ -63,12 +64,13 @@ int fused_rtb(const float* x, const float* temb, const float* w1, const float* b
   b.wress = wres != nullptr ? reinterpret_cast<uint32_t*>(ws + n1 + n2) : nullptr;
   b.z = z2; b.mean = mean2; b.rstd = rstd2;
   const bool save = z1 != nullptr;
-  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, ctas, stream)
+  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, ctas, cs, stream)
                          : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                               smem1, ctas, stream);
+                                               smem1, ctas, cs, stream);
   if (err != cudaSuccess) return err;
-  return save ? cindm::launch_stage(b, K, nt, smem2, ctas, stream)
-              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, ctas, stream);
+  return save ? cindm::launch_stage(b, K, nt, smem2, ctas, cs, stream)
+              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, ctas, cs,
+                                    stream);
 }
 
 }  // namespace
@@ -79,10 +81,10 @@ extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w
                                const float* gb2, const float* wres, const float* bres, float* h,
                                float* out, void* scratch, long long scratch_bytes, int B, int T,
                                int C, int O, int K, int G, float eps, int samples, int nt,
-                               int ctas, int smem1, int smem2, void* stream) {
+                               int ctas, int cs, int smem1, int smem2, void* stream) {
   return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, nullptr,
                    nullptr, nullptr, nullptr, nullptr, nullptr, scratch, scratch_bytes, B, T, C, O,
-                   K, G, eps, samples, nt, ctas, smem1, smem2, stream);
+                   K, G, eps, samples, nt, ctas, cs, smem1, smem2, stream);
 }
 
 extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const float* w1,
@@ -92,12 +94,12 @@ extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const f
                                       float* h, float* out, float* z1, float* z2, float* mean1,
                                       float* rstd1, float* mean2, float* rstd2, void* scratch,
                                       long long scratch_bytes, int B, int T, int C, int O, int K,
-                                      int G, float eps, int samples, int nt, int ctas, int smem1,
-                                      int smem2, void* stream) {
+                                      int G, float eps, int samples, int nt, int ctas, int cs,
+                                      int smem1, int smem2, void* stream) {
   if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
       mean2 == nullptr || rstd2 == nullptr)
     return cudaErrorInvalidValue;
   return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, z1, z2, mean1,
                    rstd1, mean2, rstd2, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples, nt,
-                   ctas, smem1, smem2, stream);
+                   ctas, cs, smem1, smem2, stream);
 }

@@ -1,6 +1,6 @@
 // The implicit-GEMM main loop of the Conv1d stages on Hopper (sm_90a), one
-// for both directions: the forward stage (conv_gn_mish.cuh, the conv of x
-// or h and the 1x1 projection) and the backward's two dgrads
+// ring for both directions: the forward stage (conv_gn_mish.cuh, the conv of
+// x or h and the 1x1 projection) and the backward's two dgrads
 // (conv_backward.cuh, the conv of a cotangent with the flipped weights).
 //
 // GEMM: M = a tile of kTileRows = 192 rows of whole samples (r = s*T + t),
@@ -8,25 +8,46 @@
 // channels. Three consumer warpgroups own 64 rows of the tile each and
 // keep a 64 x NT fp32 accumulator in registers; a producer warp (the
 // dgrads' 13th, the first of the forward's producer warpgroup) feeds them
-// through a ring of slots in shared memory (StageRing). A stage holds kCh chunks of 8 input channels: the tile's
-// 192 input rows of those channels, by one TMA box (rows of kPitch bytes
-// under the kPitch-byte swizzle, so a warp's fragment reads fall on
-// distinct banks; rows and channels past the tensor read zero), and their
-// weight blocks, contiguous in the stage_weights (forward) or
-// stage_weights_t (dgrads) layout, by one bulk copy; both complete on the
-// slot's full mbarrier, and each consumer warp releases the slot on its
-// empty mbarrier once its wgmmas on it are done.
+// through a ring of slots in shared memory (StageRing). A slot holds kCh
+// chunks of 8 input channels: the tile's 192 input rows of those channels,
+// by TMA (rows of kPitch bytes under the kPitch-byte swizzle, so a warp's
+// fragment reads fall on distinct banks; rows and channels past the tensor
+// read zero), and their weight blocks, contiguous in the stage_weights
+// (forward) or stage_weights_t (dgrads) layout, by bulk copy; each
+// consumer warp releases the slot on its empty mbarrier once its wgmmas on
+// it are done.
 //
 // Arithmetic: 3xTF32. Each fp32 operand v is split into big = tf32(v) and
 // small = v - big; each product is small*big + big*small + big*big, three
 // wgmma .tf32 passes (m64nNTk8) into one accumulator, which keeps fp32
-// accuracy. The weights (B) arrive split by the layout kernels. A, the
-// input, goes to wgmma from registers: a thread loads its fragment rows
-// shifted by the tap, zero where the tap falls outside the row's sample
-// (the conv's zero padding), and splits them while the previous tap's
-// wgmma group is in flight (wait_group 1). The forward splits with
-// round-to-nearest for both halves (split_tf32, Split::kRna); the dgrads
-// keep small unrounded (split_tf32_fast, Split::kFast).
+// accuracy. The weights (B) arrive split by the layout kernels.
+//
+// The dgrads' loop (ring_produce, ring_consume with Split::kFast): one TMA
+// box and one bulk copy a slot on its full mbarrier; A goes to wgmma from
+// registers, a thread loading its fragment rows shifted by the tap, zero
+// where the tap falls outside the row's sample (the conv's zero padding),
+// and splitting them (split_tf32_fast: small unrounded) while the previous
+// tap's wgmma group is in flight (wait_group 1).
+//
+// The forward's loop (ring_feed, ring_split, ring_consume_ss or
+// ring_consume with Split::kPre) runs on a cluster of cs = 1 or 2 CTAs that
+// share an N tile. Its slots hold A twice (Planes): the box, which the
+// producer warpgroup's three other warps split once it has landed (its own
+// mbarrier, `abox`) into tf32 big, in place, and small, beside it, with
+// round-to-nearest for both halves (split_tf32), and which
+// then arrive on the full mbarrier. Each CTA loads its own A box; the
+// slot's weight blocks are the same for both CTAs of a cluster, so each
+// CTA's producer copies one half of them with .multicast::cluster into
+// both CTAs' slots (the full mbarrier of each expects the whole), and a
+// slot is refilled once the consumer warps of both CTAs have released it
+// (every empty mbarrier counts both CTAs' warps; a warp arrives on its own
+// CTA's and, through mapa, on its peer's). At T = 3 the tile is
+// position-major, so a warpgroup's taps read whole 64-row blocks of the
+// box: the consumers read A from shared memory by descriptor
+// (ring_consume_ss) and issue a slot's chunks x taps x passes as one wgmma
+// group, one group in flight. At other T the consumers load A's fragments
+// from the split planes into registers, one tap a group as the dgrads do
+// (ring_consume with Split::kPre).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver function is called by name)
@@ -63,25 +84,32 @@ __host__ __device__ constexpr size_t align1024(size_t b) { return (b + 1023) / 1
 
 // The ring for an N tile of NT channels: Stages slots of SlotBytes, each
 // holding kCh chunks of 8 input channels of one part of K: the tile's 192
-// input rows (kPitch bytes a row, swizzled over kPitch bytes by TMA) and
-// the chunks' weight blocks. By default (the dgrads, and the forward's
-// conv) 2 chunks a slot at NT = 64, 1 at NT = 128, with blocks of five
+// input rows (kPitch bytes a row, swizzled over kPitch bytes by TMA), with
+// Planes a second plane of as many bytes beside them (the small halves of
+// the split), then the chunks' weight blocks (at kWOff). By default (the
+// dgrads) 2 chunks a slot at NT = 64, 1 at NT = 128, with blocks of five
 // taps; 3 slots at NT = 64, 2 at NT = 128, beside a tile of their own. A
 // K = 1 part's blocks are a fifth of a conv's, so the forward's projection
-// packs more chunks into the same slots (SlotBytes given).
-template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0>
+// packs more chunks into its conv's slots (SlotBytes given).
+template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0,
+          bool Planes = false>
 struct StageRing {
   static constexpr int kNT = NT;
   static constexpr int kCh = Ch;
   static constexpr int kPitch = 4 * kChunk * kCh;  // bytes of a staged row: the swizzle's span
   static constexpr int kStages = Stages;
   static constexpr size_t kABytes = align1024(size_t(kTileRows) * kPitch);
+  static constexpr size_t kWOff = Planes ? 2 * kABytes : kABytes;  // the weight blocks
   static constexpr size_t kStageBytes =
-      SlotBytes != 0 ? SlotBytes : align1024(kABytes + kCh * weight_block_bytes(NT, kConvK));
+      SlotBytes != 0 ? SlotBytes : align1024(kWOff + kCh * weight_block_bytes(NT, kConvK));
   static constexpr size_t kRingBytes = kStages * kStageBytes;
 };
 
-enum class Split { kRna, kFast };
+// How A reaches the consumers: split by them (kFast, the dgrads) or already
+// split in the slot's two planes by the producer warpgroup (kPre, the
+// forward).
+enum class Split { kFast, kPre };
+constexpr uint32_t kNoPeer = 0xFFFFFFFFu;  // a cluster of one CTA: no peer to release
 
 #define CINDM_TRY(expr)                       \
   do {                                        \
@@ -151,6 +179,54 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// The same copy into the same offset of the shared memory of both CTAs of a
+// cluster of 2, counted on the barrier at the same offset in each.
+__device__ __forceinline__ void bulk_load_pair(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar), "h"(static_cast<uint16_t>(0x3))
+      : "memory");
+}
+
+// Every thread of every CTA of the cluster; what each wrote to shared memory
+// before is visible to the others after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Arrive on the mbarrier at shared address `bar` of CTA `rank` of the
+// cluster, with the arrive's default semantics. What it orders is the
+// caller's finished wgmma reads of a slot before the peer's next copy into
+// it; a .release.cluster arrive (which also waits for the thread's earlier
+// global stores) made the forward stage 15-45% slower.
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma's operand reads, TMA's writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A box of a 3D tensor (coordinates c, y, z; outside the tensor zeros),
+// counted like tma_load_2d's.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c, int y, int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
 // A box of a 2D tensor (coordinates: channel c, row r; outside the tensor
 // zeros) into shared memory by the Tensor Memory Accelerator, counted on
 // the barrier's transfer count.
@@ -196,6 +272,52 @@ __device__ __forceinline__ uint64_t weight_desc(uint32_t plane) {
   return static_cast<uint64_t>((plane & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(kLboBytes >> 4) << 16) |
          (static_cast<uint64_t>(kSboBytes >> 4) << 32);
+}
+
+// Shared-memory matrix descriptor of 64 rows x 8 inputs of a TMA box of
+// kPitch-byte rows under the kPitch-byte swizzle (K-major; 8-row atoms
+// 8 * kPitch bytes apart); `addr` is the first row's chunk, 32 bytes a chunk
+// into the row.
+template <int kPitch>
+__device__ __forceinline__ uint64_t box_desc(uint32_t addr) {
+  constexpr uint64_t kLayout = kPitch == 128 ? 1 : (kPitch == 64 ? 2 : 3);  // 128-, 64-, 32-byte swizzle
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (static_cast<uint64_t>(8 * kPitch >> 4) << 32) | (kLayout << 62);
+}
+
+// D[64 x N] += A[64 x 8] * B[8 x N], both operands from shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // D[64 x N] += A[64 x 8] * B[8 x N]: A in registers (fragment rows g and
@@ -337,18 +459,22 @@ __host__ __device__ constexpr int ring_set(int unit, int u) { return unit == 5 &
 // in flight while the next one's fragments load into another register
 // set. The groups go in units, unrolled: a chunk's KW taps (K = 5), or a
 // stage's chunks (K = 1); a unit of 5 takes three sets, so that no two
-// consecutive groups share one, and ptxas sees one chunk's taps at a time. A stage's slot is released (each warp
-// arrives on its empty barrier) once its last group is done. Ends with
+// consecutive groups share one, and ptxas sees one chunk's taps at a time.
+// A is split here (kFast) or read from the slot's split planes (kPre,
+// where a ring of Planes holds them). A stage's slot is released
+// (each warp arrives on its empty barrier, and with kPeer on its peer
+// CTA's unless peer is kNoPeer) once its last group is done. Ends with
 // every group done.
-template <class R, int K, int KW, Split kSplit>
+template <class R, int K, int KW, Split kSplit, bool kPeer = false>
 __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart& p, const char* ring,
                                              uint32_t full, uint32_t empty, int& it,
-                                             float (&acc)[R::kNT / 2]) {
+                                             float (&acc)[R::kNT / 2], uint32_t peer = kNoPeer) {
   constexpr int NT = R::kNT;
   constexpr int kPad = K / 2;
   constexpr int kUnit = K == 1 ? R::kCh : KW;
   static_assert(kUnit == 2 || kUnit == 3 || kUnit == 4 || kUnit == 5,
                 "consecutive groups need distinct register sets");
+  static_assert(kSplit != Split::kPre || R::kWOff == 2 * R::kABytes, "kPre reads the split planes");
   constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
   constexpr uint32_t kBlock = weight_block_bytes(NT, K);
   const int lane = threadIdx.x & 31;
@@ -361,16 +487,21 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
     for (int v = 0; v < 4; ++v) {  // a0: (g, t), a1: (g + 8, t), a2: (g, t + 4), a3: (g + 8, t + 4)
       const int h = v & 1;
       const bool ok = (tr.ok[h] >> k) & 1u;
-      const float x = xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)];
-      if constexpr (kSplit == Split::kRna)
-        split_tf32(ok ? x : 0.0f, ab[v], as[v]);
-      else
+      if constexpr (kSplit == Split::kPre) {
+        const uint32_t* planes = reinterpret_cast<const uint32_t*>(st);
+        const int i = swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4);
+        const uint32_t b = planes[i], s = planes[i + R::kABytes / 4];
+        ab[v] = ok ? b : 0u;
+        as[v] = ok ? s : 0u;
+      } else {
+        const float x = xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)];
         split_tf32_fast(ok ? x : 0.0f, ab[v], as[v]);
+      }
     }
   };
   // its 3 passes on the tap's weight planes, committed as one group
   auto issue = [&](const char* st, int ch, int k, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
-    const uint32_t big = smem_u32(st + R::kABytes) + ch * kBlock + 2 * k * kPlane;
+    const uint32_t big = smem_u32(st + R::kWOff) + ch * kBlock + 2 * k * kPlane;
     wgmma_fence();
     wgmma_tf32(acc, as, weight_desc(big));
     wgmma_tf32(acc, ab, weight_desc(big + kPlane));
@@ -379,7 +510,11 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
   };
   auto release = [&](int slot) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * slot);
+    if (lane == 0) {
+      mbar_arrive(empty + 8 * slot);
+      if constexpr (kPeer)
+        if (peer != kNoPeer) mbar_arrive_peer(empty + 8 * slot, peer);
+    }
   };
   int held = -1;  // a slot whose last group may still be in flight
   for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
@@ -404,6 +539,135 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
         }
       }
     }
+    held = slot;
+  }
+  wgmma_wait_all();
+  fence_acc(acc);
+  if (held >= 0) release(held);
+}
+
+// The forward's barriers: per ring slot `full` (the split planes and the
+// weight blocks are in: the producer's arrival with the weights' bytes and
+// one arrival a splitting warp), `empty` (cs x kWarps arrivals: every
+// consumer warp of the cluster) and `abox` (the A box is in); the cluster's
+// size cs (1 or 2), this CTA's rank in it and its peer (kNoPeer for cs = 1).
+struct FwdRing {
+  uint32_t full, empty, abox;
+  int cs;
+  uint32_t rank, peer;
+};
+constexpr int kSplitWarps = 3;  // the producer warpgroup's warps after the first
+
+// The forward's producer warp: for each stage of the part, once the slot is
+// free in both CTAs of the cluster, one thread loads this CTA's A box (box:
+// a callable (dst, channel, barrier) that issues the TMA), counted on
+// `abox`, and its share of the stage's weight blocks: all of them (cs = 1),
+// or half, multicast to both CTAs (cs = 2); the full barrier of each CTA
+// expects the whole.
+template <class R, class Box>
+__device__ __forceinline__ void ring_feed(const RingPart& p, const Box& box, char* ring, const FwdRing& f,
+                                          int& it) {
+  const uint32_t block = weight_block_bytes(R::kNT, p.taps);
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    mbar_wait(f.empty + 8 * slot, ((it / R::kStages) & 1) ^ 1);
+    if ((threadIdx.x & 31) == 0) {
+      char* st = ring + slot * R::kStageBytes;
+      mbar_expect_tx(f.abox + 8 * slot, kTileRows * R::kPitch);
+      box(st, c * kChunk, f.abox + 8 * slot);
+      const uint32_t wbytes = min(R::kCh, p.c1 - c) * block;
+      const char* w = p.w + size_t(c) * block;
+      mbar_expect_tx(f.full + 8 * slot, wbytes);
+      if (f.cs == 1) {
+        bulk_load(st + R::kWOff, w, wbytes, f.full + 8 * slot);
+      } else {
+        const uint32_t half = wbytes / 2, off = f.rank * half;  // wbytes: a multiple of 256
+        bulk_load_pair(st + R::kWOff + off, w + off, half, f.full + 8 * slot);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The forward's splitting warps (kSplitWarps, thread t of 32 * kSplitWarps):
+// once a stage's A box is in, each 16-byte unit v of it becomes tf32 big
+// (in place) and small (at the same offset of the plane beside it),
+// split_tf32 with round-to-nearest as the dgrads' consumers would split
+// it, in the box's own swizzled order; then each warp arrives on the full
+// barrier, its writes fenced for the async proxy that wgmma reads with.
+template <class R>
+__device__ __forceinline__ void ring_split(const RingPart& p, char* ring, const FwdRing& f, int t, int& it) {
+  constexpr int kUnits = kTileRows * R::kPitch / 16;
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    mbar_wait(f.abox + 8 * slot, (it / R::kStages) & 1);
+    uint4* big = reinterpret_cast<uint4*>(ring + slot * R::kStageBytes);
+    uint4* small = big + R::kABytes / 16;
+#pragma unroll 2
+    for (int i = t; i < kUnits; i += 32 * kSplitWarps) {
+      const float4 v = *reinterpret_cast<const float4*>(big + i);
+      uint4 b, s;
+      split_tf32(v.x, b.x, s.x);
+      split_tf32(v.y, b.y, s.y);
+      split_tf32(v.z, b.z, s.z);
+      split_tf32(v.w, b.w, s.w);
+      big[i] = b;
+      small[i] = s;
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(f.full + 8 * slot);
+  }
+}
+
+// A consumer warpgroup's share of one part with A from the split planes in
+// shared memory: per stage one wgmma group of all its chunks x taps x 3
+// passes (small*big, big*small, big*big, in the order of ring_consume),
+// one group in flight; the slot of the group before is released once it is
+// done. Tap u of the warpgroup's window (weights of tap klo + u) reads A's
+// 64 rows from box row arow + 64 u: at T = 3 (K = 5, position-major) the
+// window's three taps read positions 0, 1 and 2, whole 64-row blocks, the
+// weights' taps 2 - t .. 4 - t for the warpgroup's position t; for the 1x1
+// projection (K = 1) the warpgroup's own 64 natural rows.
+template <class R, int K>
+__device__ __forceinline__ void ring_consume_ss(int klo, int arow, const RingPart& p, const char* ring,
+                                                const FwdRing& f, int& it, float (&acc)[R::kNT / 2]) {
+  constexpr int NT = R::kNT;
+  constexpr int KW = K == 1 ? 1 : 3;
+  constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
+  constexpr uint32_t kBlock = weight_block_bytes(NT, K);
+  static_assert(R::kWOff == 2 * R::kABytes, "A comes from the split planes");
+  const int lane = threadIdx.x & 31;
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(f.empty + 8 * slot);
+      if (f.peer != kNoPeer) mbar_arrive_peer(f.empty + 8 * slot, f.peer);
+    }
+  };
+  int held = -1;  // the slot of the group in flight
+  for (int c = p.c0; c < p.c1; c += R::kCh, ++it) {
+    const int slot = it % R::kStages;
+    const int nch = min(R::kCh, p.c1 - c);
+    const uint32_t st = smem_u32(ring + slot * R::kStageBytes);
+    mbar_wait(f.full + 8 * slot, (it / R::kStages) & 1);
+#pragma unroll
+    for (int ch = 0; ch < R::kCh; ++ch) {
+      if (ch == 0 || ch < nch) {  // a slot holds one chunk at least
+        wgmma_fence();  // in the branch: ptxas would inject one before a chunk it cannot prove runs
+#pragma unroll
+        for (int u = 0; u < KW; ++u) {
+          const uint32_t a = st + (arow + 64 * u) * R::kPitch + 32 * ch;  // big; small kABytes on
+          const uint32_t b = st + R::kWOff + ch * kBlock + 2 * (klo + u) * kPlane;
+          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a + R::kABytes), weight_desc(b));
+          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a), weight_desc(b + kPlane));
+          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a), weight_desc(b));
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_1();
+    if (held >= 0) release(held);
     held = slot;
   }
   wgmma_wait_all();
@@ -447,6 +711,27 @@ cudaError_t ring_map(CUtensorMap* m, const float* d, int R, int C, int pitch) {
                                      : pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The forward's position-major view of x [B, T, C] at T = 3: boxes of one
+// position t x 64 samples x one ring stage's channels (rows of `pitch`
+// bytes, swizzled over as many), so that three boxes, t = 0, 1, 2, lay a
+// tile's 192 rows out position-major (tile row t * 64 + s); what a box
+// reaches past the tensor reads zeros.
+cudaError_t position_map(CUtensorMap* m, const float* d, int B, int T, int C, int pitch) {
+  EncodeTiled fn;
+  CINDM_TRY(encode_tiled(&fn));
+  const cuuint64_t dims[3] = {cuuint64_t(C), cuuint64_t(T), cuuint64_t(B)};
+  const cuuint64_t strides[2] = {cuuint64_t(C) * 4, cuuint64_t(T) * C * 4};
+  const cuuint32_t box[3] = {cuuint32_t(pitch / 4), 1, 64};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = pitch == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(d), dims, strides, box,
                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

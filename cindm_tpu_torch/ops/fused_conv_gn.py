@@ -211,7 +211,7 @@ def _conv_gn_mish(x, w, b, gn_scale, gn_bias, groups, eps, save: bool) -> tuple:
         lib.cindm_fused_conv1d_gn_mish_saving if save else lib.cindm_fused_conv1d_gn_mish,
         *map(_build.ptr, (x, w, b, gn_scale, gn_bias, out, *saved, scratch)),
         scratch.numel() * 4, B, T, C, O, K, groups, eps, plan.samples, plan.n_tile,
-        plan.ctas, plan.smem_bytes,
+        plan.ctas, plan.cluster, plan.smem_bytes,
     )
     _build.raise_on_error("fused_conv1d_gn_mish", err)
     fused_conv1d_gn_mish.launches += 1

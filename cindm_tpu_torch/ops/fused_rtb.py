@@ -188,23 +188,22 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
     _build.check_aligned("fused_rtb", x=x, temb=temb, w1=w1, w2=w2, wres=wres, gs1=gs1,
                          gb1=gb1, gs2=gs2, gb2=gb2)
     sms = _build.num_sms(x.device)
-    plan1 = _build.plan_stage(B, T, C, O, groups, K, num_sms=sms)
-    plan2 = _build.plan_stage(B, T, O, O, groups, K, proj=wres is not None, num_sms=sms)
+    plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=sms)  # both stages' (it does not depend on C)
     lib = _build.load()
     h = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     saved = ()
     if save:
         saved = tuple(_build.carve(x.device, (B, T, O), (B, T, O), *[(B, groups)] * 4))
-    nbytes = plan1.weight_bytes(C) + plan1.weight_bytes(O) + (
-        plan1.weight_bytes(C, K=1) if wres is not None else 0)
+    nbytes = plan.weight_bytes(C) + plan.weight_bytes(O) + (
+        plan.weight_bytes(C, K=1) if wres is not None else 0)
     scratch = _build.scratch(nbytes, x.device)
     err = _build.call_on(
         x.device, lib.cindm_fused_rtb_saving if save else lib.cindm_fused_rtb,
         *map(_build.ptr, (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out,
                           *saved, scratch)),
-        scratch.numel() * 4, B, T, C, O, K, groups, eps, plan1.samples, plan1.n_tile,
-        plan1.ctas, plan1.smem_bytes, plan2.smem_bytes,
+        scratch.numel() * 4, B, T, C, O, K, groups, eps, plan.samples, plan.n_tile,
+        plan.ctas, plan.cluster, plan.smem_bytes, plan.smem_bytes,
     )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1

@@ -130,6 +130,7 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False)
             rows.append({"C": C, "O": O, "T": T, "kernel": "fused_conv1d_gn_mish" if head else "fused_rtb",
                          "ms": events_ms(torch, call, reps), "n_tile": plan.n_tile,
                          "tiles": plan.grid[0] * plan.grid[1], "ctas": getattr(plan, "ctas", None),
+                         "cluster": getattr(plan, "cluster", None),
                          "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps)})
             del x, p
         model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()

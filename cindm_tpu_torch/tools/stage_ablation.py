@@ -11,22 +11,30 @@ times mean something. Each cut patches one or two places, each of whose
 patterns must occur exactly once in its source (``patched``). Variants:
 
     base      the kernel as it is
-    nomma     no wgmma (the A fragments are still loaded and split)
+    nomma     no wgmma (A by descriptor at T = 3; elsewhere the fragments
+              are still loaded from the split planes)
+    nosplit   the producer warpgroup's split cut: A left as loaded (the
+              planes are not written; the consumers read what lies there)
+    nomcast   clusters of one CTA: each CTA copies its own weight blocks
+              (the plan's cluster 1, as the C side then recomputes it)
     noepi     a tile's consumers stop after its accumulator tile is stored
               (no GroupNorm statistics, no Mish, no output)
     nostats   no GroupNorm statistics
     nofinal   no normalise/Mish/store pass
-    nocopy    weight blocks copied into the ring's first stages only (no
+    nocopy    weight blocks copied into the ring's first slots only (no
               bulk copies after; the TMA boxes of the input still run)
-    noa       no A fragments loaded from shared memory (constants instead)
+    noa       no A fragments loaded from the split planes (constants
+              instead): cuts a part only where T != 3 (at T = 3 A comes
+              by descriptor)
+    rega64    not a cut: at T = 3 and N tile 64, A's fragments from the
+              split planes into registers instead of by descriptor (the
+              choice kDescA did not take; its time and result are real)
 
-(The cp.async loop's own parts, its per-chunk barrier and its input ring,
-went with it; the persistent walk has no part to cut out alone.) The
-projection never runs here (the head's stage has none), so a variant that
-skips part of a tile's epilogue cannot leave ring stages unconsumed; noepi
-still tells a deep launch's producer that the tile is free.
-Prints one JSON line per shape with ms per variant, then the nvidia-smi
-name and power limit line. Needs nvcc and one CUDA device.
+The projection never runs here (the head's stage has none), so a variant
+that skips part of a tile's epilogue cannot leave ring stages unconsumed;
+noepi still tells a deep launch's producers (its own and its peer's) that
+the tile is free. Prints one JSON line per shape with ms per variant, then
+the nvidia-smi name and power limit line. Needs nvcc and one CUDA device.
 """
 
 from __future__ import annotations
@@ -45,27 +53,39 @@ from cindm_tpu_torch.ops import _build
 _MMA = """    wgmma_tf32(acc, as, weight_desc(big));
     wgmma_tf32(acc, ab, weight_desc(big + kPlane));
     wgmma_tf32(acc, ab, weight_desc(big));"""
-_COPY = """      mbar_expect_tx(full + 8 * slot, kTileRows * R::kPitch + wbytes);
-      tma_load_2d(st, map, c * kChunk, row0, full + 8 * slot);
-      bulk_load(st + R::kABytes, p.w + size_t(c) * block, wbytes, full + 8 * slot);"""
+_MMA_SS = """          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a + R::kABytes), weight_desc(b));
+          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a), weight_desc(b + kPlane));
+          wgmma_tf32_ss(acc, box_desc<R::kPitch>(a), weight_desc(b));"""
+_COPY = """      mbar_expect_tx(f.full + 8 * slot, wbytes);
+      if (f.cs == 1) {"""
+_SPLIT = """#pragma unroll 2
+    for (int i = t; i < kUnits; i += 32 * kSplitWarps) {"""
 RING, STAGE = "stage_ring.cuh", "conv_gn_mish.cuh"
 # variant: [(source, pattern, replacement)]
 VARIANTS = {
     "base": [],
-    "nomma": [(RING, _MMA, "    acc[0] += __uint_as_float(as[0] ^ ab[1] ^ as[2] ^ ab[3] ^ big);")],
+    "nomma": [(RING, _MMA, "    acc[0] += __uint_as_float(as[0] ^ ab[1] ^ as[2] ^ ab[3] ^ big);"),
+              (RING, _MMA_SS, "          acc[0] += __uint_as_float(uint32_t(a ^ b));")],
+    "nosplit": [(RING, _SPLIT, "    for (int i = kUnits + t; i < kUnits; ++i) {")],
+    "nomcast": [(STAGE, "stage_cluster(int row_tiles) { return row_tiles > 1 ? 2 : 1; }",
+                 "stage_cluster(int row_tiles) { return row_tiles > 0 ? 1 : 1; }")],
     "noepi": [(STAGE, "  consumer_sync();\n  tile_stats<NT>(",
-               "  consumer_sync();\n  if (a.eps > 0.f) {\n    if (kDeep && lane == 0) mbar_arrive(epi);\n"
-               "    return;\n  }\n  tile_stats<NT>(")],
+               "  consumer_sync();\n  if (a.eps > 0.f) {\n    if (kDeep && lane == 0) {\n      mbar_arrive(epi);\n"
+               "      if (f.peer != kNoPeer) mbar_arrive_peer(epi, f.peer);\n    }\n    return;\n  }\n"
+               "  tile_stats<NT>(")],
     "nostats": [(STAGE, "  tile_stats<NT>(tile, ns, a.T, gpt, og, a.eps, mean, rstd);\n", "")],
     "nofinal": [(STAGE, "  if (c < ncols) {\n    const float4 scale",
                  "  if (c < ncols && a.eps < 0.f) {\n    const float4 scale")],
-    "nocopy": [(RING, _COPY, """      const bool w = it < R::kStages;
-      mbar_expect_tx(full + 8 * slot, kTileRows * R::kPitch + (w ? wbytes : 0u));
-      tma_load_2d(st, map, c * kChunk, row0, full + 8 * slot);
-      if (w) bulk_load(st + R::kABytes, p.w + size_t(c) * block, wbytes, full + 8 * slot);""")],
-    "noa": [(RING, "xs[swizzled<R::kPitch>(ok ? tr.r[h] + k - kPad : 0, 2 * ch + (v >> 1), q4)]",
-             "__uint_as_float(threadIdx.x * 7u + k)")],
+    "nocopy": [(RING, _COPY, """      const bool first = it < R::kStages;
+      mbar_expect_tx(f.full + 8 * slot, first ? wbytes : 0u);
+      if (!first) {
+      } else if (f.cs == 1) {""")],
+    "noa": [(RING, "const uint32_t b = planes[i], s = planes[i + R::kABytes / 4];",
+             "const uint32_t b = threadIdx.x * 7u + k + i, s = b ^ 1u;")],
+    "rega64": [(STAGE, "constexpr bool kDescA = KW == 3;", "constexpr bool kDescA = KW == 3 && NT == 128;"),
+               (STAGE, "if (a.T == 3)  // kDescA", "if (a.T == 3 && nt == 128)  // kDescA")],
 }
+CLUSTER = {"nomcast": 1}  # the plan's cluster size where a variant changes it
 # (C, O, T) of the flagship's stages: T = 3, 6, 12, 24 and the head
 SHAPES = [(512, 512, 3), (1024, 512, 3), (512, 256, 3), (256, 256, 6), (128, 128, 12), (64, 64, 24)]
 BATCH = 5376
@@ -129,12 +149,15 @@ def main(argv: list[str]) -> int:
             plan = _build.plan_stage(BATCH, T, C, O, 8, num_sms=_build.num_sms(dev))
             scratch = _build.scratch(plan.weight_bytes(C), dev)
             row = {"C": C, "O": O, "T": T, "B": BATCH, "n_tile": plan.n_tile, "tiles": plan.tiles,
-                   "ctas": plan.ctas}
+                   "ctas": plan.ctas, "cluster": plan.cluster}
             for n, fn in fns.items():
-                def call(fn=fn):
+                cs = CLUSTER.get(n, plan.cluster)
+                ctas = plan.ctas if cs == plan.cluster else min(plan.tiles, _build.num_sms(dev))
+
+                def call(fn=fn, cs=cs, ctas=ctas):
                     err = fn(*(t.data_ptr() for t in (x, w, b, gs, gb, out, scratch)),
                              scratch.numel() * 4, BATCH, T, C, O, 5, 8, 1e-5, plan.samples,
-                             plan.n_tile, plan.ctas, plan.smem_bytes, stream)
+                             plan.n_tile, ctas, cs, plan.smem_bytes, stream)
                     if err:
                         raise RuntimeError(f"{n}: cudaError_t {err}")
                 row[n + "_ms"] = ms_per_call(call)

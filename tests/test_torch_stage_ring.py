@@ -1,15 +1,19 @@
 """The forward stage on the shared main loop (``cindm_tpu_torch/ops/csrc/
 conv_gn_mish.cuh`` on ``stage_ring.cuh``), checked on the CPU.
 
-The stage runs persistent CTAs, at most one an SM, each walking the plan's
-(row tile, N tile) pairs in a fixed order; a producer warp fills a ring of
-stages of whole chunks (one TMA box of the tile's 192 rows, one bulk copy
-of the stage's weight blocks) for three consumer warpgroups. Here the plan
-(``_build.plan_stage``) is held to the rules that walk and ring need at
-every shape the denoiser and the smoke's other paths launch, the N-tile
+The stage runs persistent clusters of two CTAs (one where there is one row
+tile), at most one CTA an SM, each cluster walking the plan's (row-tile
+pair, N tile) items in a fixed order; in each CTA a producer warp fills a
+ring of one-chunk slots (a TMA box of the tile's 192 rows, and half of the
+slot's weight blocks multicast to both CTAs), three more warps split each
+box into tf32 big and small planes, and three consumer warpgroups run the
+wgmmas. Here the plan (``_build.plan_stage``) is held to the rules that
+walk and ring need at every shape the denoiser and the smoke's other paths
+launch and at the batches that leave an odd count of row tiles, the N-tile
 rule to its choices at batch 5,376, and a numpy emulation of the loop
-(``torch_stage_emulation``) to the JAX package's ``fused_rtb`` and
-``fused_conv1d_gn_mish`` and, bit for bit, to the earlier loop's order."""
+(``torch_stage_emulation``: A from the split planes, by descriptor at
+T = 3) to the JAX package's ``fused_rtb`` and ``fused_conv1d_gn_mish`` and,
+bit for bit, to the earlier loop's order."""
 
 import re
 
@@ -40,46 +44,60 @@ STAGE_RING = (_build.CSRC / "stage_ring.cuh").read_text()
 CONV_GN_MISH = (_build.CSRC / "conv_gn_mish.cuh").read_text()
 
 
-def check_plan(B, T, C, O, proj):
+def check_plan(B, T, C, O):
     """The rules the persistent walk, the ring and the launch's own check
     need of one stage's plan."""
     G = 8
-    plan = _build.plan_stage(B, T, C, O, G, proj=proj)
+    plan = _build.plan_stage(B, T, C, O, G)
     nt, og = plan.n_tile, O // G
-    # the walk (conv_gn_mish_stage: CTA q takes tiles t = q, q + ctas, ..,
-    # tile t being row tile t / N tiles and N tile t % N tiles) covers every
-    # (row tile, N tile) once, at most one CTA an SM
-    walked = [divmod(t, plan.grid[1]) for q in range(plan.ctas) for t in range(q, plan.tiles, plan.ctas)]
-    assert sorted(walked) == [(r, n) for r in range(plan.grid[0]) for n in range(plan.grid[1])]
-    assert plan.ctas == min(plan.tiles, _build.H100_SMS)
+    # the walk (conv_gn_mish_stage: cluster q of ctas / cs takes items i = q,
+    # q + clusters, .., its rank r row tile cs * (i / N tiles) + r and N tile
+    # i % N tiles) covers every (row tile, N tile) once, at most one CTA an
+    # SM; the only row tiles past the last are the partners of an odd last one
+    cs = plan.cluster
+    assert cs == (2 if plan.grid[0] > 1 else 1)
+    assert plan.ctas % cs == 0 and plan.ctas <= _build.H100_SMS
+    assert plan.ctas == cs * min(plan.items, _build.H100_SMS // cs)
+    walked = [w for q in range(plan.ctas) for w in plan.walk(q)]
+    real = sorted(w for w in walked if w[0] < plan.grid[0])
+    assert real == [(r, n) for r in range(plan.grid[0]) for n in range(plan.grid[1])]
+    idle = [w for w in walked if w[0] >= plan.grid[0]]
+    assert len(idle) == (plan.grid[0] % cs and plan.grid[1]) and all(r == plan.grid[0] for r, _ in idle)
+    for q in range(0, plan.ctas, cs):  # the CTAs of a cluster walk the same items in step
+        walks = [plan.walk(q + r) for r in range(cs)]
+        assert all([(x[0] - r, x[1]) for x in w] == walks[0] for r, w in enumerate(walks))
     # shared memory: the C side's stage_smem_bytes restated from its parts
-    ch, stages, ring = _build.stage_ring(nt)
-    stage = -(-(-(-192 * 32 * ch // 1024) * 1024 + ch * 2 * K * (nt // 8) * 256) // 1024) * 1024
-    assert ring == stages * stage
+    box = 192 * 32  # one chunk's rows, 32 bytes each
+    slot = -(-(2 * box + 2 * K * (nt // 8) * 256) // 1024) * 1024  # box, small plane, weight blocks
+    assert _build.fwd_ring(nt)[1] == slot == {64: 32768, 128: 53248}[nt]
     gpt = min(O, nt) // og
     tile = 192 * (nt + 4) * 4
-    if nt == 128 and not proj:  # deep: 4 slots under the tile
-        assert 4 * stage >= tile
-        region, stages = 4 * stage, 4
-    else:  # the tile beside the ring
-        region = ring + tile
-    assert plan.smem_bytes == 1024 + region + 8 * plan.samples * gpt + 16 * stages + 8
+    if nt == 128:  # deep: 4 slots under the tile
+        assert 4 * slot >= tile
+        region, stages = 4 * slot, 4
+    else:  # 5 slots, the tile beside them
+        region, stages = 5 * slot + tile, 5
+    assert plan.smem_bytes == 1024 + region + 8 * plan.samples * gpt + 24 * stages + 8
     assert plan.smem_bytes <= _build.SMEM_MAX == 232448
-    # every TMA box's row pitch (the stage's channels: the conv's, the
-    # projection's) and every tensor's row pitch it reads (x, h, xres) are
-    # whole 16-byte units, within the 128-byte swizzle's span
-    pch = _build.PROJ_CHUNKS[nt]
-    assert all(32 * c % 16 == 0 and 32 * c <= 128 for c in (ch, pch))
+    # every TMA box's row pitch (the conv's one chunk, the projection's
+    # two) and every tensor's row pitch it reads (x, h, xres) are whole
+    # 16-byte units, within the 128-byte swizzle's span; at T = 3 the
+    # position-major boxes are 64 samples of one position
+    pch = _build.PROJ_CHUNKS
+    assert all(32 * c % 16 == 0 and 32 * c <= 128 for c in (1, pch))
     assert all(4 * c % 16 == 0 for c in (C, O))
-    # a projection stage (its box and pch blocks of one tap) fits a slot
-    assert -(-192 * 32 * pch // 1024) * 1024 + pch * 2 * (nt // 8) * 256 <= stage
-    # every bulk copy (a stage's weight blocks, of 5 taps or of the
-    # projection's 1) and its source offset are whole 16-byte units
+    assert T != 3 or plan.samples == 64
+    # a projection slot (its box, small plane and pch blocks of one tap) fits a slot
+    assert 2 * 192 * 32 * pch + pch * 2 * (nt // 8) * 256 <= slot
+    # every bulk copy (a slot's weight blocks, of 5 taps or of the
+    # projection's 1), each half a multicast moves and its source offset
+    # are whole 16-byte units
     nch = -(-C // 8)
-    for taps, per in ((K, ch), (1, pch)):
+    for taps, per in ((K, 1), (1, pch)):
         block = 2 * taps * (nt // 8) * 256
         for c in range(0, nch, per):
-            assert (min(per, nch - c) * block) % 16 == 0 and (c * block) % 16 == 0
+            size = min(per, nch - c) * block
+            assert size % 32 == 0 and (c * block) % 16 == 0 and (size // 2) % 16 == 0
     assert plan.weight_bytes(C) % 16 == 0 and plan.weight_bytes(C, K=1) % 16 == 0
     return plan
 
@@ -92,9 +110,29 @@ def _plans():
 
 @pytest.mark.parametrize("C,O,T,B", list(_plans()), ids=lambda v: str(v))
 def test_stage_plan_walks_every_tile_once_within_the_card(C, O, T, B):
-    plan = check_plan(B, T, C, O, proj=C != O)
-    other = check_plan(B, T, C, O, proj=C == O)
-    assert (other.n_tile, other.grid, other.ctas) == (plan.n_tile, plan.grid, plan.ctas)
+    plan = check_plan(B, T, C, O)
+    second = check_plan(B, T, O, O)  # a block's second stage launches with the first's plan
+    assert second == plan
+
+
+@pytest.mark.parametrize("B", [5376, 5000, 512])
+@pytest.mark.parametrize("C,O,T", RTB_SHAPES[:8] + RTB_SHAPES[10:] + [HEAD_SHAPE], ids=lambda v: str(v))
+def test_cluster_pairs_walk_every_tile_once(C, O, T, B):
+    """Under cluster pairing every (row tile, N tile) runs once, in a
+    cluster of 2; at batch 5,000 every T leaves an odd count of row tiles
+    (625, 313, 157, 79), whose last tile's partner only keeps the ring
+    going, one such item an N tile."""
+    plan = check_plan(B, T, C, O)
+    assert plan.cluster == 2
+    if B == 5000:
+        assert plan.grid[0] == {24: 625, 12: 313, 6: 157, 3: 79}[T]
+        assert sum(r >= plan.grid[0] for q in range(plan.ctas) for r, _ in plan.walk(q)) == plan.grid[1]
+
+
+def test_one_row_tile_runs_without_a_partner():
+    for B, T in ((8, 24), (64, 3), (1, 12)):
+        plan = check_plan(B, T, 64, 64)
+        assert plan.grid[0] == 1 and plan.cluster == 1 and plan.ctas == plan.tiles
 
 
 def test_stage_plan_at_the_smoke_s_other_paths_shapes():
@@ -108,7 +146,7 @@ def test_stage_plan_at_the_smoke_s_other_paths_shapes():
     shapes += [tuple(s) for s in listed["rtb_analysis_shapes"]]
     assert len(shapes) >= 10 and min(T for _, _, T, _ in shapes) == 1
     for C, O, T, B in shapes:
-        check_plan(B, T, C, O, proj=False)
+        check_plan(B, T, C, O)
 
 
 def test_the_forward_profile_runs_the_smoke_s_design():
@@ -123,10 +161,12 @@ def test_the_forward_profile_runs_the_smoke_s_design():
 def test_n_tile_takes_the_fewer_waves_of_work_and_the_wide_tile_on_a_tie():
     def nt(C, O, T, B=5376):
         return _build.plan_stage(B, T, C, O, 8).n_tile
-    # 168 tiles of 128 channels: 2 waves x 128 > 3 waves (336 tiles) x 64
+    # 84 cluster items of 128 channels on 66 clusters: 2 waves x 128 > 3
+    # waves (168 items) x 64
     assert nt(512, 256, 3) == 64 and nt(256, 128, 6) == 64
     assert _build.plan_stage(5376, 3, 512, 256, 8).tiles == 336
-    # a tie (336 tiles of 128, 3 waves, against 672 of 64, 6 waves): the wide tile
+    assert _build.plan_stage(5376, 3, 512, 256, 8).items == 168
+    # a tie (168 items of 128, 3 waves, against 336 of 64, 6 waves): the wide tile
     assert nt(1024, 512, 3) == 128 and nt(512, 512, 3) == 128 and nt(64, 128, 12) == 128
     # one N tile of either width: the narrow one is less work
     assert nt(64, 64, 24) == 64
@@ -135,23 +175,48 @@ def test_n_tile_takes_the_fewer_waves_of_work_and_the_wide_tile_on_a_tie():
 
 
 def test_the_plan_mirrors_the_c_constants():
-    """_build's ring and shared-memory mirror restate stage_ring.cuh's and
-    conv_gn_mish.cuh's: chunks a stage, stages, and the bytes' terms."""
-    assert "template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0>" in STAGE_RING
+    """_build's ring, cluster and shared-memory mirror restate stage_ring.cuh's
+    and conv_gn_mish.cuh's: chunks and stages of the dgrads' ring and of the
+    forward's, the forward's split planes, the cluster rule and the bytes'
+    terms."""
+    assert "template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0," in STAGE_RING
+    assert "static constexpr size_t kWOff = Planes ? 2 * kABytes : kABytes;" in STAGE_RING
     assert [_build.stage_ring(nt)[:2] for nt in (64, 128)] == [(2, 3), (1, 2)]
-    body = re.search(r"stage_smem_bytes\(int nt, int samples, int groups_per_tile, bool deep\) \{(.*?)\n\}",
+    assert "using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kDeepStages, 1, 0, true>;" in CONV_GN_MISH
+    assert [_build.fwd_ring(nt)[0] for nt in (64, 128)] == [5, 4]
+    body = re.search(r"stage_smem_bytes\(int nt, int samples, int groups_per_tile\) \{(.*?)\n\}",
                      CONV_GN_MISH, re.S).group(1)
-    assert "const int stages = deep ? kDeepStages" in body
+    assert "const bool deep = nt == 128;" in body
+    assert "const int stages = deep ? kDeepStages : kNarrowStages;" in body
     assert "deep ? (ring > tile_bytes(nt) ? ring : tile_bytes(nt)) : ring + tile_bytes(nt)" in body
-    assert "1024 + region + 8 * size_t(samples) * groups_per_tile + 16 * stages + 8" in body
+    assert "1024 + region + 8 * size_t(samples) * groups_per_tile + 24 * stages + 8" in body
     assert f"constexpr int kDeepStages = {_build.DEEP_STAGES};" in CONV_GN_MISH
-    assert "const bool deep = nt == 128 && !proj;" in CONV_GN_MISH
-    assert "using ProjRing = StageRing<NT, ConvRing<NT, kDeep>::kStages, NT == 64 ? 4 : 2," in CONV_GN_MISH
-    assert _build.PROJ_CHUNKS == {64: 4, 128: 2}
-    assert "*ctas = tiles < sms ? tiles : sms;" in CONV_GN_MISH
+    assert f"constexpr int kNarrowStages = {_build.NARROW_STAGES};" in CONV_GN_MISH
+    assert f"constexpr int kProjChunks = {_build.PROJ_CHUNKS};" in CONV_GN_MISH
+    assert "constexpr bool kDeep = NT == 128;" in CONV_GN_MISH
+    assert f"stage_cluster(int row_tiles) {{ return row_tiles > 1 ? {_build.STAGE_CLUSTER} : 1; }}" in CONV_GN_MISH
+    assert "*ctas = cs * (items < sms / cs ? items : sms / cs);" in CONV_GN_MISH
+    assert "if (cs != a.cs || ctas != want) return cudaErrorInvalidValue;" in CONV_GN_MISH
+    # the split planes, the box's 16-byte units, the multicast's mask of both CTAs
+    assert "constexpr int kSplitWarps = 3;" in STAGE_RING
+    assert "multicast::cluster" in STAGE_RING and '"h"(static_cast<uint16_t>(0x3))' in STAGE_RING
     for gone in ("conv_gemm", "cp_async", "kXStages", "kXStride"):
         assert gone not in CONV_GN_MISH + STAGE_RING
     assert not hasattr(_build, "X_STAGES") and not hasattr(_build, "X_STRIDE")
+
+
+def test_the_forward_splits_as_the_parent_s_consumers_did():
+    """ring_split turns a box into planes with split_tf32 (round-to-nearest
+    for both halves), and no forward consumer splits: the conv at T = 3 and
+    the projection read A by descriptor, the conv at other T from the
+    planes (Split::kPre); the dgrads keep Split::kFast."""
+    split = re.search(r"void ring_split\(.*?\n\}", STAGE_RING, re.S).group(0)
+    assert split.count("split_tf32(v.") == 4 and "split_tf32_fast" not in split
+    assert "Split::kRna" not in CONV_GN_MISH and CONV_GN_MISH.count("Split::kPre") == 1
+    assert "ring_consume_ss<CR, kConvK>" in CONV_GN_MISH and "ring_consume_ss<PR, 1>" in CONV_GN_MISH
+    backward = (_build.CSRC / "conv_backward.cuh").read_text()
+    assert "ring_consume_ss" not in backward and "ring_feed" not in backward
+    assert backward.count("Split::kFast>") == 3
 
 
 @pytest.mark.parametrize("name", list(stage_ablation.VARIANTS))

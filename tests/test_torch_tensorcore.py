@@ -115,7 +115,7 @@ def _plans():
                          ids=lambda v: str(v))
 def test_plan_stage_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, proj):
     G = 8
-    plan = _build.plan_stage(B, T, C, O, G, proj=proj)
+    plan = _build.plan_stage(B, T, O if proj else C, O, G)  # proj: a block's second stage, O -> O
     og = O // G
     assert plan.smem_bytes <= _build.SMEM_MAX == 232448
     assert plan.samples == _build.TILE_ROWS // T and plan.samples * T <= 192  # whole samples
@@ -131,8 +131,8 @@ def test_plan_stage_is_legal_at_every_shape_of_the_denoiser(C, O, T, B, proj):
 
 
 def test_plan_stage_prefers_the_wide_tile_and_falls_back_where_the_grid_is_small():
-    assert _build.plan_stage(5376, 3, 1024, 512, 8, proj=True).n_tile == 128
-    assert _build.plan_stage(512, 3, 1024, 512, 8, proj=True).n_tile == 64  # 32 blocks < 132 SMs
+    assert _build.plan_stage(5376, 3, 1024, 512, 8).n_tile == 128
+    assert _build.plan_stage(512, 3, 1024, 512, 8).n_tile == 64  # 32 blocks < 132 SMs
     assert _build.plan_stage(5376, 24, 64, 64, 8).n_tile == 64
     assert _build.plan_stage(5376, 5, 16, 40, 8).n_tile == 64  # one tile holds all 8 groups of 5
 

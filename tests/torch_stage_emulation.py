@@ -3,20 +3,26 @@
 shared by the CPU tests and the card tests. It imports no JAX.
 
 A tile is 192 rows of whole samples x an N tile of nt channels. Its three
-warpgroups hold 64 tile rows each (row-major, or position-major at T <= 3,
-where a warpgroup issues only a window of 3 of the 5 taps; ``tile_rows``).
-K streams through a ring: a stage holds kCh = 2 chunks of 8 input channels
-at nt = 64 (1 at nt = 128; the projection's part 4 and 2) as one TMA box
-of the tile's 192 rows, laid out
+warpgroups hold 64 tile rows each: position-major at T = 3 (tile row t * 64
++ s, a warpgroup a position, whose window of 3 of the 5 taps reads the
+three positions' 64-row blocks), row-major otherwise (``fwd_tile_rows``).
+K streams through a ring: a slot holds one chunk of 8 input channels (the
+projection's part two) as the TMA box of the tile's 192 rows, laid out
 under the box's swizzle (``tma_box``, ``swizzled``), with zeros past the
-tensor. Per chunk and tap of each warpgroup's window, A (the fragment rows
-shifted by the tap, zero outside their sample) is read from the box and
-split for 3xTF32 with round-to-nearest (split_tf32), B is the tap's weight
-planes (tf32 big and small); the product is small*big + big*small +
-big*big into the accumulator. The 1x1 projection is a second part of K = 1
-over the tile's natural rows. ``order="chunks"`` reads A instead from the
-earlier cp.async loop's layout, one padded [192][12] plane a chunk, so
-that the two orders can be held to each other bit for bit."""
+tensor; at T = 3 the box's rows come position-major. The producer
+warpgroup splits the box for 3xTF32 with round-to-nearest (split_tf32)
+into a big and a small plane in the same swizzled order (``split_box``).
+Per chunk and tap of each warpgroup's window, A is read from the planes:
+at T = 3 and for the projection by descriptor, the 64 rows of a whole
+block at its offset (``desc_rows``); otherwise each fragment row shifted
+by the tap and zero outside its sample. B is the tap's weight planes (tf32
+big and small); the product is small*big + big*small + big*big into the
+accumulator. The 1x1 projection is a second part of K = 1 over the tile's
+natural rows. ``order="chunks"`` reads A instead from the earlier cp.async
+loop's layout, one padded [192][12] plane a chunk split per fragment, so
+that the two orders can be held to each other bit for bit. The
+accumulators (``parts``) are returned in natural row order, live rows only,
+so that orders with different tile layouts compare."""
 
 import numpy as np
 import torch
@@ -29,11 +35,12 @@ K = 5
 ROWS = _build.TILE_ROWS
 
 
-def tile_rows(S, ns, T):
+def tile_rows(S, ns, T, KW=None):
     """tile_rows<5, KW> of stage_ring.cuh for every tile row j: its natural
     row r (relative to the tile), whether it is live, which of the 5 taps land
-    inside its sample, and the first tap of its warpgroup's window of KW."""
-    KW = 3 if T <= 3 else K
+    inside its sample, and the first tap of its warpgroup's window of KW. KW
+    defaults to the dgrads' rule (a window of 3, position-major, at T <= 3)."""
+    KW = KW or (3 if T <= 3 else K)
     j = np.arange(ROWS)
     if KW < K:
         t = j // S
@@ -47,31 +54,58 @@ def tile_rows(S, ns, T):
     return s * T + t, live, ok, klo, KW
 
 
+def fwd_tile_rows(S, ns, T):
+    """The forward stage's tile rows: position-major only at T = 3, where A
+    comes by descriptor (conv_gn_mish.cuh's KW = 3 instances)."""
+    return tile_rows(S, ns, T, 3 if T == 3 else K)
+
+
 def swizzled(row, u, w, pitch):
     """Float index of (row, 16-byte unit u, word w) in a TMA box of
     ``pitch``-byte rows under the ``pitch``-byte swizzle (stage_ring.cuh)."""
     return row * (pitch // 4) + 4 * (u ^ ((row * pitch >> 7) & (pitch // 16 - 1))) + w
 
 
-def tma_box(src, row0, c0, pitch):
-    """The ring's TMA box: rows row0 .. row0 + 191 x channels c0 .. c0 +
-    pitch / 4 - 1 of src [R, C], flat, in swizzled order; zeros past the tensor."""
+def tma_box(src, rows, c0, pitch):
+    """A ring slot's TMA box: source rows ``rows`` (192 row indices of src
+    [R, C], in box order) x channels c0 .. c0 + pitch / 4 - 1, flat, in
+    swizzled order; zeros past the tensor."""
     R, C = src.shape
     n = pitch // 4
-    rows, cols = np.arange(ROWS)[:, None], np.arange(n)[None, :]
-    gr, gc = row0 + rows, c0 + cols
+    gr, gc = np.asarray(rows)[:, None], c0 + np.arange(n)[None, :]
     val = np.where((gr < R) & (gc < C), src[np.minimum(gr, R - 1), np.minimum(gc, C - 1)], 0.0)
     flat = np.full(ROWS * n, np.nan, np.float32)
-    flat[swizzled(rows, cols // 4, cols % 4, pitch)] = val
+    flat[swizzled(np.arange(ROWS)[:, None], np.arange(n)[None, :] // 4, np.arange(n)[None, :] % 4, pitch)] = val
     assert not np.isnan(flat).any()  # the box is written whole
     return flat
 
 
-def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring"):
+def box_rows(row0, T, S, position_major):
+    """The source rows of a conv box: the tile's natural rows row0 ..
+    row0 + 191, or at T = 3 position-major (the three boxes of
+    position_map: box row t * S + s is natural row row0 + s * T + t)."""
+    j = np.arange(ROWS)
+    return row0 + ((j % S) * T + j // S if position_major else j)
+
+
+def split_box(box):
+    """ring_split: the box's big and small planes, element by element."""
+    return tf32_split(box)
+
+
+def desc_rows(planes, row, ch, pitch):
+    """What a descriptor at box row ``row``, chunk ``ch`` reads of each
+    plane: 64 rows x 8 inputs, through the swizzle."""
+    i, k = np.arange(64)[:, None], np.arange(8)[None, :]
+    idx = swizzled(row + i, 2 * ch + k // 4, k % 4, pitch)
+    return [pl[idx] for pl in planes]
+
+
+def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
     """One part of K for one tile into a [192, nt] accumulator (tile rows):
     src [R, Cin] the part's input, wk [taps, Cin, nt] the N tile's weights
-    (channels past O zero), ``rows`` from ``tile_rows`` (taps = 5) or
-    natural rows (taps = 1). The ring's stages (``order="ring"``) or the
+    (channels past O zero), ``rows`` from ``fwd_tile_rows`` (taps = 5) or
+    natural rows (taps = 1). The ring's slots (``order="ring"``) or the
     earlier loop's chunks (``"chunks"``)."""
     r, live, ok, klo, KW = rows
     cin = src.shape[1]
@@ -79,29 +113,35 @@ def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring"):
     wpad = np.zeros((taps, nch * 8, nt), np.float32)
     wpad[:, :cin] = wk
     wb, wsm = tf32_split(wpad)
-    ch_stage = _build.stage_ring(nt)[0] if taps == K else _build.PROJ_CHUNKS[nt]
-    pitch = 32 * ch_stage
+    ch_slot = 1 if taps == K else _build.PROJ_CHUNKS
+    pitch = 32 * ch_slot
+    desc = taps == 1 or KW < K  # A by descriptor: the projection, the conv at T = 3
     acc = np.zeros((ROWS, nt), np.float32)
     cols = np.arange(8)[None, :]
-    for c in range(0, nch, ch_stage):  # a ring stage
+    for c in range(0, nch, ch_slot):  # a ring slot
         if order == "ring":
-            box = tma_box(src, row0, 8 * c, pitch)
-        for ch in range(min(ch_stage, nch - c)):
+            src_rows = box_rows(row0, T, ROWS // T, desc) if taps == K else row0 + np.arange(ROWS)
+            planes = split_box(tma_box(src, src_rows, 8 * c, pitch))
+        for ch in range(min(ch_slot, nch - c)):
+            cc = slice(8 * (c + ch), 8 * (c + ch) + 8)
             if order == "chunks":  # the cp.async plane: live rows of the tile, channels < Cin
                 plane = np.zeros((ROWS, 12), np.float32)
                 hi = min(cin, 8 * (c + ch) + 8)
                 plane[:nrows, :hi - 8 * (c + ch)] = src[row0:row0 + nrows, 8 * (c + ch):hi]
             for wg in range(3):
                 j = slice(64 * wg, 64 * wg + 64)
-                for k in ([0] if taps == 1 else range(klo[wg], klo[wg] + KW)):
-                    m = live[j] if taps == 1 else ok[j, k]
-                    src_row = np.where(m, r[j] + (0 if taps == 1 else k - 2), 0)[:, None]
-                    if order == "ring":
-                        a = box[swizzled(src_row, 2 * ch + cols // 4, cols % 4, pitch)]
+                for u, k in enumerate([0] if taps == 1 else range(klo[wg], klo[wg] + KW)):
+                    if order == "ring" and desc:  # whole 64-row blocks: position u, or the warpgroup's rows
+                        ab, asm = desc_rows(planes, 64 * (wg if taps == 1 else u), ch, pitch)
                     else:
-                        a = plane[src_row, cols]
-                    ab, asm = tf32_split(np.where(m[:, None], a, 0.0).astype(np.float32))
-                    cc = slice(8 * (c + ch), 8 * (c + ch) + 8)
+                        m = live[j] if taps == 1 else ok[j, k]
+                        src_row = np.where(m, r[j] + (0 if taps == 1 else k - 2), 0)[:, None]
+                        if order == "ring":  # the fragments from the planes, zero outside the sample
+                            idx = swizzled(src_row, 2 * ch + cols // 4, cols % 4, pitch)
+                            ab, asm = (np.where(m[:, None], pl[idx], 0.0).astype(np.float32)
+                                       for pl in planes)
+                        else:
+                            ab, asm = tf32_split(np.where(m[:, None], plane[src_row, cols], 0.0))
                     acc[j] += asm @ wb[k, cc] + ab @ wsm[k, cc] + ab @ wb[k, cc]
     return acc
 
@@ -128,9 +168,9 @@ def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wre
                    order="ring"):
     """One launch of the stage over x [B, T, C], w [5, C, O]: (out, z, mean,
     rstd, parts), ``parts`` the accumulators of every tile and part (conv,
-    then projection) in the CTAs' walk order. ``temb`` adds after Mish;
-    ``xres`` alone is the identity residual, with ``wres`` and ``bres`` the
-    projection's input."""
+    then projection), natural rows of the live samples, row tile by row
+    tile. ``temb`` adds after Mish; ``xres`` alone is the identity residual,
+    with ``wres`` and ``bres`` the projection's input."""
     B, T, C = x.shape
     O = w.shape[2]
     S = ROWS // T
@@ -142,23 +182,23 @@ def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wre
     for rt in range(plan_tiles[0]):
         ns = min(S, B - rt * S)
         row0, nrows = rt * S * T, ns * T
-        rows = tile_rows(S, ns, T)
+        rows = fwd_tile_rows(S, ns, T)
         for n0 in range(0, O, nt):
             ncols = min(nt, O - n0)
             wk = np.zeros((K, C, nt), np.float32)
             wk[..., :ncols] = w[..., n0:n0 + ncols]
-            acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order)
-            parts.append(acc)
+            acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order, T)
             live_r = rows[0][rows[1]]
             tile = np.zeros((nrows, nt), np.float32)
             tile[live_r] = acc[rows[1]]
+            parts.append(tile)
             z[row0:row0 + nrows, n0:n0 + ncols] = tile[:, :ncols] + b[n0:n0 + ncols]
             if wres is not None:
                 wr = np.zeros((1, wres.shape[0], nt), np.float32)
                 wr[0, :, :ncols] = wres[:, n0:n0 + ncols]
                 pr = natural_rows(ns, T)
-                pacc = ring_gemm(xres.reshape(B * T, -1), wr, row0, nrows, pr, nt, 1, order)
-                parts.append(pacc)
+                pacc = ring_gemm(xres.reshape(B * T, -1), wr, row0, nrows, pr, nt, 1, order, T)
+                parts.append(pacc[:nrows])
                 projected[row0:row0 + nrows, n0:n0 + ncols] = pacc[:nrows, :ncols]
     z = z.reshape(B, T, O)
     mean, rstd = group_stats(z, G, eps)
