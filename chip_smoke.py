@@ -18,9 +18,10 @@ after a ``torch.cuda.synchronize()``:
 2. build:    nvcc builds ``cindm_tpu_torch/ops/csrc`` into ``.cuda_build/``;
              ptxas's register/spill lines and the tensor-core instructions
              cuobjdump finds in each kernel (HGMMA: wgmma; HMMA: mma.sync);
-             the forward's stage ``conv_gn_mish_stage`` (its twelve
-             instances in each of its two files: N tile 64, 128 or 128 on
-             the deep ring, tap window 5 or 3, plain or saving), the
+             the forward's stage ``conv_gn_mish_stage`` (its sixteen
+             instances in each of its two files: N tile 64 or 128, tap
+             window 5 or 3, with or without the projection, plain or
+             saving), the
              backward's weight-gradient kernel ``wgrad`` and its two
              dgrads (``dgrad_gn_stage``, ``dgrad_x_stage``, every instance)
              must issue wgmma, no mma.sync, and spill nothing; its
@@ -29,12 +30,16 @@ after a ``torch.cuda.synchronize()``:
              partials ``grad_reduce`` must spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
-             max abs and max relative error <= 1e-4), then timed with CUDA
-             events beside two bounds on an H100: fp32 on the CUDA cores
-             (``bound_ms``) and the kernels' own 3xTF32 on the tensor cores
-             (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s); each row also its
-             stage plan (N tile, tiles, persistent CTAs, waves over the
-             SMs) and the ms of its ``stage_weights`` launches alone.
+             max abs and max relative error <= 1e-4; also at 5,000 and at
+             512, untimed), run twice (the same bits), then timed with
+             CUDA events beside two bounds on an H100: fp32 on the CUDA
+             cores (``bound_ms``) and the kernels' own 3xTF32 on the tensor
+             cores (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s); each row
+             also its stage plan (N tile, tiles, persistent CTAs, waves
+             over the SMs) and its weights' layout (``stage_weights``, one
+             launch a weight version and N tile, kept by
+             ``_build.staged``): bit for bit its plain version's, its ms
+             and the plain version's, the bytes it moves.
              Then the shapes of
              the later paths: the Conv1d+GN+Mish kernel at every distinct
              block of the forward model at horizon 24 and 2 (T down to 1,
@@ -49,7 +54,8 @@ after a ``torch.cuda.synchronize()``:
              measurement behind ``sampling/compose.FOLD_TARGET``).
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
-             20-step schedule, from those weights written as a snapshot.
+             20-step schedule, from those weights written as a snapshot;
+             each weight laid out once per N tile (``staging``).
 6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
              saving forward, the backward kernel on what it saved) and the
              head's against plain autograd at batch 512 (entries beyond
@@ -87,7 +93,9 @@ after a ``torch.cuda.synchronize()``:
              step count: 40 steps with milestones at 20 and 40, then a resume
              to step 50 with one 25-step DDIM eval; the launch counters,
              ``grad_reduce``'s inside the backwards among them (17 a step,
-             ``_build.launch_backward.reduce_launches``).
+             ``_build.launch_backward.reduce_launches``); after each run's
+             last optimizer step every block of the trained model, kernel
+             against plain on the updated weights (each laid out anew).
 8. analysis: ``cindm_tpu_torch.cli.analysis_1d`` twice, on snapshots of
              seeded random weights at full width: the multibody strategies
              (8 bodies, the 2-body prior and a 1-body prior, batch 16, 16
@@ -184,7 +192,9 @@ after a ``torch.cuda.synchronize()``:
              ``launches_multigpu`` (phase 19 (a), in this process) and
              ``launches_multigpu_ranks`` (phase 19 (b), per rank)), and an
              entry of its own for ``grad_reduce`` (its launches inside the
-             train phase's backwards, its standalone check's numbers), the
+             train phase's backwards, its standalone check's numbers) and
+             one for ``stage_weights`` (its launches in the design and train
+             phases, the layout's ms, plain ms and bytes bound), the
              nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -443,18 +453,31 @@ def rand_block_params(torch, g, C, O, dev, proj: bool):
 
 def stage_fields(torch, dev, weights, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
     """The plan of a row's stage launches (N tile, tiles, persistent CTAs,
-    waves of tiles over the SMs) and, on CUDA, the ms of its stage_weights
-    launches alone (CUDA events; ``weights``: its [K, C_in, O] weights in
-    launch order), the weight layout's share of a call."""
+    waves of tiles over the SMs) and, on CUDA, its weights' layout
+    (``weights``: its [K, C_in, O] weights in launch order) by the
+    stage_weights kernel against ``stage_weights_reference`` (bit for bit),
+    the ms of the kernel's launches alone and of the plain version (CUDA
+    events), and the bytes they must move (w read, the planes written). The
+    wrappers lay the weights out once per version and N tile, not per call."""
     from cindm_tpu_torch.ops import _build
     from cindm_tpu_torch.tools.forward_profile import stage_weights_ms
 
     sms = _build.num_sms(dev) if cuda else _build.H100_SMS
     plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
-    return dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, cluster=plan.cluster,
-                waves=plan.items / (sms // plan.cluster),
-                stage_weights_ms=stage_weights_ms(torch, _build, _build.load(), plan, weights, O, dev, 10)
-                if cuda else None)
+    out = dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, cluster=plan.cluster,
+               waves=plan.items / (sms // plan.cluster), stage_weights_ms=None, stage_weights_plain_ms=None,
+               stage_weights_bytes=sum(4 * w.numel() + _build.staged_weight_bytes(plan.n_tile, w.shape[1], O,
+                                                                                 w.shape[0]) for w in weights),
+               stage_weights_equal=None)
+    if cuda:
+        nt = plan.n_tile
+        out["stage_weights_ms"] = stage_weights_ms(torch, _build, _build.load(), plan, weights, O, dev, 10)
+        out["stage_weights_plain_ms"] = event_ms(
+            torch, lambda: [_build.stage_weights_reference(w, nt) for w in weights], 5)
+        stage = _build.WeightStage()
+        out["stage_weights_equal"] = all(
+            bool(torch.equal(stage(w, nt), _build.stage_weights_reference(w, nt))) for w in weights)
+    return out
 
 
 def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
@@ -464,7 +487,9 @@ def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> di
     x = torch.randn((batch, T, C), generator=g, device=dev)
     temb = torch.randn((batch, O), generator=g, device=dev)
     p = rand_block_params(torch, g, C, O, dev, proj=C != O)
-    abs_err, rel_err = errors(torch, fused_rtb(x, temb, **p), fused_rtb_reference(x, temb, **p))
+    got = fused_rtb(x, temb, **p)
+    repeats = bool(torch.equal(got, fused_rtb(x, temb, **p)))
+    abs_err, rel_err = errors(torch, got, fused_rtb_reference(x, temb, **p))
     plain_ms, kernel_ms = time_pair(
         torch, lambda: fused_rtb_reference(x, temb, **p), lambda: fused_rtb(x, temb, **p),
     ) if cuda else (None, None)
@@ -474,8 +499,8 @@ def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> di
     nbytes = 4 * (x.numel() + temb.numel() + n_par + batch * T * O)
     weights = [p["w1"], p["w2"]] + ([p["wres"].view(1, C, O)] if C != O else [])
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds(2 * macs, nbytes),
-                **stage_fields(torch, dev, weights, C, O, T, batch, cuda))
+                repeats_bit_for_bit=repeats, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                **bounds(2 * macs, nbytes), **stage_fields(torch, dev, weights, C, O, T, batch, cuda))
 
 
 def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
@@ -485,15 +510,16 @@ def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> d
     x = torch.randn((batch, T, C), generator=g, device=dev)
     p = rand_block_params(torch, g, C, O, dev, proj=False)
     args = (x, p["w1"], p["b1"], p["gs1"], p["gb1"])
-    abs_err, rel_err = errors(torch, fused_conv1d_gn_mish(*args),
-                              fused_conv1d_gn_mish_reference(*args))
+    got = fused_conv1d_gn_mish(*args)
+    repeats = bool(torch.equal(got, fused_conv1d_gn_mish(*args)))
+    abs_err, rel_err = errors(torch, got, fused_conv1d_gn_mish_reference(*args))
     plain_ms, kernel_ms = time_pair(
         torch, lambda: fused_conv1d_gn_mish_reference(*args), lambda: fused_conv1d_gn_mish(*args),
     ) if cuda else (None, None)
     nbytes = 4 * (x.numel() + weight_numel(args[1], T) + sum(a.numel() for a in args[2:])
                   + batch * T * O)
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                repeats_bit_for_bit=repeats, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes),
                 **stage_fields(torch, dev, [args[1]], C, O, T, batch, cuda))
 
@@ -558,19 +584,27 @@ def odd_batch_errors(torch, g, dev, C: int, O: int, T: int, batch: int, head: bo
                 cluster=plan.cluster)
 
 
-def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = ODD_BATCH) -> dict:
+def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = ODD_BATCH,
+                  train_batch: int | None = TRAIN_BATCH) -> dict:
     """Phase 3: every flagship block shape, kernel against plain, timed on
-    CUDA; each also checked, untimed, at ``odd_batch`` (its row ``odd``)."""
+    CUDA, and run twice (the same bits); each also checked, untimed, at
+    ``odd_batch`` (its row ``odd``) and ``train_batch`` (its row
+    ``train``); its weights' layout bit for bit the plain version's."""
     g = torch.Generator(device=dev).manual_seed(1234)
     rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda) for C, O, T in RTB_SHAPES]
     head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda)]
-    if odd_batch:
-        for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
-            r["odd"] = odd_batch_errors(torch, g, dev, C, O, T, odd_batch, r is head_rows[0])
+    for key, b in (("odd", odd_batch), ("train", train_batch)):
+        if b:
+            for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
+                r[key] = odd_batch_errors(torch, g, dev, C, O, T, b, r is head_rows[0])
     bad = [r for r in rtb_rows + head_rows
-           if not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL for e in (r, r.get("odd", r)))]
+           if not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL
+                      for e in (r, r.get("odd", r), r.get("train", r)))]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
+    bad = [r for r in rtb_rows + head_rows if not r["repeats_bit_for_bit"] or r["stage_weights_equal"] is False]
+    if bad:
+        raise AssertionError(f"a second run differs, or a weight layout from its plain version: {bad}")
     return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows}
 
 
@@ -655,6 +689,7 @@ def reset_counts():
                                      fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
 
     _build.launch_backward.reduce_launches = 0
+    _build.staged.launches = 0
     fused_rtb.launches = 0
     fused_conv1d_gn_mish.launches = 0
     fused_rtb_backward.launches = 0
@@ -678,6 +713,13 @@ def read_counts(backwards: bool = False) -> dict:
                       fused_rtb_backward=fused_rtb_backward.launches,
                       fused_conv1d_gn_mish_backward=fused_conv1d_gn_mish_backward.launches)
     return counts
+
+
+def staged_launches() -> int:
+    """stage_weights' launches since the last reset_counts (``_build.staged``)."""
+    from cindm_tpu_torch.ops import _build
+
+    return _build.staged.launches
 
 
 def check_denoiser(torch, dev, batch: int, model, cuda: bool) -> dict:
@@ -774,7 +816,8 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
             if cuda:
                 torch.cuda.synchronize()
             runs[name] = {"record": record, "seconds": time.perf_counter() - t0,
-                          "strategy_seconds": timings, "launches": read_counts(backwards=True)}
+                          "strategy_seconds": timings, "launches": read_counts(backwards=True),
+                          "staged_launches": staged_launches()}
     flag = lambda args, k: int(args[args.index(k) + 1])
     T, t_switch = flag(cuts, "--timesteps"), flag(cuts, "--t_switch")
     n, B = flag(multi, "--compose_multibodies"), flag(multi, "--batch_size")
@@ -799,6 +842,7 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
     if failed:
         raise AssertionError(f"analysis phase checks failed: {failed}; runs {runs}")
     return {"runs": runs, "launches": launches, "checks": checks, "cuts": cuts,
+            "staged_launches": sum(r["staged_launches"] for r in runs.values()),
             "ula_pair_window_fwds": ula_fwds,
             "ula_pair_window_fwds_per_s": ula_fwds / runs["multibody"]["strategy_seconds"]["cf_compose_ULA"]}
 
@@ -859,6 +903,7 @@ def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN
                     row["seconds_per_iteration"] = timings["design"] / n_design
                 design[f"{method}/{mt}"] = row
     counts = read_counts(backwards=True)
+    staged = staged_launches()
     checks = {
         "losses_finite": all(r["losses_finite"] for r in train.values()),
         "forward_model_loss_falls": train["forward_model"]["loss_last3_mean"]
@@ -874,16 +919,44 @@ def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN
         raise AssertionError(f"baselines phase checks failed: {failed}; train {train}; design {design}")
     cuts = {"train_num_steps": steps, "train_num_steps_script": "100,000-200,000",
             "max_design_steps": n_design, "max_design_steps_script": 1000}
-    return {"train": train, "design": design, "launches": counts, "checks": checks,
+    return {"train": train, "design": design, "launches": counts, "staged_launches": staged, "checks": checks,
             "cuts": cuts, "seconds": time.perf_counter() - t_phase}
 
 
+@contextlib.contextmanager
+def staging_log(_build):
+    """The weight layouts the wrappers make meanwhile: one key (storage,
+    offset, shape, N tile) a layout."""
+    log, stager = [], _build.staged.stager
+
+    def logged(w, nt):
+        log.append((w.untyped_storage().data_ptr(), w.storage_offset(), tuple(w.shape), nt))
+        return stager(w, nt)
+
+    _build.staged.stager = logged
+    try:
+        yield log
+    finally:
+        _build.staged.stager = stager
+
+
+def kernel_weights(model) -> int:
+    """The weight tensors of ``model`` that the stage kernels lay out: each
+    Conv1dBlock's conv and each 1x1 residual of a ResidualTemporalBlock."""
+    from cindm_tpu_torch.models.blocks import Conv1dBlock, ResidualTemporalBlock
+
+    return sum(isinstance(m, Conv1dBlock) or (isinstance(m, ResidualTemporalBlock) and m.residual is not None)
+               for m in model.modules())
+
+
 def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: bool) -> dict:
-    """Phase 5: the design CLI on the seeded weights written as a snapshot."""
+    """Phase 5: the design CLI on the seeded weights written as a snapshot;
+    every weight laid out once per N tile (sampling never changes them)."""
     import numpy as np
 
     from cindm_tpu_torch.cli.design_1d import main as design_main
     from cindm_tpu_torch.models import flax_from_params
+    from cindm_tpu_torch.ops import _build
 
     scratch = os.path.join(REPO, ".cuda_build")
     os.makedirs(scratch, exist_ok=True)
@@ -894,22 +967,30 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
         argv = ["--model_path", tmp, "--timesteps", str(timesteps), "--device", str(dev),
                 *design_args]
         reset_counts()
+        _build.staged.clear()
         t0 = time.perf_counter()
-        record = design_main(argv)
+        with staging_log(_build) as log:
+            record = design_main(argv)
         if cuda:
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
+        staging = {"launches": _build.staged.launches, "layouts": len(log), "distinct": len(set(log)),
+                   "weight_tensors": kernel_weights(model)}
     vals = [record[k] for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"design record is not finite: {record}")
     per_step = {k: v / timesteps for k, v in counts.items()}
     if cuda and per_step != {"fused_rtb": 16.0 * RECURRENCE, "fused_conv1d_gn_mish": 1.0 * RECURRENCE}:
         raise AssertionError(f"expected 160 and 10 launches per reverse step, got {per_step}")
+    # at most one layout per weight tensor and N tile: none made twice
+    if cuda and not (staging["launches"] == staging["layouts"] == staging["distinct"]
+                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"]):
+        raise AssertionError(f"design should lay each weight out once per N tile: {staging}")
     batch = int(design_args[design_args.index("--batch_size") + 1])
     fwds = timesteps * RECURRENCE * N_WINDOWS * N_PAIRS * batch
     return {"record": record, "reverse_steps": timesteps, "seconds": seconds,
-            "launches": counts, "launches_per_step": per_step,
+            "launches": counts, "launches_per_step": per_step, "staging": staging,
             "pair_window_fwds": fwds, "pair_window_fwds_per_s": fwds / seconds}
 
 
@@ -1188,6 +1269,28 @@ def device_busy(torch, fn, step_ms: float) -> dict:
             "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])}
 
 
+def check_trained_blocks(torch, dev, model, batch: int) -> dict:
+    """After a training run's last optimizer step: every block of the
+    trained model, kernel against plain on the updated weights (a layout
+    kept from before the step would not match), and the layouts made anew
+    meanwhile (each weight's, once)."""
+    from cindm_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    n0 = _build.staged.launches
+    errs = []
+    with torch.no_grad():
+        for rtb, T in zip(model.rtbs, rtb_times(model)):
+            x = torch.randn((batch, T, rtb.block0.conv.weight.shape[1]), generator=g, device=dev)
+            temb = torch.randn((batch, rtb.time.weight.shape[0]), generator=g, device=dev)
+            errs.append(errors(torch, rtb(x, temb), rtb(x, temb, use_kernels=False)))
+        head = model.final_block
+        x = torch.randn((batch, model.horizon, head.conv.weight.shape[1]), generator=g, device=dev)
+        errs.append(errors(torch, head(x), head(x, use_kernels=False)))
+    return {"max_abs_err": max(e[0] for e in errs), "max_rel_err": max(e[1] for e in errs),
+            "restaged": _build.staged.launches - n0, "weight_tensors": kernel_weights(model)}
+
+
 def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int], cuda: bool) -> dict:
     """Phase 7: the train_1d CLI, then a resume with one eval."""
     import numpy as np
@@ -1217,8 +1320,12 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             lines = out.getvalue().strip().splitlines()
-            runs.append({"seconds": seconds, "launches": read_counts(backwards=True),
-                         "grad_reduce_launches": _build.launch_backward.reduce_launches,
+            counts, reduce, staged = (read_counts(backwards=True), _build.launch_backward.reduce_launches,
+                                      _build.staged.launches)
+            fresh = check_trained_blocks(torch, dev, state.model, TRAIN_BATCH) if cuda else None
+            runs.append({"seconds": seconds, "launches": counts,
+                         "staged_launches": staged, "after_last_step": fresh,
+                         "grad_reduce_launches": reduce,
                          "record": json.loads(lines[-1]), "step": state.step,
                          "first_lines": lines[:2], "last_lines": lines[-3:-1]})
         res = os.path.join(tmp, "results")
@@ -1256,6 +1363,10 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                        "fused_conv1d_gn_mish_backward": n2}
             # every backward of a training step wants the weights: one grad_reduce each
             and first["grad_reduce_launches"] == 17 * n_steps and second["grad_reduce_launches"] == 17 * n2)
+        # the kernels on the weights of the last optimizer step, each laid out anew
+        checks["after_last_step"] = all(
+            r["after_last_step"]["max_abs_err"] <= TOL and r["after_last_step"]["max_rel_err"] <= TOL
+            and r["after_last_step"]["restaged"] == r["after_last_step"]["weight_tensors"] for r in runs)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train phase checks failed: {failed}; runs {runs}; "
@@ -1426,7 +1537,7 @@ def run_design2d(torch, dev, cuda: bool, models, cuts: list[str] = DESIGN2D_CUTS
                          "unet2d_fwds_per_s": steps * B * nb / timings["sampling"],
                          "printed_tail": printed.getvalue().strip().splitlines()[-2:],
                          "checks": checks}
-    counts = read_counts(backwards=True)
+    counts = {**read_counts(backwards=True), "stage_weights": staged_launches()}
     if any(counts.values()):
         raise AssertionError(f"path C launched a kernel of the 1D paths: {counts}")
     return {"runs": out, "launches": counts, "cuts": cuts, "timesteps_script": 1000}
@@ -1535,9 +1646,10 @@ def quiet(fn, *args, **kw):
 
 
 def zero_launches(phase: str) -> dict:
-    """The 1D kernels' counters since the last reset; raises unless all 0
-    (the 2D paths run plain PyTorch)."""
-    counts = read_counts(backwards=True)
+    """The 1D kernels' counters since the last reset, the weight layouts'
+    among them (``stage_weights``); raises unless all 0 (the 2D paths run
+    plain PyTorch)."""
+    counts = {**read_counts(backwards=True), "stage_weights": staged_launches()}
     if any(counts.values()):
         raise AssertionError(f"the {phase} phase launched a kernel of the 1D paths: {counts}")
     return counts
@@ -2051,6 +2163,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
             _, lines = quiet(train_main, base + ["--results_folder", os.path.join(tmp, "one"),
                                                  "--n_devices", "1"])
             train_counts = read_counts(backwards=True)
+            train_staged = staged_launches()
         finally:
             torch.backends.cudnn.deterministic = was
         runs = {}
@@ -2064,7 +2177,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                         for k in mp[part])
         record1 = json.loads(lines[-1])
         rec["a_train"] = {"loss_err": loss_err, "param_err": param_err, "losses": lo.tolist(),
-                          "record": record1, "launches": train_counts}
+                          "record": record1, "launches": train_counts, "staged_launches": train_staged}
         checks["a_train_equal"] = (len(lo) == len(lp) == steps and loss_err <= MULTIGPU_EXACT_TOL
                                    and param_err <= MULTIGPU_EXACT_TOL)
         checks["a_group_destroyed"] = not dist.is_initialized()
@@ -2074,7 +2187,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                                         str(steps), "--device", str(dev), *design_args,
                                         "--n_devices", "1"])
         design_counts = read_counts(backwards=True)
-        rec["a_design"] = {"record": record, "launches": design_counts}
+        rec["a_design"] = {"record": record, "launches": design_counts, "staged_launches": staged_launches()}
         checks["a_design_record"] = (set(record) == DESIGN1D_RECORD_KEYS and all(
             math.isfinite(record[k]) for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")))
         if cuda:
@@ -2154,24 +2267,23 @@ def check_kernel_build(_build, sass, name: str, instances: int, wgmma: bool = Tr
 def stage_instances(_build, record: dict, batches) -> dict:
     """The forward stage's instances in the build record, each with its
     template arguments (N tile, tap window KW: 3 = position-major with A by
-    descriptor, 5 = row-major with A from registers; deep: N tile 128, the
-    conv tile over the ring; spill_z: deep with the projection; saving), its
-    registers, spills, tensor-core instructions and ptxas notes, and the
-    cluster sizes that the flagship's plans give its launches at
-    ``batches``."""
+    descriptor, 5 = row-major with A from registers; proj: with the 1x1
+    projection; saving), its registers, spills, tensor-core instructions and
+    ptxas notes, and the cluster sizes that the flagship's plans give its
+    launches at ``batches``."""
     clusters = {}
     for B in batches:
         for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
             plan = _build.plan_stage(B, T, C, O, 8)
             for proj in {False, i < len(RTB_SHAPES) and C != O}:  # a block's stages: the second projects
-                key = (plan.n_tile, 3 if T == 3 else 5, plan.n_tile == 128 and proj)
+                key = (plan.n_tile, 3 if T == 3 else 5, proj)
                 clusters.setdefault(key, set()).add(plan.cluster)
     sass = record["sass"] if isinstance(record["sass"], dict) else {}
     out = {}
     for name, regs in record["ptxas"].items():
         m = re.search(r"conv_gn_mish_stageILi(\d+)ELi(\d)ELb([01])E", name)
         key = (int(m[1]), int(m[2]), m[3] == "1")
-        out[name] = {"n_tile": key[0], "kw": key[1], "deep": key[0] == 128, "spill_z": key[2],
+        out[name] = {"n_tile": key[0], "kw": key[1], "proj": key[2],
                      "saving": "SaveArgs" in name,
                      **regs, **sass.get(name, {}),
                      "notes": [n for n in record["notes"] if name in n],
@@ -2296,6 +2408,35 @@ def reduce_entry(alone: dict, train: dict, bprof: dict | str) -> dict:
             "alone": alone}
 
 
+def stage_weights_entry(checks: dict, des: dict, train: dict, ana: dict, base: dict, d2d: dict,
+                        path2d: dict, multi: dict) -> dict:
+    """stage_weights' entry: the weight layout of both stage kernels, one
+    launch a weight version and N tile (``_build.staged``). ``launches``: the
+    design phase's (each weight once); ``launches_train``: the training
+    runs' (each weight once a step, after the optimizer's update); then per
+    later path as the other entries count them (the 2D phases: 0, checked;
+    the multigpu phase: (a), in the smoke's process). ms, plain ms and
+    bytes: one layout of the 16 blocks' and the head's weights at the
+    folded batch's N tiles (phase 3), bit for bit the plain version's."""
+    rows = checks["fused_rtb"] + checks["fused_conv1d_gn_mish"]
+    nbytes = sum(r["stage_weights_bytes"] for r in rows)
+    a = multi.get("a_train", {}), multi.get("a_design", {})
+    return {"name": "stage_weights", "route": "cuda", "source": "cindm_tpu_torch/ops/csrc/conv_gn_mish.cuh",
+            "replaces": "none of its own: the weight layout of the ports of cindm_tpu/ops/fused_rtb.py:179 "
+                        "and cindm_tpu/ops/fused_conv_gn.py:112",
+            "launches": des["staging"]["launches"],
+            "launches_train": sum(r["staged_launches"] for r in train["runs"]),
+            "launches_analysis": ana["staged_launches"], "launches_baselines": base["staged_launches"],
+            "launches_design2d": d2d["launches"]["stage_weights"],
+            **{f"launches_{phase}": counts["stage_weights"] for phase, counts in path2d.items()},
+            "launches_multigpu": sum(r.get("staged_launches", 0) for r in a),
+            "max_abs_err": 0.0 if all(r["stage_weights_equal"] for r in rows) else float("inf"),
+            "ms": sum(r["stage_weights_ms"] or 0.0 for r in rows),
+            "plain_ms": sum(r["stage_weights_plain_ms"] or 0.0 for r in rows),
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes", "library_ms": None,
+            "bytes": nbytes, "design_staging": des["staging"]}
+
+
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
@@ -2338,14 +2479,14 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # "sass_hgmma": their tensor-core instructions per kernel (HGMMA: wgmma,
     # HMMA: mma.sync), from cuobjdump; wgrad's and the dgrads' beside them, checked
     sass = _build.sass_mma_counts() if cuda else "not measured"
-    # the forward's stage (N tiles 64, 128 (deep) and 128 with the projection
-    # x tap windows 5 and 3 x plain and saving, in each of fused_rtb.cu and
+    # the forward's stage (N tiles 64 and 128 x tap windows 5 and 3 x with and
+    # without the projection x plain and saving, in each of fused_rtb.cu and
     # fused_conv_gn.cu); the
     # backward's wgmma kernels: wgrad (general and T = 3), dgrad_gn_stage (N
     # tiles 64 and 128 x tap windows 5 and 3), dgrad_x_stage (64 x 5 and 3);
     # gn_mish_bwd (1, 2 or 4 channels a lane) and grad_reduce on the CUDA cores
     tc = {k: check_kernel_build(_build, sass, m, n, w) if cuda else "not measured"
-          for k, m, n, w in (("conv_gn_mish_stage", "18conv_gn_mish_stage", 24, True),
+          for k, m, n, w in (("conv_gn_mish_stage", "18conv_gn_mish_stage", 32, True),
                              ("wgrad", "5wgrad", 2, True), ("dgrad_gn_stage", "14dgrad_gn_stage", 4, True),
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
                              ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
@@ -2359,7 +2500,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
           "sass_hgmma": sass, **tc})
 
     t0 = time.perf_counter()
-    checks = check_kernels(torch, dev, fold_batch, cuda, ODD_BATCH if cuda else None)
+    checks = check_kernels(torch, dev, fold_batch, cuda, ODD_BATCH if cuda else None,
+                           train_batch if cuda else None)
     slice5 = check_slice5_kernels(torch, dev, cuda)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],
@@ -2488,6 +2630,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
             entry["backward_launches_multigpu"] = multi["launches"][bwd]
             entry["backward_launches_multigpu_ranks"] = [c[bwd] for c in per_rank]
     line["kernels"].append(reduce_entry(reduce_alone, train, bprof))
+    line["kernels"].append(stage_weights_entry(checks, des, train, ana, base, d2d, path2d, multi))
     info["kernels"] = line
     return info
 

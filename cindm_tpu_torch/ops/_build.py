@@ -31,6 +31,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -46,18 +47,17 @@ NVCC_TIMEOUT_S = 600
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
-    # x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, scratch,
-    # scratch_bytes, B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster, smem_conv1,
-    # smem_conv2, stream
-    "cindm_fused_rtb": [_P] * 15 + [_L] + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    # x, w, b, gs, gb, out, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples,
-    # n_tile, ctas, cluster, smem, stream
-    "cindm_fused_conv1d_gn_mish": [_P] * 7 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # x, temb, w1 staged, b1, gs1, gb1, w2 staged, b2, gs2, gb2, wres staged, bres, h, out,
+    # B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster, smem_conv1, smem_conv2, stream
+    "cindm_fused_rtb": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    # x, w staged, b, gs, gb, out, B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster,
+    # smem, stream
+    "cindm_fused_conv1d_gn_mish": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # the saving instances: as above with z1, z2, mean1, rstd1, mean2, rstd2
     # (the head: z, mean, rstd) after out
-    "cindm_fused_rtb_saving": [_P] * 21 + [_L] + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    "cindm_fused_conv1d_gn_mish_saving": [_P] * 10 + [_L] + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    # w, K, C, O, n_tile, out, stream: the stage's weight layout alone (timing)
+    "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "cindm_fused_conv1d_gn_mish_saving": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # w, K, C, O, n_tile, out, stream: the stage's weight layout (``staged``)
     "cindm_stage_weights": [_P] + [_I] * 4 + [_P, _P],
     # BackwardArgs*, stream
     "cindm_fused_rtb_backward": [_P, _P],
@@ -103,8 +103,8 @@ def _tile_bytes(nt: int) -> int:
     return TILE_ROWS * (nt + 4) * 4
 
 
-DEEP_STAGES = 4  # the ring at nt = 128, under the conv tile
-NARROW_STAGES = 5  # the ring at nt = 64, beside the conv tile
+WIDE_STAGES = 4  # the forward's ring at nt = 128
+NARROW_STAGES = 6  # and at nt = 64
 PROJ_CHUNKS = 2  # the projection's chunks a ring slot (ProjRing)
 STAGE_CLUSTER = 2  # CTAs of a cluster that share an N tile's weight blocks (multicast)
 
@@ -114,11 +114,10 @@ def fwd_ring(nt: int) -> tuple[int, int]:
     slot holds one chunk of 8 input channels: the tile's 192 rows of 32
     bytes by TMA, the split's small plane beside them (the big plane
     replaces the box in place), then the chunk's weight blocks of five taps,
-    each part on 1,024-byte boundaries; 5 slots at nt = 64 (beside the conv
-    tile), 4 at nt = 128 (under it: "deep")."""
+    each part on 1,024-byte boundaries; 6 slots at nt = 64, 4 at nt = 128."""
     box = _align1024(TILE_ROWS * 4 * CHUNK)
     slot = _align1024(2 * box + 2 * CONV_K * (nt // 8) * SBO_BYTES)
-    return (NARROW_STAGES if nt == 64 else DEEP_STAGES), slot
+    return (NARROW_STAGES if nt == 64 else WIDE_STAGES), slot
 
 
 def stage_cluster(row_tiles: int) -> int:
@@ -130,15 +129,12 @@ def stage_cluster(row_tiles: int) -> int:
 
 def stage_smem_bytes(nt: int, samples: int, groups: int) -> int:
     """Shared memory of a stage launch: 1,024 bytes to align the ring; the
-    ring (``fwd_ring``) and the conv tile [192][nt + 4], beside it at nt =
-    64 (so the next tile's stages load while this one's epilogue runs),
-    under it at nt = 128 ("deep"); mean and rstd of ``samples`` x ``groups``
-    (sample, group) pairs; a full, an empty and an A-box barrier a ring
-    slot and the epilogue's (the C side's stage_smem_bytes)."""
-    deep = nt == 128
+    ring (``fwd_ring``); the rows' sums of each of the tile's ``groups``
+    GroupNorm groups, 192 x groups floats; mean and rstd of ``samples`` x
+    ``groups`` (sample, group) pairs; a full, an empty and an A-box barrier
+    a ring slot (the C side's stage_smem_bytes)."""
     stages, slot = fwd_ring(nt)
-    region = max(stages * slot, _tile_bytes(nt)) if deep else stages * slot + _tile_bytes(nt)
-    return 1024 + region + 8 * samples * groups + 24 * stages + 8
+    return 1024 + stages * slot + 4 * TILE_ROWS * groups + 8 * samples * groups + 24 * stages
 
 
 @dataclass(frozen=True)
@@ -783,8 +779,108 @@ def cluster_limits(device: torch.device) -> tuple[int, ...]:
 
 
 def scratch(nbytes: int, device: torch.device) -> torch.Tensor:
-    """Device scratch for the weights a launch lays out (``nbytes``, a multiple of 16)."""
+    """Device scratch of ``nbytes`` (a multiple of 16) for a tool's own launches."""
     return torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+
+
+def _tf32_rna(bits: torch.Tensor) -> torch.Tensor:
+    """tf32_rna of stage_ring.cuh on fp32 bit patterns (int64, 0 .. 2^32 - 1):
+    round to nearest, ties away from zero, the low 13 bits zero; a NaN
+    becomes 0x7FFFFFFF."""
+    nan = (bits & 0x7FFFFFFF) > 0x7F800000
+    return torch.where(nan, torch.full_like(bits, 0x7FFFFFFF), ((bits + 0x1000) & 0xFFFFE000))
+
+
+def stage_weights_reference(w: torch.Tensor, nt: int) -> torch.Tensor:
+    """Plain version of ``cindm_stage_weights``: w [K, C, O] (or [C, O], K =
+    1) laid out as the stage reads it, int32 words of
+    ``staged_weight_bytes(nt, C, O, K)`` bytes: per N tile of ``nt`` and
+    chunk of 8 input channels one block of the K taps' tf32 big and small
+    planes (split_tf32: both halves rounded to nearest), in wgmma's K-major
+    layout: word q of n8 block n8 is channel n8 * 8 + (q % 32) // 4 of input
+    q // 32 * 4 + q % 4. Channels past C or O are zero."""
+    w3 = w.reshape(1, *w.shape) if w.dim() == 2 else w
+    K, C, O = w3.shape
+    nch, ntiles = -(-C // CHUNK), -(-O // nt)
+    wp = torch.zeros((K, nch * CHUNK, ntiles * nt), dtype=torch.float32, device=w.device)
+    wp[:, :C, :O] = w3
+    bits = wp.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    big = _tf32_rna(bits)
+    rest = wp - (big - (big >= 2 ** 31).long() * 2 ** 32).to(torch.int32).view(torch.float32)
+    small = _tf32_rna(rest.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+    planes = torch.stack([big, small], 1)  # [K, 2, nch * 8, ntiles * nt]
+    # [K, split, chunk, K half, input of 4, N tile, n8, channel of 8] -> the block order
+    planes = planes.view(K, 2, nch, 2, 4, ntiles, nt // 8, 8).permute(5, 2, 0, 1, 6, 3, 7, 4)
+    words = planes.reshape(-1)
+    return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32)
+
+
+class WeightStage:
+    """The stage kernels' weights laid out by ``cindm_stage_weights`` (tf32
+    big and small planes, ``stage_weights_reference`` on the CPU), kept
+    per weight version: ``staged(w, n_tile)`` stages w on its first use, or
+    after it changed, and returns the kept planes otherwise. Sampling never
+    changes the weights, so a design run stages each once per N tile;
+    training restages once a step, after the optimizer's in-place update.
+
+    An entry is keyed by the tensor that owns w's view chain (its identity),
+    w's storage pointer, offset, version counter (``_version``, which every
+    in-place write bumps: ``add_``, ``_foreach_add_``, ``copy_`` in
+    ``load_state_dict``), shape and strides, and the N tile. A new version or
+    storage drops the owner's older planes; ``weakref.finalize`` drops all
+    of them when the owner is freed (an ``id`` key: a ``WeakKeyDictionary``
+    would call ``Tensor.__eq__``). A write that bypasses the version counter
+    (through ``.data``) must be followed by ``clear()``, as
+    ``parallel.mesh.replicate`` does. ``launches`` counts the layout
+    kernel's launches on CUDA tensors; ``stager`` (w [K, C, O], n_tile) ->
+    planes may be replaced, as the CPU tests do."""
+
+    def __init__(self, stager=None):
+        self.launches = 0
+        self.stager = stager or self.stage
+        self._owners: dict[int, dict] = {}
+
+    def __call__(self, w: torch.Tensor, nt: int) -> torch.Tensor:
+        owner = w if w._base is None else w._base
+        base = (w.untyped_storage().data_ptr(), w._version)
+        key = (*base, w.storage_offset(), tuple(w.shape), tuple(w.stride()), nt)
+        entries = self._owners.get(id(owner))
+        if entries is None:
+            entries = self._owners[id(owner)] = {}
+            weakref.finalize(owner, self._owners.pop, id(owner), None)
+        planes = entries.get(key)
+        if planes is None:
+            for k in [k for k in entries if k[:2] != base]:  # older versions: never asked for again
+                del entries[k]
+            planes = entries[key] = self.stager(w.reshape(1, *w.shape) if w.dim() == 2 else w, nt)
+        return planes
+
+    def stage(self, w: torch.Tensor, nt: int) -> torch.Tensor:
+        """w [K, C, O] laid out for N tiles of ``nt``: ``cindm_stage_weights``
+        on a CUDA tensor (counted in ``launches``), the plain version on a CPU
+        one."""
+        if w.device.type == "cpu":
+            return stage_weights_reference(w, nt)
+        if w.device.type != "cuda":
+            raise ValueError(f"stage_weights: unsupported device {w.device}")
+        K, C, O = w.shape
+        check_inputs("stage_weights", w.device, w=(w, (K, C, O)))
+        out = torch.empty(staged_weight_bytes(nt, C, O, K) // 4, dtype=torch.int32, device=w.device)
+        raise_on_error("stage_weights", call_on(w.device, load().cindm_stage_weights, w.data_ptr(), K, C,
+                                                O, nt, out.data_ptr()))
+        self.launches += 1
+        return out
+
+    def clear(self) -> None:
+        """Drop every kept layout (their weights then restage on next use)."""
+        for entries in self._owners.values():
+            entries.clear()
+
+    def __len__(self) -> int:
+        return sum(len(e) for e in self._owners.values())
+
+
+staged = WeightStage()  # the wrappers' cache; ``staged.clear()`` empties it
 
 
 def carve(device: torch.device, *shapes: tuple[int, ...] | None) -> list[torch.Tensor | None]:

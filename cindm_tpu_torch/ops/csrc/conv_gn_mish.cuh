@@ -24,44 +24,61 @@
 // A producer warpgroup feeds three consumer warpgroups (64 rows each)
 // through a ring of slots of one chunk of 8 input channels: its first warp
 // loads the tile's 192 input rows of the chunk by TMA and the chunk's
-// weight blocks (stage_weights lays w out once per call as tf32 big/small
-// planes, one contiguous block per (N tile, chunk)) by bulk copy; its other
-// three warps split each box, once it is in, into tf32 big and small planes
-// (split_tf32, round-to-nearest) in the slot. Two CTAs of a cluster take
-// row tiles 2q and 2q + 1 of the same N tile, and each copies half of a
-// slot's weight blocks into both (multicast), so the weights cross L2 once
-// for two tiles; a slot is refilled once both CTAs' consumers released it.
-// At T = 3 the tile is position-major (tile row t * 64 + s: a warpgroup per
-// position) and a warpgroup issues only the 3 taps that stay inside the
-// samples. Its boxes are loaded position-major too, so that the three
-// taps read whole 64-row blocks of the planes: each consumer issues a
-// slot's 3 taps x 3 passes (small*big, big*small, big*big) of m64nNk8
-// wgmmas, A and B from shared memory by descriptor, as one group, and
-// keeps one group in flight. At other T the tile is row-major and the
+// weight blocks by bulk copy; its other three warps split each box, once
+// it is in, into tf32 big and small planes (split_tf32, round-to-nearest)
+// in the slot. The weight blocks are the tf32 big/small planes that
+// stage_weights lays out, one contiguous block per (N tile, chunk): its own
+// launch (cindm_stage_weights), which the wrappers run once per weight
+// version and N tile and keep (ops/_build.staged), not on every call. Two
+// CTAs of a cluster take row tiles 2q and 2q + 1 of the same N tile, and
+// each copies half of a slot's weight blocks into both (multicast), so the
+// weights cross L2 once for two tiles; a slot is refilled once both CTAs'
+// consumers released it. At T = 3 the tile is position-major (tile row t *
+// 64 + s: a warpgroup per position) and a warpgroup issues only the 3 taps
+// that stay inside the samples. Its boxes are loaded position-major too, so
+// that the three taps read whole 64-row blocks of the planes: each consumer
+// issues a slot's 3 taps x 3 passes (small*big, big*small, big*big) of
+// m64nNk8 wgmmas, A and B from shared memory by descriptor, as one group,
+// and keeps one group in flight. At other T the tile is row-major and the
 // consumers load each tap's A fragments (shifted by the tap, zero outside
 // their sample) from the planes into registers, one tap's 3 passes a
-// group. The 1x1
-// projection is a second part of K = 1 on the same slots (2 chunks a slot:
-// ProjRing), A by descriptor. The chunks, taps and passes go in the order
-// the earlier loops took, and the split is theirs, so z, and with it out,
-// is the same bit for bit.
+// group. The chunks, taps and passes go in the order the earlier loops
+// took, and the split is theirs, so z is the same bit for bit.
+//
+// Epilogue, from the consumers' registers: no tile of the conv output in
+// shared memory. z = acc + b stays in the fragments. The GroupNorm
+// statistics are two-pass with biased variance in fixed orders: each
+// thread adds its values of a group in column order, the 4 lanes that share
+// a row add theirs as (l0 + l1) + (l2 + l3) (__shfl_xor_sync) and write the
+// row's sum to a [192][groups] array (row_group_sums); after a barrier of
+// the 384 consumer threads one thread per (sample, group) adds its T rows
+// in row order (pair_stats) into the mean, and the squared deviations from
+// the registers go the same way into rstd. No atomics: two runs give the
+// same bits. Then, in registers: the GroupNorm affine, Mish, + temb or +
+// the identity residual, and 16-byte stores from the fragments (a shuffle
+// between lane pairs makes float4s of two n8 blocks' pairs: a quad writes
+// 64 contiguous bytes of its row, 8 rows a warp store; float2 stores of
+// 32-byte segments made the pass 30-50% slower than the earlier tile's). The 1x1 projection (ProjRing: a part of K = 1 on the same
+// slots, 2 chunks a slot, A by descriptor, its boxes position-major at T =
+// 3 as the conv's) runs first, from zero, in the registers the conv takes
+// next: its product P goes to the rows' own out while the conv's loop runs,
+// and the final pass reads it back (each thread its own) as it reads the
+// identity residual: out = (Mish(y) + P) + bres, the plain form's order.
+// One accumulator all along. Accumulated onto Mish(y) instead, the
+// product's wgmma steps (3 passes x C / 8) each round at Mish(y)'s ulp:
+// 1024 -> 512 at T = 3 then ended 1.1e-4 from the plain version (H100).
 //
 // Persistent clusters: at most one CTA an SM (the plan's `ctas`, in
 // clusters of the plan's `cs`, 2 wherever there are two row tiles), each
 // cluster walking items i = cluster, + clusters, .. (row-tile pair i / N
 // tiles, N tile i % N tiles); the partner of an odd last row tile runs the
-// ring with zeros and stores nothing. At NT = 64 the conv tile [192][NT+4]
-// lies beside 5 slots, so while the consumers run one tile's GroupNorm
-// statistics, Mish and stores, the producer already fills the ring with the
-// next tile's stages. At NT = 128 it lies over a ring of 4 slots instead
-// ("deep": two slots beside it do not hide a slot's load round trip), the
-// producer starts a tile once the previous tile's epilogue is done in both
-// CTAs; with the projection, z goes out to device memory while the
-// projection's part runs in the conv's registers, and comes back into the
-// tile for the epilogue. The plan (ops/_build.plan_stage) takes the N tile by the
-// waves of cluster items over the SMs times a tile's width, the wide one on
-// a tie; the launch recomputes the plan's shared-memory bytes, CTAs and
-// cluster size and refuses one that differs.
+// ring with zeros and stores nothing. Nothing lies over the ring, so the
+// producer runs on into the next tile's slots while the consumers run this
+// tile's epilogue: 6 slots at NT = 64, 4 at NT = 128. The plan
+// (ops/_build.plan_stage) takes the N tile by the waves of cluster items
+// over the SMs times a tile's width, the wide one on a tie; the launch
+// recomputes the plan's shared-memory bytes, CTAs and cluster size and
+// refuses one that differs.
 //
 // The saving instance (Args = SaveArgs) is the forward of the autograd
 // Functions: it also stores z = conv + bias and each (sample, group)'s mean
@@ -87,28 +104,24 @@ namespace cindm {
 // move its registers to the consumers: with a producer warp alone (416
 // threads) ptxas gave a thread 128 registers, as for 512, and the
 // N-tile-128 instances spilled, or serialized their wgmmas (C7512) with two
-// groups in flight.
+// groups in flight. The consumers hold the accumulator through the
+// epilogue; at 152 registers the N-tile-128 instances with the projection
+// still spilled a few, at 160 (the producer's 32 suffice) none does.
 constexpr int kStageThreads = kThreads + 128;
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 152;  // 3 x 128 x 152 + 128 x 40 <= 65,536
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 160;  // 3 x 128 x 160 + 128 x 32 = 65,536
 static_assert(3 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536, "the SM's register file");
 static_assert(kThreads + 32 * (1 + kSplitWarps) == kStageThreads, "the producer warpgroup");
 
 // The forward's ring: one chunk of 8 input channels a slot (rows of 32
 // bytes), its A box split into two planes beside it (Planes), then the
 // chunk's weight blocks: 32,768 bytes a slot at NT = 64, 53,248 at 128.
-// NT = 64 keeps 5 slots beside its conv tile, so the producer runs ahead
-// during a tile's epilogue. At NT = 128 a tile of its own leaves room for
-// two slots only, and two do not hide a slot's load round trip, so the
-// conv tile lies over a ring of kDeepStages slots instead ("deep"): the
-// producer starts a tile's loads once the previous tile's epilogue is done
-// in both CTAs of the cluster (an mbarrier, `epi`), and the projection's
-// part runs before the epilogue (the tile can take the conv output only
-// once the ring is through), while z waits in device memory (kSpillZ).
-constexpr int kDeepStages = 4;
-constexpr int kNarrowStages = 5;
+// No conv tile shares the shared memory with it, so NT = 64 takes 6 slots
+// and NT = 128 4 (a fifth would not fit).
+constexpr int kWideStages = 4;
+constexpr int kNarrowStages = 6;
 template <int NT>
-using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kDeepStages, 1, 0, true>;
+using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kWideStages, 1, 0, true>;
 // The projection's part on the same slots: its 1-tap blocks are a fifth of
 // a conv's, so a slot takes 2 chunks (rows of 64 bytes) and the part runs
 // half as many stages.
@@ -137,31 +150,27 @@ __host__ __device__ constexpr int stage_cluster(int row_tiles) { return row_tile
 
 // Shared memory of a stage launch (mirrors ops/_build.plan_stage; the
 // launch refuses a plan whose bytes differ): 1,024 bytes to align the ring
-// to the swizzle's period, the ring and the conv tile (beside it at NT =
-// 64, over it at 128), mean and rstd of the tile's (sample, group) pairs,
-// each ring slot's full, empty and abox barriers and the epilogue's
-// barrier.
+// to the swizzle's period, the ring, the rows' sums of each group of the
+// tile [192][groups_per_tile], each (sample, group)'s mean and rstd, and
+// each ring slot's full, empty and abox barriers.
 __host__ __device__ inline size_t stage_smem_bytes(int nt, int samples, int groups_per_tile) {
-  const bool deep = nt == 128;
-  const size_t ring = deep ? ConvRing<128>::kRingBytes : ConvRing<64>::kRingBytes;
-  const int stages = deep ? kDeepStages : kNarrowStages;
-  const size_t region = deep ? (ring > tile_bytes(nt) ? ring : tile_bytes(nt)) : ring + tile_bytes(nt);
-  return 1024 + region + 8 * size_t(samples) * groups_per_tile + 24 * stages + 8;
+  const size_t ring = nt == 128 ? ConvRing<128>::kRingBytes : ConvRing<64>::kRingBytes;
+  const int stages = nt == 128 ? kWideStages : kNarrowStages;
+  return 1024 + ring + 4 * size_t(kTileRows) * groups_per_tile + 8 * size_t(samples) * groups_per_tile +
+         24 * stages;
 }
 
 struct StageArgs {
   const float* x;     // [B, T, C]  conv input
-  const float* w;     // [5, C, O]
   const float* b;     // [O]
   const float* gs;    // [O] GroupNorm scale
   const float* gb;    // [O] GroupNorm bias
   const float* temb;  // [B, O] added after Mish, or null
   const float* xres;  // [B, T, O] identity residual, or [B, T, Cres] projection input, or null
-  const float* wres;  // [Cres, O] 1x1 projection, or null
-  const float* bres;  // [O]
+  const float* bres;  // [O], with the projection
   float* out;         // [B, T, O]
-  uint32_t* ws;       // w laid out by stage_weights (staged_weight_bytes(nt, C, O, 5))
-  uint32_t* wress;    // wres laid out likewise (K = 1), or null
+  const uint32_t* ws;     // w [5, C, O] laid out by stage_weights (staged_weight_bytes(nt, C, O, 5))
+  const uint32_t* wress;  // the 1x1 projection wres [Cres, O] laid out likewise (K = 1), or null
   int B, T, C, O, G, Cres;
   float eps;
   int samples;        // whole samples per tile (samples * T <= 192)
@@ -232,40 +241,112 @@ __global__ void stage_weights(const float* __restrict__ w, int K, int C, int O, 
   }
 }
 
-// Per (sample, group) mean and 1/sqrt(var + eps) of the tile, two-pass in
-// fp32 with biased variance; one warp per (sample, group). Element e of a
-// group lies at row e / og, column e % og; the quotient comes from a float
-// product, exact here (e < 2^15, og <= 128), so the loads do not wait on
-// an integer division and unroll.
-template <int NT>
-__device__ void tile_stats(const float* tile, int ns, int T, int gpt, int og, float eps,
-                           float* mean, float* rstd) {
-  const int lane = threadIdx.x & 31;
-  const int n = T * og;
-  const float inv_og = 1.0f / og;
-  auto at = [&](const float* base, int e) {
-    const int r = static_cast<int>((e + 0.5f) * inv_og);
-    return base[r * (NT + 4) + e - r * og];
-  };
-  for (int p = threadIdx.x >> 5; p < ns * gpt; p += kWarps) {
-    const float* base = tile + (p / gpt) * T * (NT + 4) + (p % gpt) * og;
-    float s = 0.0f;
-#pragma unroll 4
-    for (int e = lane; e < n; e += 32) s += at(base, e);
-    const float m = warp_sum(s) / n;
-    float q = 0.0f;
-#pragma unroll 4
-    for (int e = lane; e < n; e += 32) {
-      const float d = at(base, e) - m;
-      q += d * d;
+// The GroupNorm statistics' first step, from the registers: per row of the
+// thread's two fragment rows, the sum over each group of the tile of z
+// (kSq = false) or of (z - mean)^2 (kSq = true, mean from stats[].x) into
+// psum[r * gpt + group]. A thread adds its values of a group in column
+// order (8j + 2q + e: j, then e), the squares by fused multiply-add, from 0;
+// the 4 lanes that share a row add theirs as (l0 + l1) + (l2 + l3), the
+// same bits in each lane; lane group % 4 of them writes. sb[i]: the
+// stats index of row i's sample (its first group). Groups of a multiple of 8
+// channels take whole n8 blocks (j) of the fragment; others test each
+// column.
+template <int NT, bool kSq>
+__device__ __forceinline__ void row_group_sums(const float (&acc)[NT / 2], const TileRows& tr, const int (&sb)[2],
+                                               int og, int gpt, const float2* stats, float* psum) {
+  const int q = threadIdx.x & 3;
+  auto put = [&](float v0, float v1, int g) {
+    v0 += __shfl_xor_sync(0xffffffffu, v0, 1);
+    v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
+    v0 += __shfl_xor_sync(0xffffffffu, v0, 2);
+    v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
+    if (q == (g & 3)) {
+      if (tr.live[0]) psum[tr.r[0] * gpt + g] = v0;
+      if (tr.live[1]) psum[tr.r[1] * gpt + g] = v1;
     }
-    const float var = warp_sum(q) / n;
-    if (lane == 0) {
-      mean[p] = m;
-      rstd[p] = rsqrtf(var + eps);
+  };
+  auto add = [](float s, float v, float m) {
+    if constexpr (kSq) {
+      const float d = v - m;
+      return fmaf(d, d, s);
+    } else {
+      return s + v;
+    }
+  };
+  if ((og & 7) == 0) {
+    const int jpg = og >> 3;  // n8 blocks a group
+    float s0 = 0.0f, s1 = 0.0f, m0 = 0.0f, m1 = 0.0f;
+    int k = 0, g = 0;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      if (kSq && k == 0 && g < gpt) {
+        m0 = stats[sb[0] + g].x;
+        m1 = stats[sb[1] + g].x;
+      }
+      s0 = add(add(s0, acc[4 * j], m0), acc[4 * j + 1], m0);
+      s1 = add(add(s1, acc[4 * j + 2], m1), acc[4 * j + 3], m1);
+      if (++k == jpg) {
+        if (g < gpt) put(s0, s1, g);
+        s0 = s1 = 0.0f;
+        k = 0;
+        ++g;
+      }
+    }
+  } else {
+    for (int g = 0; g < gpt; ++g) {
+      const int lo = g * og - 2 * q;  // column 8j + 2q + e lies in group g where lo <= 8j + e < lo + og
+      const float m0 = kSq ? stats[sb[0] + g].x : 0.0f, m1 = kSq ? stats[sb[1] + g].x : 0.0f;
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e >= lo && 8 * j + e < lo + og) {
+            s0 = add(s0, acc[4 * j + e], m0);
+            s1 = add(s1, acc[4 * j + 2 + e], m1);
+          }
+      put(s0, s1, g);
     }
   }
 }
+
+// The statistics' second step: per (sample, group) pair of the tile, one
+// thread adds its sample's T rows of psum in row order, from 0, and divides
+// by the group's n elements: the mean (kSq = false, into stats[].x) or the
+// biased variance, of which 1/sqrt(var + eps) (kSq = true, into stats[].y);
+// `out` (the saving instance's mean or rstd [B, G], element out0 + s G + g),
+// or null.
+template <bool kSq>
+__device__ __forceinline__ void pair_stats(const float* psum, int ns, int T, int gpt, int G, float n, float eps,
+                                           float2* stats, float* out, size_t out0) {
+  for (int p = threadIdx.x; p < ns * gpt; p += kThreads) {
+    const int s = p / gpt, g = p - s * gpt;
+    const float* src = psum + s * T * gpt + g;
+    float v = 0.0f;
+    for (int t = 0; t < T; ++t) v += src[t * gpt];
+    v /= n;
+    if constexpr (kSq) {
+      v = rsqrtf(v + eps);
+      stats[p].y = v;
+    } else {
+      stats[p].x = v;
+    }
+    if (out != nullptr) out[out0 + static_cast<size_t>(s) * G + g] = v;
+  }
+}
+
+// The stores' exchange: lane q holds columns 8j + 2q, + 1 of n8 blocks j
+// (a) and j + 1 (b) of a row; one shuffle with lane q ^ 1 gives lanes 0, 2
+// columns 8j + 2q .. + 3 and lanes 1, 3 columns 8(j + 1) + 2(q - 1) .. + 3
+// (quad_col): whole float4s, so that a quad writes 64 contiguous bytes of
+// its row with one 16-byte store a lane.
+__device__ __forceinline__ float4 quad_pairs(float2 a, float2 b, int q) {
+  const bool odd = q & 1;
+  const float2 send = odd ? a : b;
+  const float rx = __shfl_xor_sync(0xffffffffu, send.x, 1), ry = __shfl_xor_sync(0xffffffffu, send.y, 1);
+  return odd ? make_float4(rx, ry, b.x, b.y) : make_float4(a.x, a.y, rx, ry);
+}
+__device__ __forceinline__ int quad_col(int j, int q) { return q & 1 ? 8 * (j + 1) + 2 * (q - 1) : 8 * j + 2 * q; }
 
 // One tile of a persistent CTA's walk, on the consumer warpgroups: row
 // tile rt (samples [rt S, rt S + ns); none where rt is past the last row
@@ -273,224 +354,212 @@ __device__ void tile_stats(const float* tile, int ns, int T, int gpt, int og, fl
 // `it` counts the ring's stages as the producer does. KW = 3: T = 3, the
 // tile position-major, A by descriptor (ring_consume_ss); KW = 5: the tile
 // row-major, A's fragments from the split planes (ring_consume, kPre).
-template <int NT, int KW, bool kSpillZ, class Args>
-__device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const char* ring, float* tile,
-                                           float* mean, float* rstd, const FwdRing& f, uint32_t epi, int& it) {
+// kProj: with the 1x1 projection (a.wress), an instance of its own:
+// decided at run time, the accumulator's flow merged at branches and ptxas
+// serialized every instance's wgmmas (C7511) and spilled at NT = 128.
+// psum [192][gpt] and stats [samples][gpt] (mean, rstd) are the CTA's.
+template <int NT, int KW, bool kProj, class Args>
+__device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const char* ring, float* psum,
+                                           float2* stats, const FwdRing& f, int& it) {
   constexpr bool kSave = !std::is_same<Args, StageArgs>::value;
-  constexpr bool kDeep = NT == 128;
   using CR = ConvRing<NT>;
   using PR = ProjRing<NT>;
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+  {
+    const int ns = max(0, min(a.samples, a.B - rt * a.samples));
+    const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
+    if constexpr (kProj) {
+      // the 1x1 projection first, from zero, in the registers the conv then
+      // takes (its rows in the conv's tile order: at T = 3 its boxes are
+      // position-major too); its product P goes to the rows' own out,
+      // which only this thread reads back (the final pass), then is
+      // overwritten
+      ring_consume_ss<PR, 1>(0, 64 * (threadIdx.x >> 7), ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it,
+                             acc);
+      const int n0 = nti * NT, ncols = min(NT, a.O - n0);
+      const int q = threadIdx.x & 3;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float* prow = a.out + static_cast<size_t>(rt * a.samples * a.T + tr.r[i]) * a.O + n0;
+#pragma unroll
+        for (int j = 0; j < NT / 8; j += 2) {
+          const float4 p = quad_pairs(make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]),
+                                      make_float2(acc[4 * j + 4 + 2 * i], acc[4 * j + 5 + 2 * i]), q);
+          if (tr.live[i] && quad_col(j, q) < ncols) *reinterpret_cast<float4*>(prow + quad_col(j, q)) = p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    }
+    const RingPart conv = ring_part<CR>(a.ws, a.C, kConvK, 0, 1, nti);
+    if constexpr (kDescA<NT, KW>)  // position t = wg: taps 2 - t .. 4 - t read positions 0 .. 2
+      ring_consume_ss<CR, kConvK>(tr.klo, 0, conv, ring, f, it, acc);
+    else
+      ring_consume<CR, kConvK, KW, Split::kPre, true>(tr, conv, ring, f.full, f.empty, it, acc, f.peer);
+  }
+  // The epilogue's indices come after the loop, from the tile's and the
+  // thread's indices passed through an empty asm, so that the compiler
+  // neither keeps them live across the loop (the NT = 128 instances with the
+  // projection spilled them there) nor merges them with the loop's own.
+  unsigned tid = threadIdx.x;
+  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));
   const int b0 = rt * a.samples;
   const int ns = max(0, min(a.samples, a.B - b0));
-  const int nrows = ns * a.T;
   const int row0 = b0 * a.T;
   const int n0 = nti * NT;
   const int ncols = min(NT, a.O - n0);
   const int og = a.O / a.G;
   const int gpt = ncols / og;  // whole groups: n0 and ncols are multiples of og
-  const bool proj = kDeep ? kSpillZ : a.wres != nullptr;  // deep: an instance of its own with it
-  const int lane = threadIdx.x & 31;
-  const int wg = threadIdx.x >> 7;
+  const int q = tid & 3;
+  const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T, tid);
 
-  // Deep with the projection: the ring under the tile still has the
-  // projection's part to run once the conv's is through, so z = acc + b
-  // goes out to device memory (z where the instance saves it, else the rows'
-  // own out, which the final pass overwrites), the projection's part takes
-  // the accumulator, and the tile is read back from there.
-  float* zg;
+  // z = acc + b at the fragment positions (columns 8j + 2q, + 1 of rows
+  // tr.r[0], tr.r[1]). The registers are written on every path and the
+  // loads are predicated, past ncols (where the weights are zero) to 0:
+  // every address is a row's base + 32j bytes, an immediate offset (ncols
+  // is even: c + 1 < ncols with c)
+  const size_t grow[2] = {static_cast<size_t>(row0 + tr.r[0]) * a.O + n0,
+                          static_cast<size_t>(row0 + tr.r[1]) * a.O + n0};
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int c = 8 * j + 2 * q;
+    float2 bias = make_float2(0.0f, 0.0f);
+    if (c < ncols) bias = __ldg(reinterpret_cast<const float2*>(a.b + n0 + c));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc[4 * j + 2 * i] += bias.x;
+      acc[4 * j + 2 * i + 1] += bias.y;
+    }
+  }
   if constexpr (kSave)
-    zg = a.z;
-  else
-    zg = a.out;
-  constexpr bool spill_z = kSpillZ;
-  float acc[NT / 2];
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-  {
-    const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
-    const RingPart part = ring_part<CR>(a.ws, a.C, kConvK, 0, 1, nti);
-    if constexpr (kDescA<NT, KW>)  // position t = wg: taps 2 - t .. 4 - t read positions 0 .. 2
-      ring_consume_ss<CR, kConvK>(tr.klo, 0, part, ring, f, it, acc);
-    else
-      ring_consume<CR, kConvK, KW, Split::kPre, true>(tr, part, ring, f.full, f.empty, it, acc, f.peer);
-    if (!spill_z) consumer_sync();  // the previous tile's epilogue is done with the tile and the statistics
-    // z[r][c] = acc + b[n0 + c] at the fragment positions, rows in natural
-    // order: into the tile, or out to zg
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      const int c = 8 * j + 2 * (lane & 3);
-      const float bias0 = c < ncols ? __ldg(a.b + n0 + c) : 0.0f;
-      const float bias1 = c + 1 < ncols ? __ldg(a.b + n0 + c + 1) : 0.0f;
+    for (int j = 0; j < NT / 8; j += 2)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float2 v = make_float2(acc[4 * j + 2 * i] + bias0, acc[4 * j + 2 * i + 1] + bias1);
-        if (!tr.live[i]) continue;
-        if (!spill_z)
-          *reinterpret_cast<float2*>(tile + tr.r[i] * (NT + 4) + c) = v;
-        else if (c < ncols)  // ncols is even: c + 1 < ncols too
-          *reinterpret_cast<float2*>(zg + static_cast<size_t>(row0 + tr.r[i]) * a.O + n0 + c) = v;
+        const float4 z = quad_pairs(make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]),
+                                    make_float2(acc[4 * j + 4 + 2 * i], acc[4 * j + 5 + 2 * i]), q);
+        if (tr.live[i] && quad_col(j, q) < ncols) *reinterpret_cast<float4*>(a.z + grow[i] + quad_col(j, q)) = z;
       }
-    }
-  }
-  if (spill_z) {
-#pragma unroll
-    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-    ring_consume_ss<PR, 1>(0, 64 * wg, ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it, acc);
-    consumer_sync();  // the ring is through; z is out
-    for (int i = threadIdx.x; i < nrows * (NT / 4); i += kThreads) {
-      const int r = i / (NT / 4), c = 4 * (i % (NT / 4));
-      if (c < ncols)
-        *reinterpret_cast<float4*>(tile + r * (NT + 4) + c) =
-            *reinterpret_cast<const float4*>(zg + static_cast<size_t>(row0 + r) * a.O + n0 + c);
-    }
-  }
-  consumer_sync();
-  tile_stats<NT>(tile, ns, a.T, gpt, og, a.eps, mean, rstd);
-  consumer_sync();
-  // Each thread keeps four neighbouring columns (NT / 4 divides kThreads),
-  // so their GroupNorm affine and group indices are loaded once; the tile,
-  // temb, the residual and the output move 16 bytes at a time (O is a
-  // multiple of 4, so 4 columns lie within ncols together).
-  const int c = 4 * (threadIdx.x % (NT / 4));
-  const int r0 = threadIdx.x / (NT / 4);
-  constexpr int kRowStep = kThreads / (NT / 4);
-  const int o = n0 + c;
-  const int gl[4] = {c / og, (c + 1) / og, (c + 2) / og, (c + 3) / og};
-  const float inv_t = 1.0f / a.T;
-  if constexpr (kSave) {
-    // z and the statistics, before the projection rewrites the tile
-    for (int p = threadIdx.x; p < ns * gpt; p += kThreads) {
-      const size_t gi = static_cast<size_t>(b0 + p / gpt) * a.G + n0 / og + p % gpt;
-      a.mean[gi] = mean[p];
-      a.rstd[gi] = rstd[p];
-    }
-    if (c < ncols && !spill_z)
-      for (int r = r0; r < nrows; r += kRowStep)
-        *reinterpret_cast<float4*>(a.z + static_cast<size_t>(row0 + r) * a.O + o) =
-            *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
-  }
-  // GN(z) of row r's four columns of the tile, Mish's argument
-  auto affine = [&](int r, const float4& scale, const float4& shift) {
-    float4 v = *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
-    const int p = static_cast<int>((r + 0.5f) * inv_t) * gpt;  // (r / T) * gpt, r / T exact for r < 192
-    v.x = (v.x - mean[p + gl[0]]) * rstd[p + gl[0]] * scale.x + shift.x;
-    v.y = (v.y - mean[p + gl[1]]) * rstd[p + gl[1]] * scale.y + shift.y;
-    v.z = (v.z - mean[p + gl[2]]) * rstd[p + gl[2]] * scale.z + shift.z;
-    v.w = (v.w - mean[p + gl[3]]) * rstd[p + gl[3]] * scale.w + shift.w;
-    return v;
-  };
 
-  if (proj) {
-    // The 1x1 projection: a second part of K = 1 over the same rows in the
-    // registers the conv accumulator vacated (deep: run already). The tile
-    // is normalised in place first (GN(z), Mish's argument y), Mish meets
-    // the product at the fragment positions and bres comes in the final
-    // pass: (Mish(y) + xres wres) + bres, Mish's last product fused with the
-    // first add as the compiler fuses it in the plain form.
-    if constexpr (kSave) consumer_sync();  // z is stored before the tile changes
-    if (c < ncols) {
-      const float4 scale = __ldg(reinterpret_cast<const float4*>(a.gs + o));
-      const float4 shift = __ldg(reinterpret_cast<const float4*>(a.gb + o));
-      for (int r = r0; r < nrows; r += kRowStep)
-        *reinterpret_cast<float4*>(tile + r * (NT + 4) + c) = affine(r, scale, shift);
+  // the statistics: rows' sums, then the pairs', for the mean and then rstd
+  const int smp[2] = {tr.live[0] ? tr.r[0] / a.T : 0, tr.live[1] ? tr.r[1] / a.T : 0};
+  const int sb[2] = {smp[0] * gpt, smp[1] * gpt};
+  {
+    const float n = static_cast<float>(a.T * og);
+    float* mean_out = nullptr;
+    float* rstd_out = nullptr;
+    if constexpr (kSave) {
+      mean_out = a.mean;
+      rstd_out = a.rstd;
     }
-    const TileRows tr = tile_rows<1, 1>(a.samples, ns, a.T);
-    if constexpr (!kDeep) {
+    const size_t out0 = static_cast<size_t>(b0) * a.G + n0 / og;
+    row_group_sums<NT, false>(acc, tr, sb, og, gpt, stats, psum);
+    consumer_sync();  // psum is whole (and the previous tile's readers of stats are done)
+    pair_stats<false>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, mean_out, out0);
+    consumer_sync();  // the means are in
+    row_group_sums<NT, true>(acc, tr, sb, og, gpt, stats, psum);
+    consumer_sync();
+    pair_stats<true>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, rstd_out, out0);
+    consumer_sync();  // rstd is in
+  }
+
+  // GN(z) -> Mish, + temb and the identity residual, or + P and bres:
+  // (Mish(y) + P) + bres, Mish's last product fused with P's add as the
+  // compiler fuses it in the plain form; the stores. Each row's (mean,
+  // rstd) of a group: where groups span whole n8 blocks, loaded once a
+  // group (jpg blocks); else per column, its group from a float product
+  // (exact here: c < 128, og <= 128).
+  const int jpg = (og & 7) == 0 ? og >> 3 : 0;
+  const float inv_og = 1.0f / og;
+  float2 st[2][2];  // [row][column of the pair]
+  int k = 0, gw = 0;
 #pragma unroll
-      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-      ring_consume_ss<PR, 1>(0, 64 * wg, ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it, acc);
-    }
-    consumer_sync();  // the tile is normalised
+  for (int j = 0; j < NT / 8; j += 2) {
+    float2 v[2][2];  // [block j, j + 1][row]
 #pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      const int cj = 8 * j + 2 * (lane & 3);
+    for (int h = 0; h < 2; ++h) {
+      const int c = 8 * (j + h) + 2 * q;
+      if (jpg != 0) {
+        if (k == 0 && gw < gpt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) st[i][0] = st[i][1] = stats[sb[i] + gw];
+        if (++k == jpg) k = 0, ++gw;
+      } else {
+        const int g0 = c < ncols ? static_cast<int>((c + 0.5f) * inv_og) : 0;
+        const int g1 = c < ncols ? static_cast<int>((c + 1.5f) * inv_og) : 0;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) st[i][0] = stats[sb[i] + g0], st[i][1] = stats[sb[i] + g1];
+      }
+      float2 scale = make_float2(0.0f, 0.0f), shift = scale;  // past ncols: Mish(0), never stored
+      if (c < ncols) {
+        scale = __ldg(reinterpret_cast<const float2*>(a.gs + n0 + c));
+        shift = __ldg(reinterpret_cast<const float2*>(a.gb + n0 + c));
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (tr.live[i] && cj < ncols) {  // ncols is even: cj + 1 < ncols too
-          float2* t = reinterpret_cast<float2*>(tile + tr.r[i] * (NT + 4) + cj);
-          const float2 v = *t;
-          *t = make_float2(mish(v.x) + acc[4 * j + 2 * i], mish(v.y) + acc[4 * j + 2 * i + 1]);
-        }
+        v[h][i] = make_float2(mish((acc[4 * (j + h) + 2 * i] - st[i][0].x) * st[i][0].y * scale.x + shift.x),
+                              mish((acc[4 * (j + h) + 2 * i + 1] - st[i][1].x) * st[i][1].y * scale.y + shift.y));
     }
-    consumer_sync();
-  }
-
-  if (c < ncols) {
-    const float4 scale = __ldg(reinterpret_cast<const float4*>(a.gs + o));
-    const float4 shift = __ldg(reinterpret_cast<const float4*>(a.gb + o));
-    const float4 bres = proj ? __ldg(reinterpret_cast<const float4*>(a.bres + o)) : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* ident = (!proj && a.xres != nullptr) ? a.xres : nullptr;
-#pragma unroll 2
-    for (int r = r0; r < nrows; r += kRowStep) {
-      const size_t gi = static_cast<size_t>(row0 + r) * a.O + o;
-      float4 v;
-      if (proj) {
-        v = *reinterpret_cast<const float4*>(tile + r * (NT + 4) + c);
-        v.x += bres.x, v.y += bres.y, v.z += bres.z, v.w += bres.w;
+    const int c4 = quad_col(j, q);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float4 o = quad_pairs(v[0][i], v[1][i], q);
+      if (!tr.live[i] || c4 >= ncols) continue;
+      if constexpr (kProj) {
+        const float4 p = *reinterpret_cast<const float4*>(a.out + grow[i] + c4);  // this thread's own P
+        const float4 bres = __ldg(reinterpret_cast<const float4*>(a.bres + n0 + c4));
+        o = make_float4((o.x + p.x) + bres.x, (o.y + p.y) + bres.y, (o.z + p.z) + bres.z, (o.w + p.w) + bres.w);
       } else {
-        v = affine(r, scale, shift);
-        v.x = mish(v.x), v.y = mish(v.y), v.z = mish(v.z), v.w = mish(v.w);
         if (a.temb != nullptr) {
-          const int sr = static_cast<int>((r + 0.5f) * inv_t);
-          const float4 t = __ldg(reinterpret_cast<const float4*>(a.temb + (b0 + sr) * size_t(a.O) + o));
-          v.x += t.x, v.y += t.y, v.z += t.z, v.w += t.w;
+          const float4 t = __ldg(reinterpret_cast<const float4*>(a.temb + (b0 + smp[i]) * size_t(a.O) + n0 + c4));
+          o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
         }
-        if (ident != nullptr) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(ident + gi));
-          v.x += t.x, v.y += t.y, v.z += t.z, v.w += t.w;
+        if (a.xres != nullptr) {  // the identity residual
+          const float4 t = __ldg(reinterpret_cast<const float4*>(a.xres + grow[i] + c4));
+          o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
         }
       }
-      *reinterpret_cast<float4*>(a.out + gi) = v;
+      *reinterpret_cast<float4*>(a.out + grow[i] + c4) = o;
     }
   }
   __syncwarp();  // the warp converges before the next tile's wgmmas
-  if (kDeep && lane == 0) {  // this warp is done with the tile over the ring
-    mbar_arrive(epi);
-    if (f.peer != kNoPeer) mbar_arrive_peer(epi, f.peer);
-  }
 }
 
 // Args = SaveArgs: the saving instance, which also writes z, mean and rstd
 // for the backward (conv_backward.cuh); with StageArgs it compiles without.
-// mx: x as position_map views it (kDescA) or ring_map; mres: xres
-// as ring_map views it where the projection runs (else unused). Deep: NT =
-// 128, the conv tile over the ring; kSpillZ: deep with the projection (z
-// goes out to device memory while the projection's part runs), an
-// instance of its own so that the deep one without keeps its code.
-// Launched in clusters of a.cs CTAs:
-// cluster q walks items i = q, q + clusters, .. of (row-tile pair i / N
-// tiles, N tile i % N tiles), rank r taking row tile 2 (i / N tiles) + r.
-template <int NT, int KW, bool kSpillZ, class Args>
+// kProj: with the 1x1 projection (a.wress). mx: x as position_map views it
+// (kDescA) or ring_map; mres: xres likewise (its own pitch) where the
+// projection runs (else unused). Launched in
+// clusters of a.cs CTAs: cluster q walks items i = q, q + clusters, .. of
+// (row-tile pair i / N tiles, N tile i % N tiles), rank r taking row tile
+// 2 (i / N tiles) + r.
+template <int NT, int KW, bool kProj, class Args>
 __global__ void __launch_bounds__(kStageThreads, 1)
     conv_gn_mish_stage(const Args a, const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mres) {
-  constexpr bool kDeep = NT == 128;
   using R = ConvRing<NT>;
   using P = ProjRing<NT>;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   smem += (1024 - smem_u32(smem) % 1024) % 1024;  // the swizzle's period
   const int gmax = (a.O < NT ? a.O : NT) / (a.O / a.G);  // groups of a whole N tile
-  float* tile = reinterpret_cast<float*>(kDeep ? smem : smem + R::kRingBytes);
-  const size_t region = kDeep ? (R::kRingBytes > tile_bytes(NT) ? R::kRingBytes : tile_bytes(NT))
-                              : R::kRingBytes + tile_bytes(NT);
-  float* mean = reinterpret_cast<float*>(smem + region);
-  float* rstd = mean + a.samples * gmax;
+  float* psum = reinterpret_cast<float*>(smem + R::kRingBytes);
+  float2* stats = reinterpret_cast<float2*>(psum + kTileRows * gmax);
   FwdRing f;
-  f.full = smem_u32(rstd + a.samples * gmax);
+  f.full = smem_u32(stats + a.samples * gmax);
   f.empty = f.full + 8 * R::kStages;
   f.abox = f.empty + 8 * R::kStages;
   f.cs = a.cs;
   f.rank = cluster_rank();
   f.peer = a.cs == 2 ? f.rank ^ 1u : kNoPeer;
-  const uint32_t epi = f.abox + 8 * R::kStages;
   if (threadIdx.x == 0) {
     for (int q = 0; q < R::kStages; ++q) {
       mbar_init(f.full + 8 * q, 1 + kSplitWarps);  // the producer's, one a splitting warp
       mbar_init(f.empty + 8 * q, a.cs * kWarps);   // one arrival a consumer warp of the cluster
       mbar_init(f.abox + 8 * q);
     }
-    mbar_init(epi, a.cs * kWarps);
   }
   cluster_sync();  // the barriers of both CTAs are set before either copies or arrives into the other
   // the role, warp-uniform as the compiler can see (a shuffle of lane 0's
@@ -500,43 +569,48 @@ __global__ void __launch_bounds__(kStageThreads, 1)
   const int row_tiles = (a.B + a.samples - 1) / a.samples;
   const int items = (row_tiles + a.cs - 1) / a.cs * ntiles;
   const int cluster = blockIdx.x / a.cs, clusters = gridDim.x / a.cs;
-  const bool proj = kDeep ? kSpillZ : a.wres != nullptr;
   int it = 0;
   if (warp >= kWarps) {
     regs_dec<kProducerRegs>();
-    int local = 0;  // this CTA's tiles so far
-    for (int i = cluster; i < items; i += clusters, ++local) {
+    for (int i = cluster; i < items; i += clusters) {
       const int rt = i / ntiles * a.cs + static_cast<int>(f.rank), nti = i % ntiles;
       const int b0 = rt * a.samples, row0 = b0 * a.T;
       const RingPart conv = ring_part<R>(a.ws, a.C, kConvK, 0, 1, nti);
       const RingPart pres = ring_part<P>(a.wress, a.Cres, 1, 0, 1, nti);
       if (warp == kWarps) {
-        if (kDeep && local > 0) mbar_wait(epi, (local - 1) & 1);  // the tile over both rings is free
-        if constexpr (kDescA<NT, KW>)  // T = 3: positions 0, 1, 2 of 64 samples, one box each
+        if constexpr (kDescA<NT, KW>) {  // T = 3: positions 0, 1, 2 of 64 samples, one box each
+          if constexpr (kProj)
+            ring_feed<P>(pres, [&](char* st, int c, uint32_t bar) {
+              for (int t = 0; t < 3; ++t) tma_load_3d(st + t * 64 * P::kPitch, &mres, c, t, b0, bar);
+            }, smem, f, it);
           ring_feed<R>(conv, [&](char* st, int c, uint32_t bar) {
             for (int t = 0; t < 3; ++t) tma_load_3d(st + t * 64 * R::kPitch, &mx, c, t, b0, bar);
           }, smem, f, it);
-        else
+        } else {
+          if constexpr (kProj)
+            ring_feed<P>(pres, [&](char* st, int c, uint32_t bar) { tma_load_2d(st, &mres, c, row0, bar); },
+                         smem, f, it);
           ring_feed<R>(conv, [&](char* st, int c, uint32_t bar) { tma_load_2d(st, &mx, c, row0, bar); }, smem, f,
                        it);
-        if (proj)
-          ring_feed<P>(pres, [&](char* st, int c, uint32_t bar) { tma_load_2d(st, &mres, c, row0, bar); },
-                       smem, f, it);
+        }
       } else {
         const int t = threadIdx.x - kThreads - 32;
+        if constexpr (kProj) ring_split<P>(pres, smem, f, t, it);
         ring_split<R>(conv, smem, f, t, it);
-        if (proj) ring_split<P>(pres, smem, f, t, it);
       }
     }
   } else {
     regs_inc<kConsumerRegs>();
     for (int i = cluster; i < items; i += clusters)
-      stage_tile<NT, KW, kSpillZ>(a, i / ntiles * a.cs + static_cast<int>(f.rank), i % ntiles, smem, tile, mean,
-                                rstd, f, epi, it);
+      stage_tile<NT, KW, kProj>(a, i / ntiles * a.cs + static_cast<int>(f.rank), i % ntiles, smem, psum, stats, f,
+                                it);
   }
   cluster_sync();  // no CTA leaves while its peer may still copy or arrive into it
 }
 
+// Lays w [K][C][O] out for N tiles of nt into `out`
+// (staged_weight_bytes(nt, C, O, K) bytes): cindm_stage_weights, which the
+// wrappers run once per weight version and N tile.
 cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, uint32_t* out,
                                  cudaStream_t stream) {
   const size_t total = staged_weight_bytes(nt, C, O, K) / 4;
@@ -556,11 +630,11 @@ cudaError_t stage_ctas(int items, int cs, int* ctas) {
   return cudaSuccess;
 }
 
-template <int NT, int KW, bool kSpillZ, class Args>
+template <int NT, int KW, bool kProj, class Args>
 cudaError_t launch_nt(const Args& a, size_t bytes, int ctas, const CUtensorMap& mx, const CUtensorMap& mres,
                       cudaStream_t stream) {
   static unsigned long long smem_set = 0;  // devices where the attribute is set
-  const auto k = conv_gn_mish_stage<NT, KW, kSpillZ, Args>;
+  const auto k = conv_gn_mish_stage<NT, KW, kProj, Args>;
   CINDM_TRY(allow_smem_once(k, smem_set));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
@@ -579,21 +653,20 @@ cudaError_t launch_nt(const Args& a, size_t bytes, int ctas, const CUtensorMap& 
   return cudaGetLastError();
 }
 
-// One stage: lay the weights out (stage_weights into a.ws, a.wress), then
-// launch the stage kernel with the planner's tile: `samples` whole samples
-// per tile, an N tile of `nt` channels, `smem_bytes` of dynamic shared
-// memory, `ctas` persistent CTAs in clusters of `cs`. With SaveArgs it
-// launches the saving instance. Refuses (cudaErrorInvalidValue) a plan that
-// breaks the tiling's rules or differs from the one recomputed here.
+// One stage launch on weights that stage_weights laid out (a.ws, and
+// a.wress with the projection), with the planner's tile: `samples` whole
+// samples per tile, an N tile of `nt` channels, `smem_bytes` of dynamic
+// shared memory, `ctas` persistent CTAs in clusters of `cs`. With SaveArgs
+// it launches the saving instance. Refuses (cudaErrorInvalidValue) a plan
+// that breaks the tiling's rules or differs from the one recomputed here.
 template <class Args>
 cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas, int cs, void* stream) {
   Args a = a0;
-  const bool proj = a.wres != nullptr;
+  const bool proj = a.wress != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || K != kConvK || (nt != 64 && nt != 128) ||
       a.samples <= 0 || a.samples * a.T > kTileRows || (a.T == 3 && a.samples != 64) || a.ws == nullptr ||
-      (proj && (a.Cres <= 0 || a.Cres % 4 != 0 || a.wress == nullptr || a.xres == nullptr)) ||
-      (proj != (a.bres != nullptr)))
+      (proj && (a.Cres <= 0 || a.Cres % 4 != 0 || a.xres == nullptr)) || (proj != (a.bres != nullptr)))
     return cudaErrorInvalidValue;
   const int og = a.O / a.G;
   if (a.O > nt && nt % og != 0) return cudaErrorInvalidValue;  // an N tile holds whole groups
@@ -606,26 +679,27 @@ cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas
   CINDM_TRY(stage_ctas((row_tiles + a.cs - 1) / a.cs * ((a.O + nt - 1) / nt), a.cs, &want));
   if (cs != a.cs || ctas != want) return cudaErrorInvalidValue;
   constexpr int kPitch = ConvRing<64>::kPitch;  // one chunk a slot at either N tile
-  static_assert(ConvRing<128>::kPitch == kPitch && ProjRing<128>::kPitch == ProjRing<64>::kPitch, "");
+  constexpr int kProjPitch = ProjRing<64>::kPitch;
+  static_assert(ConvRing<128>::kPitch == kPitch && ProjRing<128>::kPitch == kProjPitch, "");
   CUtensorMap mx, mres;
-  if (a.T == 3)  // kDescA
+  if (a.T == 3) {  // kDescA: position-major boxes, the projection's too
     CINDM_TRY(position_map(&mx, a.x, a.B, a.T, a.C, kPitch));
-  else
+    if (proj) CINDM_TRY(position_map(&mres, a.xres, a.B, a.T, a.Cres, kProjPitch));
+  } else {
     CINDM_TRY(ring_map(&mx, a.x, a.B * a.T, a.C, kPitch));
-  if (proj)
-    CINDM_TRY(ring_map(&mres, a.xres, a.B * a.T, a.Cres, ProjRing<64>::kPitch));
-  else
-    mres = mx;
+    if (proj) CINDM_TRY(ring_map(&mres, a.xres, a.B * a.T, a.Cres, kProjPitch));
+  }
+  if (!proj) mres = mx;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CINDM_TRY(launch_stage_weights(a.w, K, a.C, a.O, nt, a.ws, s));
-  if (proj) CINDM_TRY(launch_stage_weights(a.wres, 1, a.Cres, a.O, nt, a.wress, s));
   if (a.T == 3)
-    return nt == 64 ? launch_nt<64, 3, false>(a, bytes, ctas, mx, mres, s)
-                    : proj ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, s)
-                           : launch_nt<128, 3, false>(a, bytes, ctas, mx, mres, s);
-  return nt == 64 ? launch_nt<64, kConvK, false>(a, bytes, ctas, mx, mres, s)
-                  : proj ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, s)
-                         : launch_nt<128, kConvK, false>(a, bytes, ctas, mx, mres, s);
+    return nt == 64 ? (proj ? launch_nt<64, 3, true>(a, bytes, ctas, mx, mres, s)
+                            : launch_nt<64, 3, false>(a, bytes, ctas, mx, mres, s))
+                    : (proj ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, s)
+                            : launch_nt<128, 3, false>(a, bytes, ctas, mx, mres, s));
+  return nt == 64 ? (proj ? launch_nt<64, kConvK, true>(a, bytes, ctas, mx, mres, s)
+                          : launch_nt<64, kConvK, false>(a, bytes, ctas, mx, mres, s))
+                  : (proj ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, s)
+                          : launch_nt<128, kConvK, false>(a, bytes, ctas, mx, mres, s));
 }
 
 }  // namespace

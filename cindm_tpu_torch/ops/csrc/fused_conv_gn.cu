@@ -12,15 +12,17 @@
 // 495 TFLOP/s is 0.030 ms at batch 5,376, above the 0.020 ms that its 66 MB
 // of x and out need at 3.35 TB/s.
 //
-// Design: one launch of the stage in conv_gn_mish.cuh, after stage_weights
-// has laid w out for it in `scratch`. A tile is 192 rows (8 whole samples
-// at T=24) and all 64 channels (8 whole groups), so each weight staged from
-// L2 serves 192 rows; the conv output stays in shared memory for the
-// GroupNorm statistics and goes to device memory once, normalised and
-// Mish'd. The launch is a persistent grid of at most one CTA an SM on
-// stage_ring.cuh's main loop (a producer warp's TMA and bulk-copy ring,
-// three wgmma consumer warpgroups), so that one tile's epilogue overlaps
-// the next tile's loads (672 tiles at batch 5,376).
+// Design: one launch of the stage in conv_gn_mish.cuh, on w as
+// stage_weights laid it out beforehand (cindm_stage_weights below, which
+// the wrapper runs once per weight version and N tile and keeps). A tile
+// is 192 rows (8 whole samples at T=24) and all 64 channels (8 whole
+// groups), so each weight staged from L2 serves 192 rows; the conv output
+// stays in the consumers' registers for the GroupNorm statistics and goes
+// to device memory once, normalised and Mish'd. The launch is a persistent
+// grid of at most one CTA an SM on stage_ring.cuh's main loop (a producer
+// warpgroup's TMA and bulk-copy ring, three wgmma consumer warpgroups), so
+// that one tile's epilogue overlaps the next tile's loads (672 tiles at
+// batch 5,376).
 //
 // cindm_fused_conv1d_gn_mish_saving is the forward of the autograd
 // Function: the stage's saving instance, which also writes z [B, T, O] (the
@@ -30,15 +32,15 @@
 
 namespace {
 
-int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs, const float* gb,
-                 float* out, float* z, float* mean, float* rstd, void* scratch,
-                 long long scratch_bytes, int B, int T, int C, int O, int K, int G, float eps,
-                 int samples, int nt, int ctas, int cs, int smem_bytes, void* stream) {
-  if (nt <= 0 || static_cast<long long>(cindm::staged_weight_bytes(nt, C, O, K)) > scratch_bytes)
-    return cudaErrorInvalidValue;
+// ws: w [K, C, O] laid out by stage_weights for N tiles of nt.
+int conv_gn_mish(const float* x, const void* ws, const float* b, const float* gs, const float* gb,
+                 float* out, float* z, float* mean, float* rstd, int B, int T, int C, int O, int K,
+                 int G, float eps, int samples, int nt, int ctas, int cs, int smem_bytes,
+                 void* stream) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
-  a.x = x; a.w = w; a.b = b; a.gs = gs; a.gb = gb; a.out = out;
-  a.ws = static_cast<uint32_t*>(scratch);
+  a.x = x; a.b = b; a.gs = gs; a.gb = gb; a.out = out;
+  a.ws = static_cast<const uint32_t*>(ws);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
   a.z = z; a.mean = mean; a.rstd = rstd;
   return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, ctas, cs, stream)
@@ -48,33 +50,36 @@ int conv_gn_mish(const float* x, const float* w, const float* b, const float* gs
 
 }  // namespace
 
-extern "C" int cindm_fused_conv1d_gn_mish(const float* x, const float* w, const float* b,
-                                          const float* gs, const float* gb, float* out,
-                                          void* scratch, long long scratch_bytes, int B, int T,
-                                          int C, int O, int K, int G, float eps, int samples,
-                                          int nt, int ctas, int cs, int smem_bytes, void* stream) {
-  return conv_gn_mish(x, w, b, gs, gb, out, nullptr, nullptr, nullptr, scratch, scratch_bytes, B,
-                      T, C, O, K, G, eps, samples, nt, ctas, cs, smem_bytes, stream);
+extern "C" int cindm_fused_conv1d_gn_mish(const float* x, const void* ws, const float* b,
+                                          const float* gs, const float* gb, float* out, int B,
+                                          int T, int C, int O, int K, int G, float eps,
+                                          int samples, int nt, int ctas, int cs, int smem_bytes,
+                                          void* stream) {
+  return conv_gn_mish(x, ws, b, gs, gb, out, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps,
+                      samples, nt, ctas, cs, smem_bytes, stream);
 }
 
-extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const float* w, const float* b,
+extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const void* ws, const float* b,
                                                  const float* gs, const float* gb, float* out,
-                                                 float* z, float* mean, float* rstd,
-                                                 void* scratch, long long scratch_bytes, int B,
-                                                 int T, int C, int O, int K, int G, float eps,
+                                                 float* z, float* mean, float* rstd, int B, int T,
+                                                 int C, int O, int K, int G, float eps,
                                                  int samples, int nt, int ctas, int cs,
                                                  int smem_bytes, void* stream) {
   if (z == nullptr || mean == nullptr || rstd == nullptr) return cudaErrorInvalidValue;
-  return conv_gn_mish(x, w, b, gs, gb, out, z, mean, rstd, scratch, scratch_bytes, B, T, C, O, K,
-                      G, eps, samples, nt, ctas, cs, smem_bytes, stream);
+  return conv_gn_mish(x, ws, b, gs, gb, out, z, mean, rstd, B, T, C, O, K, G, eps, samples, nt,
+                      ctas, cs, smem_bytes, stream);
 }
 
-// stage_weights alone, as the stage's launches run it: w [K][C][O] laid out
-// for N tiles of nt into `out` (staged_weight_bytes(nt, C, O, K) bytes).
-// The stage's callers never use it; it times the layout's share of a call.
+// stage_weights: w [K][C][O] laid out for N tiles of nt into `out`
+// (staged_weight_bytes(nt, C, O, K) bytes), as the stage's launches read
+// it: per N tile and chunk of 8 input channels one block of the K taps'
+// tf32 big and small planes. What bounds it: bytes (w read once, twice as
+// many written). The wrappers of both stage kernels call it once per
+// weight version and N tile (ops/_build.staged) and keep the planes.
 extern "C" int cindm_stage_weights(const float* w, int K, int C, int O, int nt, void* out,
                                    void* stream) {
-  if ((nt != 64 && nt != 128) || K <= 0 || C <= 0 || O <= 0) return cudaErrorInvalidValue;
+  if ((nt != 64 && nt != 128) || K <= 0 || C <= 0 || O <= 0 || w == nullptr || out == nullptr)
+    return cudaErrorInvalidValue;
   return cindm::launch_stage_weights(w, K, C, O, nt, static_cast<uint32_t*>(out),
                                      static_cast<cudaStream_t>(stream));
 }

@@ -12,21 +12,23 @@
 // only) at 495 TFLOP/s: 3.26 ms for the denoiser's 16 blocks at batch 5,376,
 // against the 8.02 ms that fp32 on the CUDA cores would need.
 //
-// Design: two launches of the stage in conv_gn_mish.cuh per call, each
-// after stage_weights has laid its weights out in `scratch` (tf32 big/small
-// blocks that one bulk copy moves into shared memory). The first launch
-// writes h [B, T, O] to device memory once, the second reads it (with x for
-// the residual). The TPU kernel fused the whole block to keep h out of HBM;
-// here h costs about 33 MB each way at batch 5,376 (0.02 ms at 3.35 TB/s),
-// while a tile of whole samples x whole groups of 192 rows lets each weight
-// the ring stages from L2 feed 192 rows. Each launch is a persistent grid of
-// at most one CTA an SM on stage_ring.cuh's main loop: a producer warp
-// stages the tile's input rows by TMA and its weight blocks by bulk copy
-// into a ring, three consumer warpgroups run the taps on wgmma with one
-// group in flight, and a tile's GroupNorm, Mish and stores overlap the
-// loads of the CTA's next tile. The 1x1 residual projection is a second
-// part of K = 1 on the same ring inside the second launch, in the
-// registers its conv accumulator vacated.
+// Design: two launches of the stage in conv_gn_mish.cuh per call, on
+// weights that stage_weights laid out beforehand (tf32 big/small blocks
+// that one bulk copy moves into shared memory; cindm_stage_weights, which
+// the wrapper runs once per weight version and N tile and keeps). The
+// first launch writes h [B, T, O] to device memory once, the second reads
+// it (with x for the residual). The TPU kernel fused the whole block to
+// keep h out of HBM; here h costs about 33 MB each way at batch 5,376 (0.02
+// ms at 3.35 TB/s), while a tile of whole samples x whole groups of 192
+// rows lets each weight the ring stages from L2 feed 192 rows. Each launch
+// is a persistent grid of at most one CTA an SM on stage_ring.cuh's main
+// loop: a producer warpgroup stages the tile's input rows by TMA and its
+// weight blocks by bulk copy into a ring, three consumer warpgroups run the
+// taps on wgmma with one group in flight and a tile's GroupNorm, Mish and
+// stores from their registers while the producer fills the next tile's
+// slots. The 1x1 residual projection is a second part of K = 1 on the same
+// ring inside the second launch, accumulated onto Mish(y) in the conv's
+// registers.
 //
 // cindm_fused_rtb_saving is the forward of the autograd Function: the same
 // two launches through the stage's saving instance, which also writes what
@@ -37,31 +39,27 @@
 
 namespace {
 
-int fused_rtb(const float* x, const float* temb, const float* w1, const float* b1,
-              const float* gs1, const float* gb1, const float* w2, const float* b2,
-              const float* gs2, const float* gb2, const float* wres, const float* bres, float* h,
-              float* out, float* z1, float* z2, float* mean1, float* rstd1, float* mean2,
-              float* rstd2, void* scratch, long long scratch_bytes, int B, int T, int C, int O,
-              int K, int G, float eps, int samples, int nt, int ctas, int cs, int smem1, int smem2,
+// w1s, w2s: w1 [K, C, O] and w2 [K, O, O] laid out by stage_weights for N
+// tiles of nt; wress: wres [C, O] likewise (K = 1), or null (identity).
+int fused_rtb(const float* x, const float* temb, const void* w1s, const float* b1, const float* gs1,
+              const float* gb1, const void* w2s, const float* b2, const float* gs2, const float* gb2,
+              const void* wress, const float* bres, float* h, float* out, float* z1, float* z2,
+              float* mean1, float* rstd1, float* mean2, float* rstd2, int B, int T, int C, int O, int K,
+              int G, float eps, int samples, int nt, int ctas, int cs, int smem1, int smem2,
               void* stream) {
-  if ((wres == nullptr) != (bres == nullptr) || (wres == nullptr && C != O) || nt <= 0)
+  if ((wress == nullptr) != (bres == nullptr) || (wress == nullptr && C != O) || w1s == nullptr ||
+      w2s == nullptr)
     return cudaErrorInvalidValue;
-  // scratch: w1, w2 and wres laid out by stage_weights, one after another
-  const size_t n1 = cindm::staged_weight_bytes(nt, C, O, K);
-  const size_t n2 = cindm::staged_weight_bytes(nt, O, O, K);
-  const size_t n3 = wres != nullptr ? cindm::staged_weight_bytes(nt, C, O, 1) : 0;
-  if (static_cast<long long>(n1 + n2 + n3) > scratch_bytes) return cudaErrorInvalidValue;
-  char* ws = static_cast<char*>(scratch);
   cindm::SaveArgs a{};
-  a.x = x; a.w = w1; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.out = h;
-  a.ws = reinterpret_cast<uint32_t*>(ws);
+  a.x = x; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.out = h;
+  a.ws = static_cast<const uint32_t*>(w1s);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
   a.z = z1; a.mean = mean1; a.rstd = rstd1;
   cindm::SaveArgs b = a;
-  b.x = h; b.w = w2; b.b = b2; b.gs = gs2; b.gb = gb2; b.temb = nullptr; b.out = out;
-  b.ws = reinterpret_cast<uint32_t*>(ws + n1);
-  b.C = O; b.xres = x; b.wres = wres; b.bres = bres; b.Cres = C;
-  b.wress = wres != nullptr ? reinterpret_cast<uint32_t*>(ws + n1 + n2) : nullptr;
+  b.x = h; b.b = b2; b.gs = gs2; b.gb = gb2; b.temb = nullptr; b.out = out;
+  b.ws = static_cast<const uint32_t*>(w2s);
+  b.C = O; b.xres = x; b.bres = bres; b.Cres = C;
+  b.wress = static_cast<const uint32_t*>(wress);
   b.z = z2; b.mean = mean2; b.rstd = rstd2;
   const bool save = z1 != nullptr;
   cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, ctas, cs, stream)
@@ -75,31 +73,30 @@ int fused_rtb(const float* x, const float* temb, const float* w1, const float* b
 
 }  // namespace
 
-extern "C" int cindm_fused_rtb(const float* x, const float* temb, const float* w1,
+extern "C" int cindm_fused_rtb(const float* x, const float* temb, const void* w1s,
                                const float* b1, const float* gs1, const float* gb1,
-                               const float* w2, const float* b2, const float* gs2,
-                               const float* gb2, const float* wres, const float* bres, float* h,
-                               float* out, void* scratch, long long scratch_bytes, int B, int T,
-                               int C, int O, int K, int G, float eps, int samples, int nt,
-                               int ctas, int cs, int smem1, int smem2, void* stream) {
-  return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, scratch, scratch_bytes, B, T, C, O,
-                   K, G, eps, samples, nt, ctas, cs, smem1, smem2, stream);
+                               const void* w2s, const float* b2, const float* gs2,
+                               const float* gb2, const void* wress, const float* bres, float* h,
+                               float* out, int B, int T, int C, int O, int K, int G, float eps,
+                               int samples, int nt, int ctas, int cs, int smem1, int smem2,
+                               void* stream) {
+  return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps, samples, nt,
+                   ctas, cs, smem1, smem2, stream);
 }
 
-extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const float* w1,
+extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const void* w1s,
                                       const float* b1, const float* gs1, const float* gb1,
-                                      const float* w2, const float* b2, const float* gs2,
-                                      const float* gb2, const float* wres, const float* bres,
+                                      const void* w2s, const float* b2, const float* gs2,
+                                      const float* gb2, const void* wress, const float* bres,
                                       float* h, float* out, float* z1, float* z2, float* mean1,
-                                      float* rstd1, float* mean2, float* rstd2, void* scratch,
-                                      long long scratch_bytes, int B, int T, int C, int O, int K,
-                                      int G, float eps, int samples, int nt, int ctas, int cs,
-                                      int smem1, int smem2, void* stream) {
+                                      float* rstd1, float* mean2, float* rstd2, int B, int T,
+                                      int C, int O, int K, int G, float eps, int samples, int nt,
+                                      int ctas, int cs, int smem1, int smem2, void* stream) {
   if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
       mean2 == nullptr || rstd2 == nullptr)
     return cudaErrorInvalidValue;
-  return fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out, z1, z2, mean1,
-                   rstd1, mean2, rstd2, scratch, scratch_bytes, B, T, C, O, K, G, eps, samples, nt,
-                   ctas, cs, smem1, smem2, stream);
+  return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, z1, z2,
+                   mean1, rstd1, mean2, rstd2, B, T, C, O, K, G, eps, samples, nt, ctas, cs, smem1,
+                   smem2, stream);
 }

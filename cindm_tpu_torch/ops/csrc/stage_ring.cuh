@@ -370,10 +370,11 @@ struct TileRows {
   int klo;         // the warpgroup issues taps klo .. klo + KW - 1
 };
 
+// tid: the thread's index (threadIdx.x, or a copy the caller keeps apart).
 template <int K, int KW>
-__device__ __forceinline__ TileRows tile_rows(int S, int ns, int T) {
+__device__ __forceinline__ TileRows tile_rows(int S, int ns, int T, unsigned tid = threadIdx.x) {
   constexpr int kPad = K / 2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2;
   TileRows tr;
 #pragma unroll

@@ -3,7 +3,8 @@
 Port of ``cindm_tpu/ops/fused_conv_gn.py``. ``fused_conv1d_gn_mish`` launches
 the hand-written CUDA kernel in ``csrc/fused_conv_gn.cu`` (one launch of the
 3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh``, tiled by
-``_build.plan_stage``) for CUDA tensors and uses
+``_build.plan_stage``, on w as ``_build.staged`` keeps it laid out: once per
+weight version and N tile) for CUDA tensors and uses
 ``fused_conv1d_gn_mish_reference`` for CPU tensors. Layout is channel-last:
 x [B, T, C], w [K, C, O] (the JAX package's layout, which the kernel reads
 directly), out [B, T, O]. On CUDA, C and O must be multiples of 4 and K = 5.
@@ -198,20 +199,20 @@ def _conv_gn_mish(x, w, b, gn_scale, gn_bias, groups, eps, save: bool) -> tuple:
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv1d_gn_mish: unsupported device {x.device}")
     _build.check_channels("fused_conv1d_gn_mish", C=C, O=O)
-    _build.check_aligned("fused_conv1d_gn_mish", x=x, w=w, gn_scale=gn_scale, gn_bias=gn_bias)
+    _build.check_aligned("fused_conv1d_gn_mish", x=x, w=w, b=b, gn_scale=gn_scale, gn_bias=gn_bias)
     plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=_build.num_sms(x.device))
     lib = _build.load()
+    ws = _build.staged(w, plan.n_tile)  # laid out once per weight version and N tile
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
-    scratch = _build.scratch(plan.weight_bytes(C), x.device)
     saved = ()
     if save:
         saved = tuple(_build.carve(x.device, (B, T, O), (B, groups), (B, groups)))
     err = _build.call_on(
         x.device,
         lib.cindm_fused_conv1d_gn_mish_saving if save else lib.cindm_fused_conv1d_gn_mish,
-        *map(_build.ptr, (x, w, b, gn_scale, gn_bias, out, *saved, scratch)),
-        scratch.numel() * 4, B, T, C, O, K, groups, eps, plan.samples, plan.n_tile,
-        plan.ctas, plan.cluster, plan.smem_bytes,
+        *map(_build.ptr, (x, ws, b, gn_scale, gn_bias, out, *saved)),
+        B, T, C, O, K, groups, eps, plan.samples, plan.n_tile, plan.ctas, plan.cluster,
+        plan.smem_bytes,
     )
     _build.raise_on_error("fused_conv1d_gn_mish", err)
     fused_conv1d_gn_mish.launches += 1

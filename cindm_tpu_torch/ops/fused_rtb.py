@@ -11,7 +11,10 @@ in one call of ``csrc/fused_rtb.cu`` for CUDA tensors: two launches of the
 3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh`` (persistent CTAs on
 the main loop of ``csrc/stage_ring.cuh``, tiled by ``_build.plan_stage``),
 the first writing h [B, T, O] to device memory once and the second reading
-it, with the 1x1 residual projection inside the second. ``fused_rtb.launches`` counts calls. CPU tensors use
+it, with the 1x1 residual projection inside the second. The stage reads
+w1, w2 and wres as ``_build.staged`` keeps them laid out (staged once per
+weight version and N tile; ``_build.staged.clear()`` drops them).
+``fused_rtb.launches`` counts calls. CPU tensors use
 ``fused_rtb_reference``.
 
 ``fused_rtb`` itself has no autograd history: it raises when a gradient is
@@ -185,25 +188,24 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
     if x.device.type != "cuda":
         raise ValueError(f"fused_rtb: unsupported device {x.device}")
     _build.check_channels("fused_rtb", C=C, O=O)
-    _build.check_aligned("fused_rtb", x=x, temb=temb, w1=w1, w2=w2, wres=wres, gs1=gs1,
-                         gb1=gb1, gs2=gs2, gb2=gb2)
+    _build.check_aligned("fused_rtb", x=x, temb=temb, w1=w1, w2=w2, wres=wres, b1=b1, gs1=gs1,
+                         gb1=gb1, b2=b2, gs2=gs2, gb2=gb2, bres=bres)
     sms = _build.num_sms(x.device)
     plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=sms)  # both stages' (it does not depend on C)
     lib = _build.load()
+    # the weights as the stage reads them, laid out once per version and N tile
+    staged = [None if w is None else _build.staged(w, plan.n_tile) for w in (w1, w2, wres)]
     h = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     saved = ()
     if save:
         saved = tuple(_build.carve(x.device, (B, T, O), (B, T, O), *[(B, groups)] * 4))
-    nbytes = plan.weight_bytes(C) + plan.weight_bytes(O) + (
-        plan.weight_bytes(C, K=1) if wres is not None else 0)
-    scratch = _build.scratch(nbytes, x.device)
     err = _build.call_on(
         x.device, lib.cindm_fused_rtb_saving if save else lib.cindm_fused_rtb,
-        *map(_build.ptr, (x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, h, out,
-                          *saved, scratch)),
-        scratch.numel() * 4, B, T, C, O, K, groups, eps, plan.samples, plan.n_tile,
-        plan.ctas, plan.cluster, plan.smem_bytes, plan.smem_bytes,
+        *map(_build.ptr, (x, temb, staged[0], b1, gs1, gb1, staged[1], b2, gs2, gb2, staged[2], bres,
+                          h, out, *saved)),
+        B, T, C, O, K, groups, eps, plan.samples, plan.n_tile, plan.ctas, plan.cluster,
+        plan.smem_bytes, plan.smem_bytes,
     )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1

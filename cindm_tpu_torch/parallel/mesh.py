@@ -176,23 +176,30 @@ def _leaves(tree: Any) -> Iterator[torch.Tensor]:
 def replicate(mesh: DeviceMesh, tree: Any) -> Any:
     """Rank 0's values on every rank, in place: the tensors of a tensor,
     module, dict, list or tuple, or the whole of a ``TrainState`` (model,
-    EMA, optimizer moments and counts, step). Returns ``tree``."""
+    EMA, optimizer moments and counts, step). Drops the kernels' staged
+    weight layouts (``ops._build.staged``), which the broadcast made stale.
+    Returns ``tree``."""
+    from ..ops import _build
     from ..train.trainer import TrainState
 
     group = _group(mesh)
     src = dist.get_global_rank(group, 0)
     if isinstance(tree, TrainState):
         opt = tree.opt_state
-        for t in _leaves([tree.model, tree.ema, opt.mu, opt.nu, opt.acc or []]):
-            dist.broadcast(t.data, src=src, group=group)
+        leaves = _leaves([tree.model, tree.ema, opt.mu, opt.nu, opt.acc or []])
+    else:
+        leaves = _leaves(tree)
+    for t in leaves:
+        dist.broadcast(t.data, src=src, group=group)
+    # .data has a version counter of its own: the weights changed without
+    # their _version moving, so the kernels' staged layouts of them are stale
+    _build.staged.clear()
+    if isinstance(tree, TrainState):
         dev = next(tree.model.parameters()).device
         counts = torch.tensor([tree.step, opt.count, opt.schedule_count, opt.mini_step],
                               dtype=torch.int64, device=dev)
         dist.broadcast(counts, src=src, group=group)
         tree.step, opt.count, opt.schedule_count, opt.mini_step = map(int, counts.tolist())
-        return tree
-    for t in _leaves(tree):
-        dist.broadcast(t.data, src=src, group=group)
     return tree
 
 

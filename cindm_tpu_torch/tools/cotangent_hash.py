@@ -3,6 +3,7 @@
     python3 -m cindm_tpu_torch.tools.cotangent_hash [--batch 512] > hashes.json
     python3 -m cindm_tpu_torch.tools.cotangent_hash --forward [--batch 512 5376] > fwd.json
     python3 -m cindm_tpu_torch.tools.cotangent_hash --compare a.json b.json
+    python3 -m cindm_tpu_torch.tools.cotangent_hash --plain [--batch 512]
 
 Runs the backward kernels of the denoiser's 16 fused ResidualTemporalBlocks
 and of its head once, at the shapes and on the seeded inputs of
@@ -14,7 +15,16 @@ checkouts whose backwards agree bit for bit print equal objects;
 exits 1 when they differ. ``--forward`` hashes the forward kernels instead:
 per block and batch (512 and 5,376 unless ``--batch`` names others), out
 of the plain instance and out, h, z1, z2, mean1, rstd1, mean2, rstd2 of
-the saving instance (the head: out, then out, z, mean, rstd). It runs
+the saving instance (the head: out, then out, z, mean, rstd). ``--plain``
+prints, per block and cotangent, the largest |kernel - plain| over the
+plain largest entry of the backward kernel against its closed form on the
+same saved tensors (what the saving forward kept: a change of the forward's
+sum orders moves mean and rstd, and through them the cotangents' last
+bits), and beside it, ``chain``, the same against the whole plain path
+(``*_forward_saving_reference``, then the closed form), which also carries
+the forward's 3xTF32 rounding; run it in two checkouts to compare them
+(``chip_smoke.py``'s grad phase holds the same errors to 1e-4 on its own
+inputs). It runs
 against the package it is imported from,
 so a copy of this file in another checkout hashes that checkout's kernels.
 Needs one CUDA device.
@@ -54,6 +64,43 @@ def hashes(torch, dev, batch: int = 512, seed: int = 77) -> dict:
     return out
 
 
+def against_plain(torch, dev, batch: int = 512, seed: int = 77) -> tuple[dict, dict]:
+    """Per block, each cotangent's max |kernel - plain| / max |plain|: the
+    closed form on the kernel's saved tensors, and the whole plain path."""
+    from cindm_tpu_torch.ops.fused_conv_gn import (_conv_gn_mish, fused_conv1d_gn_mish_backward,
+                                                   fused_conv1d_gn_mish_backward_reference,
+                                                   fused_conv1d_gn_mish_forward_saving_reference)
+    from cindm_tpu_torch.ops.fused_rtb import (_fused_rtb, fused_rtb_backward, fused_rtb_backward_reference,
+                                               fused_rtb_forward_saving_reference)
+    from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, RTB_SHAPES, block_inputs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    out, chain = {}, {}
+
+    def rel(got, want):
+        return [None if w is None else float((k - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for k, w in zip(got, want)]
+
+    with torch.no_grad():
+        for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+            head = i == len(RTB_SHAPES)
+            x, p, cot = block_inputs(torch, g, C, O, T, batch, dev, head)
+            if head:
+                args, needs = [x, p["w1"], p["b1"], p["gs1"], p["gb1"]], [True] * 5
+                fwd, bwd, bwd_ref = _conv_gn_mish, fused_conv1d_gn_mish_backward, fused_conv1d_gn_mish_backward_reference
+                fwd_ref = fused_conv1d_gn_mish_forward_saving_reference
+            else:
+                args, needs = [x if n == "x" else p.get(n) for n in names], [True] * 10 + ["wres" in p] * 2
+                fwd, bwd, bwd_ref = _fused_rtb, fused_rtb_backward, fused_rtb_backward_reference
+                fwd_ref = fused_rtb_forward_saving_reference
+            saved = args + list(fwd(*args, 8, 1e-5, save=True)[1:])
+            got = bwd(saved, cot, needs)
+            out[f"{i}:{C},{O},{T}"] = rel(got, bwd_ref(saved, cot, needs))
+            chain[f"{i}:{C},{O},{T}"] = rel(got, bwd_ref(args + list(fwd_ref(*args, 8, 1e-5)[1:]), cot, needs))
+    return out, chain
+
+
 def forward_hashes(torch, dev, batches=(512, 5376), seed: int = 77) -> dict:
     from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
     from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
@@ -86,6 +133,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--forward", action="store_true",
                     help="hash the forward kernels' outputs and saved tensors instead")
     ap.add_argument("--compare", nargs=2, metavar="FILE")
+    ap.add_argument("--plain", action="store_true",
+                    help="each cotangent's error against the closed form and the plain path")
     args = ap.parse_args(argv)
     if args.compare:
         a, b = (json.load(open(f)) for f in args.compare)
@@ -98,6 +147,13 @@ def main(argv: list[str] | None = None) -> int:
         print("cotangent_hash: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if args.plain:
+        errs, chain = against_plain(torch, dev, (args.batch or [512])[0])
+        worst = max(e for v in errs.values() for e in v if e is not None)
+        print(json.dumps({"max_rel_err": worst, "blocks": errs,
+                          "chain_max_rel_err": max(e for v in chain.values() for e in v if e is not None),
+                          "chain": chain}), flush=True)
+        return 0
     if args.forward:
         print(json.dumps(forward_hashes(torch, dev, tuple(args.batch or (512, 5376)))), flush=True)
     else:

@@ -7,8 +7,15 @@ Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
 the head's Conv1d+GN+Mish kernel, at one batch (the flagship's folded 5,376
 by default) on seeded random inputs, and beside each its stage plan (N tile,
 tiles, persistent CTAs) and, where the checkout's library has the C entry
-``cindm_stage_weights``, the ms of its weight-layout launches alone; then
-one forward of the full-width denoiser on the kernel path at that batch.
+``cindm_stage_weights``, the ms of its weight-layout launches alone
+(``stage_weights_ms``). Where the checkout keeps the staged layouts
+(``_build.staged``), ``ms`` is a call on kept layouts (as sampling calls
+it), ``ms_restaged`` a call that lays its weights out anew (as the first
+call after an optimizer step does), and ``staged_launches`` the layout
+launches the timed ``ms`` calls made (0 when the cache holds); a checkout
+without the cache lays them out inside every call, so its ``ms`` includes
+them and ``ms_restaged`` is null. Then one forward of the full-width
+denoiser on the kernel path at that batch.
 With ``--design`` it also runs ``cli.design_1d`` once at the flagship
 geometry (B 64, 8 bodies, n_composed 2, standard-recurrence-10) on a 20-step
 schedule from those weights and gives pair-window denoiser forwards per
@@ -127,8 +134,16 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False)
                 call = lambda x=x, p=p, temb=temb: fused_rtb(x, temb, **p)
                 weights = [p["w1"], p["w2"]] + ([p["wres"].view(1, C, O)] if "wres" in p else [])
             plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
+            cache = getattr(_build, "staged", None)
+            staged0 = cache.launches if cache is not None else 0
+            ms = events_ms(torch, call, reps)
+            restaged = None
+            if cache is not None:
+                staged0 = cache.launches - staged0 - len(weights)  # past the warm-up's first call
+                restaged = events_ms(torch, lambda: (cache.clear(), call()), reps)
             rows.append({"C": C, "O": O, "T": T, "kernel": "fused_conv1d_gn_mish" if head else "fused_rtb",
-                         "ms": events_ms(torch, call, reps), "n_tile": plan.n_tile,
+                         "ms": ms, "ms_restaged": restaged,
+                         "staged_launches": staged0 if cache is not None else None, "n_tile": plan.n_tile,
                          "tiles": plan.grid[0] * plan.grid[1], "ctas": getattr(plan, "ctas", None),
                          "cluster": getattr(plan, "cluster", None),
                          "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps)})
@@ -138,7 +153,9 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False)
         td = torch.randint(0, 20, (batch,), generator=g, device=dev)
         den_ms = events_ms(torch, lambda: model(xd, td), max(3, reps // 4))
     rtb = [r for r in rows if r["kernel"] == "fused_rtb"]
+    restaged = [r["ms_restaged"] for r in rtb]
     out = {"batch": batch, "shapes": rows, "fused_rtb_ms": sum(r["ms"] for r in rtb),
+           "fused_rtb_restaged_ms": None if None in restaged else sum(restaged),
            "head_ms": rows[-1]["ms"], "denoiser_forward_ms": den_ms,
            "device": torch.cuda.get_device_name(dev)}
     sw = [r["stage_weights_ms"] for r in rtb]

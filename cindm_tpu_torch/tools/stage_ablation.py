@@ -6,9 +6,11 @@ Builds copies of ``ops/csrc/fused_conv_gn.cu`` in which one part of the
 stage kernel (``ops/csrc/conv_gn_mish.cuh`` on the main loop of
 ``ops/csrc/stage_ring.cuh``) is cut out, and times each copy's
 ``cindm_fused_conv1d_gn_mish`` at batch 5,376 on the flagship's stage
-shapes with CUDA events. The cut copies compute wrong results: only their
-times mean something. Each cut patches one or two places, each of whose
-patterns must occur exactly once in its source (``patched``). Variants:
+shapes with CUDA events, on weights that the copy's own
+``cindm_stage_weights`` laid out once per shape (as the wrappers keep
+them). The cut copies compute wrong results: only their times mean
+something. Each cut patches one or two places, each of whose patterns must
+occur exactly once in its source (``patched``). Variants:
 
     base      the kernel as it is
     nomma     no wgmma (A by descriptor at T = 3; elsewhere the fragments
@@ -17,9 +19,10 @@ patterns must occur exactly once in its source (``patched``). Variants:
               planes are not written; the consumers read what lies there)
     nomcast   clusters of one CTA: each CTA copies its own weight blocks
               (the plan's cluster 1, as the C side then recomputes it)
-    noepi     a tile's consumers stop after its accumulator tile is stored
-              (no GroupNorm statistics, no Mish, no output)
-    nostats   no GroupNorm statistics
+    noepi     a tile's consumers stop once its accumulator is final (no
+              bias, GroupNorm statistics, Mish or output)
+    nostats   no GroupNorm statistics (the rows' and the pairs' sums and
+              their four barriers)
     nofinal   no normalise/Mish/store pass
     nocopy    weight blocks copied into the ring's first slots only (no
               bulk copies after; the TMA boxes of the input still run)
@@ -31,10 +34,9 @@ patterns must occur exactly once in its source (``patched``). Variants:
               choice kDescA did not take; its time and result are real)
 
 The projection never runs here (the head's stage has none), so a variant
-that skips part of a tile's epilogue cannot leave ring stages unconsumed;
-noepi still tells a deep launch's producers (its own and its peer's) that
-the tile is free. Prints one JSON line per shape with ms per variant, then
-the nvidia-smi name and power limit line. Needs nvcc and one CUDA device.
+that skips part of a tile's epilogue cannot leave ring stages unconsumed.
+Prints one JSON line per shape with ms per variant, then the nvidia-smi
+name and power limit line. Needs nvcc and one CUDA device.
 """
 
 from __future__ import annotations
@@ -60,6 +62,15 @@ _COPY = """      mbar_expect_tx(f.full + 8 * slot, wbytes);
       if (f.cs == 1) {"""
 _SPLIT = """#pragma unroll 2
     for (int i = t; i < kUnits; i += 32 * kSplitWarps) {"""
+_STATS = """    row_group_sums<NT, false>(acc, tr, sb, og, gpt, stats, psum);
+    consumer_sync();  // psum is whole (and the previous tile's readers of stats are done)
+    pair_stats<false>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, mean_out, out0);
+    consumer_sync();  // the means are in
+    row_group_sums<NT, true>(acc, tr, sb, og, gpt, stats, psum);
+    consumer_sync();
+    pair_stats<true>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, rstd_out, out0);
+    consumer_sync();  // rstd is in
+"""
 RING, STAGE = "stage_ring.cuh", "conv_gn_mish.cuh"
 # variant: [(source, pattern, replacement)]
 VARIANTS = {
@@ -69,13 +80,11 @@ VARIANTS = {
     "nosplit": [(RING, _SPLIT, "    for (int i = kUnits + t; i < kUnits; ++i) {")],
     "nomcast": [(STAGE, "stage_cluster(int row_tiles) { return row_tiles > 1 ? 2 : 1; }",
                  "stage_cluster(int row_tiles) { return row_tiles > 0 ? 1 : 1; }")],
-    "noepi": [(STAGE, "  consumer_sync();\n  tile_stats<NT>(",
-               "  consumer_sync();\n  if (a.eps > 0.f) {\n    if (kDeep && lane == 0) {\n      mbar_arrive(epi);\n"
-               "      if (f.peer != kNoPeer) mbar_arrive_peer(epi, f.peer);\n    }\n    return;\n  }\n"
-               "  tile_stats<NT>(")],
-    "nostats": [(STAGE, "  tile_stats<NT>(tile, ns, a.T, gpt, og, a.eps, mean, rstd);\n", "")],
-    "nofinal": [(STAGE, "  if (c < ncols) {\n    const float4 scale",
-                 "  if (c < ncols && a.eps < 0.f) {\n    const float4 scale")],
+    "noepi": [(STAGE, '  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));\n',
+               '  if (a.eps > 0.f) return;\n  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));\n')],
+    "nostats": [(STAGE, _STATS, "")],
+    "nofinal": [(STAGE, "  for (int j = 0; j < NT / 8; j += 2) {\n    float2 v[2][2];",
+                 "  for (int j = 0; j < NT / 8 && a.eps < 0.f; j += 2) {\n    float2 v[2][2];")],
     "nocopy": [(RING, _COPY, """      const bool first = it < R::kStages;
       mbar_expect_tx(f.full + 8 * slot, first ? wbytes : 0u);
       if (!first) {
@@ -83,7 +92,7 @@ VARIANTS = {
     "noa": [(RING, "const uint32_t b = planes[i], s = planes[i + R::kABytes / 4];",
              "const uint32_t b = threadIdx.x * 7u + k + i, s = b ^ 1u;")],
     "rega64": [(STAGE, "constexpr bool kDescA = KW == 3;", "constexpr bool kDescA = KW == 3 && NT == 128;"),
-               (STAGE, "if (a.T == 3)  // kDescA", "if (a.T == 3 && nt == 128)  // kDescA")],
+               (STAGE, "if (a.T == 3) {  // kDescA", "if (a.T == 3 && nt == 128) {  // kDescA")],
 }
 CLUSTER = {"nomcast": 1}  # the plan's cluster size where a variant changes it
 # (C, O, T) of the flagship's stages: T = 3, 6, 12, 24 and the head
@@ -135,9 +144,11 @@ def main(argv: list[str]) -> int:
             log, _ = p.communicate()
             if p.returncode:
                 raise RuntimeError(f"nvcc failed for {n}:\n{log}")
-            fn = ctypes.CDLL(str(Path(tmp) / n / "lib.so")).cindm_fused_conv1d_gn_mish
-            fn.argtypes, fn.restype = _build.SIGNATURES["cindm_fused_conv1d_gn_mish"], ctypes.c_int
-            fns[n] = fn
+            lib = ctypes.CDLL(str(Path(tmp) / n / "lib.so"))
+            for name in ("cindm_fused_conv1d_gn_mish", "cindm_stage_weights"):
+                getattr(lib, name).argtypes = _build.SIGNATURES[name]
+                getattr(lib, name).restype = ctypes.c_int
+            fns[n] = lib
         dev = torch.device("cuda")
         g = torch.Generator(device=dev).manual_seed(0)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -147,17 +158,19 @@ def main(argv: list[str]) -> int:
             b, gs, gb = (torch.randn(O, generator=g, device=dev) for _ in range(3))
             out = torch.empty((BATCH, T, O), device=dev)
             plan = _build.plan_stage(BATCH, T, C, O, 8, num_sms=_build.num_sms(dev))
-            scratch = _build.scratch(plan.weight_bytes(C), dev)
             row = {"C": C, "O": O, "T": T, "B": BATCH, "n_tile": plan.n_tile, "tiles": plan.tiles,
                    "ctas": plan.ctas, "cluster": plan.cluster}
-            for n, fn in fns.items():
+            for n, lib in fns.items():
                 cs = CLUSTER.get(n, plan.cluster)
                 ctas = plan.ctas if cs == plan.cluster else min(plan.tiles, _build.num_sms(dev))
+                ws = _build.scratch(plan.weight_bytes(C), dev)  # w as this copy lays it out
+                err = lib.cindm_stage_weights(w.data_ptr(), 5, C, O, plan.n_tile, ws.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"{n}: stage_weights: cudaError_t {err}")
 
-                def call(fn=fn, cs=cs, ctas=ctas):
-                    err = fn(*(t.data_ptr() for t in (x, w, b, gs, gb, out, scratch)),
-                             scratch.numel() * 4, BATCH, T, C, O, 5, 8, 1e-5, plan.samples,
-                             plan.n_tile, ctas, cs, plan.smem_bytes, stream)
+                def call(fn=lib.cindm_fused_conv1d_gn_mish, cs=cs, ctas=ctas, ws=ws):
+                    err = fn(*(t.data_ptr() for t in (x, ws, b, gs, gb, out)), BATCH, T, C, O, 5, 8, 1e-5,
+                             plan.samples, plan.n_tile, ctas, cs, plan.smem_bytes, stream)
                     if err:
                         raise RuntimeError(f"{n}: cudaError_t {err}")
                 row[n + "_ms"] = ms_per_call(call)

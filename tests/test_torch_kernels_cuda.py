@@ -159,6 +159,57 @@ def test_saved_z_follows_the_emulated_ring_order(dev, C, O, T, B):
         torch.testing.assert_close(have.cpu(), torch.from_numpy(want), **TOL)
 
 
+
+@pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (64, 128, 12), (64, 64, 24), (48, 96, 12)],
+                         ids=lambda v: str(v))
+def test_stage_weights_kernel_is_its_plain_version(dev, C, O, T):
+    """cindm_stage_weights against stage_weights_reference bit for bit, at
+    the plan's N tile, for a conv's weights and a projection's (K = 1)."""
+    a = _args(C, O, 5, T, dev, seed=C + O)
+    nt = _build.plan_stage(5376, T, C, O, 8, num_sms=_build.num_sms(dev)).n_tile
+    stage = _build.WeightStage()
+    for w in (a["w1"], a.get("wres")):
+        if w is not None:
+            got = stage(w, nt)
+            assert torch.equal(got.cpu(), _build.stage_weights_reference(w.cpu(), nt))
+    assert stage.launches == (2 if C != O else 1)
+
+
+@pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (128, 256, 6), (64, 64, 24)], ids=lambda v: str(v))
+def test_forward_kernels_stage_each_weight_once_per_version(dev, C, O, T):
+    """A block's weights are laid out on their first call and kept: a second
+    call stages nothing; an in-place update (an optimizer step) restages
+    only what changed, and the kernel then equals the plain version on the
+    new weights (a stale layout would not)."""
+    a = _args(C, O, 37, T, dev, seed=C + 2 * O + T)
+    n = _build.staged.launches
+    fused_rtb(**a)
+    assert _build.staged.launches == n + (3 if C != O else 2)
+    first = fused_rtb(**a)
+    assert _build.staged.launches == n + (3 if C != O else 2)
+    with torch.no_grad():
+        torch._foreach_add_([a["w1"]], [0.01 * torch.ones_like(a["w1"])])
+    got = fused_rtb(**a)
+    torch.cuda.synchronize()
+    assert _build.staged.launches == n + (4 if C != O else 3)
+    assert not torch.equal(got, first)
+    torch.testing.assert_close(got, fused_rtb_reference(**a), **TOL)
+
+
+@pytest.mark.parametrize("C,O,T,B", [(1024, 512, 3, 5376), (512, 256, 6, 2241), (64, 64, 24, 5000)],
+                         ids=lambda v: str(v))
+def test_forward_kernels_repeat_bit_for_bit(dev, C, O, T, B):
+    """The epilogue's sums go in fixed orders (no atomics): the same inputs
+    give the same bits, out, h, z, mean and rstd alike."""
+    a = _args(C, O, B, T, dev, seed=C + O + B)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    first = _fused_rtb(*[a.get(k) for k in names], 8, 1e-5, save=True)
+    again = _fused_rtb(*[a.get(k) for k in names], 8, 1e-5, save=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert torch.equal(fused_rtb(**a), fused_rtb(**a))
+    head = (a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"])
+    assert torch.equal(fused_conv1d_gn_mish(*head), fused_conv1d_gn_mish(*head))
+
 def test_kernels_reject_mixed_devices(dev):
     a = _args(16, 32, 3, 6, dev, seed=1)
     a["w1"] = a["w1"].cpu()

@@ -129,6 +129,17 @@ def test_replicate_broadcasts_rank0(ranks):
         torch.testing.assert_close(r["replicated_tensor"], torch.zeros(3), rtol=0, atol=0)
 
 
+def test_replicate_leaves_no_stale_staged_weights(ranks):
+    """replicate broadcasts into .data, which moves no version counter: the
+    kernels' staged layouts of the weights must not survive it. Rank 1's
+    weights change, so its planes change; both ranks' planes afterwards are
+    the layout of the broadcast weights."""
+    assert not any(ranks[0]["staged"]["changed"])
+    assert ranks[1]["staged"]["changed"] and all(ranks[1]["staged"]["changed"])
+    for r in ranks:
+        assert r["staged"]["fresh"] and all(r["staged"]["fresh"])
+
+
 @pytest.mark.parametrize("draws", ["train_injected", "train_drawn"])
 def test_mesh_step_equals_one_process(ranks, one, draws):
     """2 ranks x 2 rows against 1 process x 4: the same gradients (within

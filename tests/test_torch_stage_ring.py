@@ -66,19 +66,17 @@ def check_plan(B, T, C, O):
     for q in range(0, plan.ctas, cs):  # the CTAs of a cluster walk the same items in step
         walks = [plan.walk(q + r) for r in range(cs)]
         assert all([(x[0] - r, x[1]) for x in w] == walks[0] for r, w in enumerate(walks))
-    # shared memory: the C side's stage_smem_bytes restated from its parts
+    # shared memory: the C side's stage_smem_bytes restated from its parts:
+    # the ring, nothing over it or beside it but the epilogue's rows' sums
+    # [192][groups] and (mean, rstd) per (sample, group), then the barriers
     box = 192 * 32  # one chunk's rows, 32 bytes each
     slot = -(-(2 * box + 2 * K * (nt // 8) * 256) // 1024) * 1024  # box, small plane, weight blocks
     assert _build.fwd_ring(nt)[1] == slot == {64: 32768, 128: 53248}[nt]
     gpt = min(O, nt) // og
-    tile = 192 * (nt + 4) * 4
-    if nt == 128:  # deep: 4 slots under the tile
-        assert 4 * slot >= tile
-        region, stages = 4 * slot, 4
-    else:  # 5 slots, the tile beside them
-        region, stages = 5 * slot + tile, 5
-    assert plan.smem_bytes == 1024 + region + 8 * plan.samples * gpt + 24 * stages + 8
-    assert plan.smem_bytes <= _build.SMEM_MAX == 232448
+    stages = {64: 6, 128: 4}[nt]
+    assert _build.fwd_ring(nt)[0] == stages
+    assert plan.smem_bytes == 1024 + stages * slot + 4 * 192 * gpt + 8 * plan.samples * gpt + 24 * stages
+    assert 4 * 192 * gpt <= 6144 and plan.smem_bytes <= _build.SMEM_MAX == 232448
     # every TMA box's row pitch (the conv's one chunk, the projection's
     # two) and every tensor's row pitch it reads (x, h, xres) are whole
     # 16-byte units, within the 128-byte swizzle's span; at T = 3 the
@@ -182,21 +180,33 @@ def test_the_plan_mirrors_the_c_constants():
     assert "template <int NT, int Stages = (NT == 64 ? 3 : 2), int Ch = (NT == 64 ? 2 : 1), size_t SlotBytes = 0," in STAGE_RING
     assert "static constexpr size_t kWOff = Planes ? 2 * kABytes : kABytes;" in STAGE_RING
     assert [_build.stage_ring(nt)[:2] for nt in (64, 128)] == [(2, 3), (1, 2)]
-    assert "using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kDeepStages, 1, 0, true>;" in CONV_GN_MISH
-    assert [_build.fwd_ring(nt)[0] for nt in (64, 128)] == [5, 4]
+    assert "using ConvRing = StageRing<NT, NT == 64 ? kNarrowStages : kWideStages, 1, 0, true>;" in CONV_GN_MISH
+    assert [_build.fwd_ring(nt)[0] for nt in (64, 128)] == [6, 4]
     body = re.search(r"stage_smem_bytes\(int nt, int samples, int groups_per_tile\) \{(.*?)\n\}",
                      CONV_GN_MISH, re.S).group(1)
-    assert "const bool deep = nt == 128;" in body
-    assert "const int stages = deep ? kDeepStages : kNarrowStages;" in body
-    assert "deep ? (ring > tile_bytes(nt) ? ring : tile_bytes(nt)) : ring + tile_bytes(nt)" in body
-    assert "1024 + region + 8 * size_t(samples) * groups_per_tile + 24 * stages + 8" in body
-    assert f"constexpr int kDeepStages = {_build.DEEP_STAGES};" in CONV_GN_MISH
+    assert "const size_t ring = nt == 128 ? ConvRing<128>::kRingBytes : ConvRing<64>::kRingBytes;" in body
+    assert "const int stages = nt == 128 ? kWideStages : kNarrowStages;" in body
+    assert ("return 1024 + ring + 4 * size_t(kTileRows) * groups_per_tile + 8 * size_t(samples) * groups_per_tile +\n"
+            "         24 * stages;") in body
+    # the kernel carves its shared memory as the bytes count it: the ring,
+    # the rows' sums [192][groups], (mean, rstd) [samples][groups], the barriers
+    assert "float* psum = reinterpret_cast<float*>(smem + R::kRingBytes);" in CONV_GN_MISH
+    assert "float2* stats = reinterpret_cast<float2*>(psum + kTileRows * gmax);" in CONV_GN_MISH
+    assert "f.full = smem_u32(stats + a.samples * gmax);" in CONV_GN_MISH
+    assert f"constexpr int kWideStages = {_build.WIDE_STAGES};" in CONV_GN_MISH
     assert f"constexpr int kNarrowStages = {_build.NARROW_STAGES};" in CONV_GN_MISH
     assert f"constexpr int kProjChunks = {_build.PROJ_CHUNKS};" in CONV_GN_MISH
-    assert "constexpr bool kDeep = NT == 128;" in CONV_GN_MISH
     assert f"stage_cluster(int row_tiles) {{ return row_tiles > 1 ? {_build.STAGE_CLUSTER} : 1; }}" in CONV_GN_MISH
     assert "*ctas = cs * (items < sms / cs ? items : sms / cs);" in CONV_GN_MISH
     assert "if (cs != a.cs || ctas != want) return cudaErrorInvalidValue;" in CONV_GN_MISH
+    # no conv tile in shared memory, no z through device memory, no barrier
+    # between a tile's epilogue and the next tile's loads, no atomics
+    for gone in ("tile_bytes", "tile_stats", "kSpillZ", "kDeep"):
+        assert gone not in CONV_GN_MISH, gone
+    assert not re.search(r"\bepi\b|\batomic[A-Z]\w*\(|\batom\.|\bred\.", CONV_GN_MISH)
+    assert not hasattr(_build, "DEEP_STAGES")
+    # the stage reads staged planes; stage_weights is a launch of its own
+    assert "launch_stage_weights" not in re.search(r"cudaError_t launch_stage\(.*", CONV_GN_MISH, re.S).group(0)
     # the split planes, the box's 16-byte units, the multicast's mask of both CTAs
     assert "constexpr int kSplitWarps = 3;" in STAGE_RING
     assert "multicast::cluster" in STAGE_RING and '"h"(static_cast<uint16_t>(0x3))' in STAGE_RING
@@ -244,13 +254,18 @@ def _close(got, want):
     assert err <= TOL and err / float(np.abs(want).max()) <= TOL, err
 
 
-# (C, O, T, B, N tile): T = 24, 6 and 3, with and without the projection,
+# (C, O, T, B, N tile): T = 24, 12, 6 and 3, with and without the projection,
 # ragged last row tiles (8, 32 and 64 samples a tile), both N tiles (128:
 # one chunk a stage, the projection's two-stage units), and the TPU
 # kernel's own shapes under Pallas's interpreter (C, O multiples of 128)
 BLOCK_CASES = [
     (16, 32, 24, 11, 64), (32, 32, 24, 8, 64), (16, 32, 6, 35, 64), (32, 32, 3, 70, 64),
     (64, 128, 3, 6, 128), (24, 64, 12, 17, 64), (128, 256, 24, 2, 128), (128, 128, 24, 2, 64),
+    # the projection onto Mish(y) at T = 3 on N tiles of 64 (position-major
+    # boxes of xres), at T = 6 and 12 on N tiles of 128; three row tiles,
+    # the last ragged; groups of 3 channels (the register epilogue's
+    # column-by-column sums)
+    (16, 32, 3, 70, 64), (64, 128, 6, 40, 128), (32, 64, 12, 40, 128), (24, 24, 24, 19, 64),
 ]
 
 
@@ -287,3 +302,139 @@ def test_emulated_ring_head_matches_jax_fused_conv1d_gn_mish(C, O, T, B):
     out, z, *_ = stage_emulated(*args, 64)
     _close(out, np.asarray(jax_cgm(*map(jnp.asarray, args), batch_tile=1)))
     np.testing.assert_array_equal(z, stage_emulated(*args, 64, order="chunks")[1])
+
+
+@pytest.mark.parametrize("C,O,T,B,nt", [(32, 128, 12, 17, 128), (16, 48, 6, 33, 64), (64, 64, 3, 130, 64)],
+                         ids=lambda v: str(v))
+def test_emulated_ring_head_at_both_n_tiles_matches_jax(C, O, T, B, nt):
+    """The head's stage on an N tile of 128, with groups of 6 channels (the
+    epilogue's column-by-column sums) and at T = 3 over three row tiles."""
+    a = _block_args(C, O, B, T, seed=5 * C + O + T)
+    args = [a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"]]
+    out, z, *_ = stage_emulated(*args, nt)
+    _close(out, np.asarray(jax_cgm(*map(jnp.asarray, args), batch_tile=1)))
+    np.testing.assert_array_equal(out, stage_emulated(*args, nt, order="chunks")[0])
+
+
+class _Stager:
+    """A stand-in for the layout launch: records its calls and returns w's
+    values with the N tile appended, so that a stale entry shows."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, w, nt):
+        self.calls.append((tuple(w.shape), nt))
+        return torch.cat([w.detach().reshape(-1).clone(), torch.tensor([float(nt)])])
+
+
+def _weight(seed, shape=(K, 8, 16)):
+    return torch.nn.Parameter(torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(shape).astype(np.float32)))
+
+
+def _holds(planes, w):
+    return torch.equal(planes[:-1], w.detach().reshape(-1))
+
+
+@pytest.mark.parametrize("update", ["add_", "_foreach_add_", "load_state_dict"])
+def test_staging_cache_restages_after_an_in_place_update(update):
+    """Adam's _foreach_add_, a plain add_ and load_state_dict's copy_ bump
+    the weight's version counter: its next use stages the new values, and
+    the old version's planes go."""
+    stage = _build.WeightStage(_Stager())
+    w = _weight(0)
+    first = stage(w, 64)
+    assert stage(w, 64) is first and len(stage.stager.calls) == 1
+    with torch.no_grad():
+        if update == "add_":
+            w.add_(1.0)
+        elif update == "_foreach_add_":
+            torch._foreach_add_([w], [torch.ones_like(w)])
+        else:
+            holder = torch.nn.Module()
+            holder.w = w
+            holder.load_state_dict({"w": 2 * w.detach()})
+    again = stage(w, 64)
+    assert len(stage.stager.calls) == 2 and again is not first and _holds(again, w)
+    assert not _holds(first, w) and len(stage) == 1
+    assert stage(w, 64) is again
+
+
+def test_staging_cache_new_tensor_of_the_same_shape_stages_anew():
+    stage = _build.WeightStage(_Stager())
+    a, b = _weight(0), _weight(1)
+    pa, pb = stage(a, 64), stage(b, 64)
+    assert len(stage.stager.calls) == 2 and _holds(pa, a) and _holds(pb, b)
+    c = torch.nn.Parameter(a.detach().clone())  # equal values, another tensor
+    assert stage(c, 64) is not pa and len(stage.stager.calls) == 3
+
+
+def test_staging_cache_entry_goes_when_its_tensor_is_freed():
+    import gc
+
+    stage = _build.WeightStage(_Stager())
+    w = _weight(0)
+    stage(w, 64)
+    stage(w, 128)
+    assert len(stage) == 2
+    del w
+    gc.collect()
+    assert len(stage) == 0 and not stage._owners
+    v = _weight(1)  # a tensor in its place (perhaps at its id and address) stages its own values
+    assert _holds(stage(v, 64), v) and len(stage.stager.calls) == 3
+
+
+def test_staging_cache_keeps_planes_per_n_tile():
+    stage = _build.WeightStage(_Stager())
+    w = _weight(0)
+    p64, p128 = stage(w, 64), stage(w, 128)
+    assert stage.stager.calls == [((K, 8, 16), 64), ((K, 8, 16), 128)]
+    assert stage(w, 64) is p64 and stage(w, 128) is p128 and p64[-1] == 64 and p128[-1] == 128
+    stage.clear()
+    assert len(stage) == 0 and stage(w, 64) is not p64 and len(stage.stager.calls) == 3
+
+
+def test_staging_cache_keys_a_view_on_the_tensor_it_views():
+    """The block hands its 1x1 projection in as the view weight[0] of a
+    [1, C, O] parameter, a new view every call: one entry, staged as K = 1."""
+    stage = _build.WeightStage(_Stager())
+    w = _weight(0, (1, 8, 16))
+    first = stage(w[0], 64)
+    assert stage(w[0], 64) is first and stage.stager.calls == [((1, 8, 16), 64)]
+    with torch.no_grad():
+        w.mul_(3.0)  # the view shares the parameter's version counter
+    assert _holds(stage(w[0], 64), w)
+
+
+@pytest.mark.parametrize("K_,C,O,nt", [(5, 12, 72, 64), (1, 40, 136, 128), (5, 8, 64, 128)],
+                         ids=lambda v: str(v))
+def test_stage_weights_reference_is_the_kernel_layout(K_, C, O, nt):
+    """stage_weights' plain version against its index rule (conv_gn_mish.cuh:
+    block (N tile, chunk), plane 2 tap + small, word n8 * 64 + q holds
+    channel n8 * 8 + (q % 32) / 4 of input q / 32 * 4 + q % 4, zero past C
+    or O) and split_tf32's halves; the CPU stager is this plain version and
+    counts no launch."""
+    from torch_port_helpers import tf32_split
+
+    w = torch.from_numpy(np.random.default_rng(C + O).standard_normal((K_, C, O)).astype(np.float32))
+    w[0, 0, 0], w[-1, -1, -1] = float("inf"), float("nan")
+    got = _build.stage_weights_reference(w, nt)
+    assert got.dtype == torch.int32 and got.numel() * 4 == _build.staged_weight_bytes(nt, C, O, K_)
+    nch, plane = -(-C // 8), nt * 8
+    i = np.arange(got.numel())
+    b, rem = np.divmod(i, 2 * K_ * plane)
+    tp, e = np.divmod(rem, plane)
+    n8, q = np.divmod(e, 64)
+    ntile, chunk = np.divmod(b, nch)
+    o = ntile * nt + n8 * 8 + (q % 32) // 4
+    c = chunk * 8 + (q // 32) * 4 + q % 4
+    inside = (o < O) & (c < C)
+    with np.errstate(invalid="ignore"):  # inf - inf in the split of the inf entry
+        big, small = (h.view(np.uint32) for h in tf32_split(w.numpy()))
+    want = np.where(tp % 2, small[tp // 2, np.minimum(c, C - 1), np.minimum(o, O - 1)],
+                    big[tp // 2, np.minimum(c, C - 1), np.minimum(o, O - 1)])
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.where(inside, want, 0))
+    stage = _build.WeightStage()
+    assert torch.equal(stage(w, nt), got) and stage.launches == 0
+    assert isinstance(_build.staged, _build.WeightStage)

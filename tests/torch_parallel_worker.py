@@ -104,6 +104,7 @@ def compute(mesh, inputs: dict) -> dict:
 def main(rank: int, port: int, workdir: str) -> None:
     import torch.distributed as dist
 
+    from cindm_tpu_torch.ops import _build
     from cindm_tpu_torch.parallel import initialize_multihost, make_mesh, replicate
     from cindm_tpu_torch.parallel.mesh import rank_rows
 
@@ -128,7 +129,15 @@ def main(rank: int, port: int, workdir: str) -> None:
         mine = port_model(dim=8, seed=rank, dim_mults=(1,))
         state = init_train_state(mine, TrainConfig())
         state.step, state.opt_state.count = 10 + rank, 20 + rank
+        # the conv weights' staged layouts (the plain stager on the CPU), as a
+        # forward leaves them, before and after the broadcast
+        convs = [p for p in mine.parameters() if p.dim() == 3]
+        before = [_build.staged(w, 64) for w in convs]
         replicate(mesh, state)
+        after = [_build.staged(w, 64) for w in convs]
+        out["staged"] = {"changed": [not torch.equal(a, b) for a, b in zip(before, after)],
+                         "fresh": [torch.equal(a, _build.stage_weights_reference(w, 64))
+                                   for a, w in zip(after, convs)]}
         out["replicated"] = {"params": mine.state_dict(), "step": state.step,
                              "count": state.opt_state.count}
         out["replicated_tensor"] = replicate(mesh, torch.full((3,), float(rank)))

@@ -9,26 +9,33 @@ three positions' 64-row blocks), row-major otherwise (``fwd_tile_rows``).
 K streams through a ring: a slot holds one chunk of 8 input channels (the
 projection's part two) as the TMA box of the tile's 192 rows, laid out
 under the box's swizzle (``tma_box``, ``swizzled``), with zeros past the
-tensor; at T = 3 the box's rows come position-major. The producer
-warpgroup splits the box for 3xTF32 with round-to-nearest (split_tf32)
-into a big and a small plane in the same swizzled order (``split_box``).
-Per chunk and tap of each warpgroup's window, A is read from the planes:
-at T = 3 and for the projection by descriptor, the 64 rows of a whole
-block at its offset (``desc_rows``); otherwise each fragment row shifted
-by the tap and zero outside its sample. B is the tap's weight planes (tf32
-big and small); the product is small*big + big*small + big*big into the
-accumulator. The 1x1 projection is a second part of K = 1 over the tile's
-natural rows. ``order="chunks"`` reads A instead from the earlier cp.async
-loop's layout, one padded [192][12] plane a chunk split per fragment, so
-that the two orders can be held to each other bit for bit. The
-accumulators (``parts``) are returned in natural row order, live rows only,
-so that orders with different tile layouts compare."""
+tensor; at T = 3 the box's rows come position-major, the projection's too.
+The producer warpgroup splits the box for 3xTF32 with round-to-nearest
+(split_tf32) into a big and a small plane in the same swizzled order
+(``split_box``). Per chunk and tap of each warpgroup's window, A is read
+from the planes: at T = 3 and for the projection by descriptor, the 64 rows
+of a whole block at its offset (``desc_rows``); otherwise each fragment row
+shifted by the tap and zero outside its sample. B is the tap's weight
+planes (tf32 big and small); the product is small*big + big*small +
+big*big into the accumulator. ``order="chunks"`` reads A instead from the
+earlier cp.async loop's layout, one padded [192][12] plane a chunk split
+per fragment, so that the two orders can be held to each other bit for
+bit.
+
+The epilogue runs on the accumulator as the consumers' registers hold it
+(``tile_stats``, ``stage_emulated``): z = acc + b; the GroupNorm statistics
+in the kernel's fixed orders (each lane of a row's quad adds its columns of
+a group, 8j + 2q + e, in column order; the quad's sums as (l0 + l1) + (l2 +
+l3); a sample's rows in row order; the squares by fused multiply-add);
+Mish's closed form as the kernel takes it; the 1x1 projection's product P
+(its own accumulation from zero, in the conv's tile rows) added as
+(Mish(y) + P) + bres. The accumulators (``parts``: the conv's, then the
+projection's) are returned in natural row order, live rows only, so that
+orders with different tile layouts compare."""
 
 import numpy as np
-import torch
 
 from cindm_tpu_torch.ops import _build
-from cindm_tpu_torch.ops.fused_conv_gn import mish
 from torch_port_helpers import tf32_split
 
 K = 5
@@ -104,9 +111,10 @@ def desc_rows(planes, row, ch, pitch):
 def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
     """One part of K for one tile into a [192, nt] accumulator (tile rows):
     src [R, Cin] the part's input, wk [taps, Cin, nt] the N tile's weights
-    (channels past O zero), ``rows`` from ``fwd_tile_rows`` (taps = 5) or
-    natural rows (taps = 1). The ring's slots (``order="ring"``) or the
-    earlier loop's chunks (``"chunks"``)."""
+    (channels past O zero), ``rows`` the conv's ``fwd_tile_rows`` (the
+    projection, taps = 1, runs in the conv's registers: its rows are the
+    conv's, position-major at T = 3). The ring's slots (``order="ring"``)
+    or the earlier loop's chunks (``"chunks"``)."""
     r, live, ok, klo, KW = rows
     cin = src.shape[1]
     nch = -(-cin // 8)
@@ -120,8 +128,7 @@ def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
     cols = np.arange(8)[None, :]
     for c in range(0, nch, ch_slot):  # a ring slot
         if order == "ring":
-            src_rows = box_rows(row0, T, ROWS // T, desc) if taps == K else row0 + np.arange(ROWS)
-            planes = split_box(tma_box(src, src_rows, 8 * c, pitch))
+            planes = split_box(tma_box(src, box_rows(row0, T, ROWS // T, KW < K), 8 * c, pitch))
         for ch in range(min(ch_slot, nch - c)):
             cc = slice(8 * (c + ch), 8 * (c + ch) + 8)
             if order == "chunks":  # the cp.async plane: live rows of the tile, channels < Cin
@@ -146,72 +153,115 @@ def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
     return acc
 
 
-def natural_rows(ns, T):
-    """The projection's rows (tile_rows<1, 1>): tile row j is natural row j."""
-    j = np.arange(ROWS)
-    live = j < ns * T
-    return j, live, live[:, None], [0, 0, 0], 1
+def kernel_mish(v):
+    """mish() of conv_gn_mish.cuh: v * n / (n + 2), n = e (e + 2), e = exp(min(v, 20))."""
+    v = np.asarray(v, np.float32)
+    e = np.exp(np.minimum(v, np.float32(20.0)))
+    n = e * (e + np.float32(2.0))
+    return (v * (n / (n + np.float32(2.0)))).astype(np.float32)
 
 
-def group_stats(z, G, eps):
-    """Per (sample, group) mean and 1/sqrt(var + eps) of z [B, T, O], two-pass
-    fp32 with biased variance, as tile_stats takes them."""
-    B, T, O = z.shape
-    v = z.reshape(B, T, G, O // G).transpose(0, 2, 1, 3).reshape(B, G, -1)
-    m = (v.sum(-1, dtype=np.float32) / np.float32(v.shape[-1])).astype(np.float32)
-    d = v - m[..., None]
-    var = ((d * d).sum(-1, dtype=np.float32) / np.float32(v.shape[-1])).astype(np.float32)
-    return m, (1.0 / np.sqrt(var + np.float32(eps))).astype(np.float32)
+def _fma(a, b, c):
+    """a * b + c rounded once to fp32 (the product exact in fp64)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def tile_stats(zt, ns, T, og, gpt, eps):
+    """The epilogue's GroupNorm statistics of one tile from z [ns * T, nt]
+    (the tile's live rows, natural order): (mean, rstd) [ns, gpt] in the
+    kernel's orders. row_group_sums: lane q of a row's quad adds its columns
+    8j + 2q + e of each group in (j, e) order from 0, the squares (z -
+    mean)^2 by fused multiply-add; the row's sum is (l0 + l1) + (l2 + l3).
+    pair_stats: a sample's T rows added in row order from 0, divided by the
+    group's n = T * og; rstd = 1 / sqrt(var + eps)."""
+    nrows, nt = zt.shape
+    n = np.float32(T * og)
+
+    def rows_sum(mean):
+        lanes = np.zeros((nrows, 4, gpt), np.float32)
+        for j in range(nt // 8):
+            for e in range(2):
+                for q in range(4):
+                    c = 8 * j + 2 * q + e
+                    g = c // og
+                    if g >= gpt:
+                        continue
+                    v = zt[:, c]
+                    if mean is None:
+                        lanes[:, q, g] = lanes[:, q, g] + v
+                    else:
+                        d = v - mean[np.arange(nrows) // T, g]
+                        lanes[:, q, g] = _fma(d, d, lanes[:, q, g])
+        return (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+
+    def pairs(psum):
+        acc = np.zeros((ns, gpt), np.float32)
+        for t in range(T):
+            acc = acc + psum[t::T]
+        return (acc / n).astype(np.float32)
+
+    mean = pairs(rows_sum(None))
+    var = pairs(rows_sum(mean))
+    return mean, (np.float32(1.0) / np.sqrt(var + np.float32(eps))).astype(np.float32)
 
 
 def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wres=None, bres=None,
                    order="ring"):
     """One launch of the stage over x [B, T, C], w [5, C, O]: (out, z, mean,
     rstd, parts), ``parts`` the accumulators of every tile and part (conv,
-    then projection), natural rows of the live samples, row tile by row
-    tile. ``temb`` adds after Mish; ``xres`` alone is the identity residual,
-    with ``wres`` and ``bres`` the projection's input."""
+    then the projection's), natural rows of the live samples,
+    row tile by row tile. ``temb`` adds after Mish; ``xres`` alone is the
+    identity residual, with ``wres`` and ``bres`` the projection's input."""
     B, T, C = x.shape
     O = w.shape[2]
+    og = O // G
     S = ROWS // T
-    plan_tiles = -(-B // S), -(-O // nt)
     x2 = x.reshape(B * T, C)
     z = np.zeros((B * T, O), np.float32)
-    projected = np.zeros((B * T, O), np.float32)
+    out = np.zeros((B * T, O), np.float32)
+    mean = np.zeros((B, G), np.float32)
+    rstd = np.zeros((B, G), np.float32)
     parts = []
-    for rt in range(plan_tiles[0]):
+    for rt in range(-(-B // S)):
         ns = min(S, B - rt * S)
         row0, nrows = rt * S * T, ns * T
         rows = fwd_tile_rows(S, ns, T)
+        live_r = rows[0][rows[1]]  # the natural row of each live tile row
         for n0 in range(0, O, nt):
             ncols = min(nt, O - n0)
+            gpt = ncols // og
             wk = np.zeros((K, C, nt), np.float32)
             wk[..., :ncols] = w[..., n0:n0 + ncols]
             acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order, T)
-            live_r = rows[0][rows[1]]
             tile = np.zeros((nrows, nt), np.float32)
             tile[live_r] = acc[rows[1]]
             parts.append(tile)
-            z[row0:row0 + nrows, n0:n0 + ncols] = tile[:, :ncols] + b[n0:n0 + ncols]
-            if wres is not None:
+            zt = tile.copy()
+            zt[:, :ncols] += b[n0:n0 + ncols]
+            z[row0:row0 + nrows, n0:n0 + ncols] = zt[:, :ncols]
+            m, r = tile_stats(zt, ns, T, og, gpt, eps)
+            b0, g0 = rt * S, n0 // og
+            mean[b0:b0 + ns, g0:g0 + gpt], rstd[b0:b0 + ns, g0:g0 + gpt] = m, r
+            s_of = np.arange(nrows) // T
+            grp = np.minimum(np.arange(ncols) // og, gpt - 1)
+            y = (zt[:, :ncols] - m[s_of][:, grp]) * r[s_of][:, grp] * gs[n0:n0 + ncols] + gb[n0:n0 + ncols]
+            act = kernel_mish(y)
+            if wres is not None:  # the projection's product, in the conv's tile rows
                 wr = np.zeros((1, wres.shape[0], nt), np.float32)
                 wr[0, :, :ncols] = wres[:, n0:n0 + ncols]
-                pr = natural_rows(ns, T)
-                pacc = ring_gemm(xres.reshape(B * T, -1), wr, row0, nrows, pr, nt, 1, order, T)
-                parts.append(pacc[:nrows])
-                projected[row0:row0 + nrows, n0:n0 + ncols] = pacc[:nrows, :ncols]
-    z = z.reshape(B, T, O)
-    mean, rstd = group_stats(z, G, eps)
-    yh = (z.reshape(B, T, G, O // G) - mean[:, None, :, None]) * rstd[:, None, :, None]
-    y = yh.reshape(B, T, O) * gs + gb
-    out = mish(torch.from_numpy(np.ascontiguousarray(y, np.float32))).numpy()
-    if temb is not None:
-        out = out + temb[:, None, :]
-    if wres is not None:
-        out = out + projected.reshape(B, T, O) + bres
-    elif xres is not None:
-        out = out + xres
-    return out.astype(np.float32), z, mean, rstd, parts
+                pacc = ring_gemm(xres.reshape(B * T, -1), wr, row0, nrows, rows, nt, 1, order, T)
+                ptile = np.zeros((nrows, nt), np.float32)
+                ptile[live_r] = pacc[rows[1]]
+                parts.append(ptile)
+                res = (act + ptile[:, :ncols]) + bres[n0:n0 + ncols]
+            else:
+                res = act
+                if temb is not None:
+                    res = res + temb[b0 + s_of, n0:n0 + ncols]
+                if xres is not None:
+                    res = res + xres.reshape(B * T, -1)[row0:row0 + nrows, n0:n0 + ncols]
+            out[row0:row0 + nrows, n0:n0 + ncols] = res
+    return out.reshape(B, T, O), z.reshape(B, T, O), mean, rstd, parts
 
 
 def block_emulated(a, nt, order="ring"):
