@@ -39,7 +39,15 @@ after a ``torch.cuda.synchronize()``:
              over the SMs) and its weights' layout (``stage_weights``, one
              launch a weight version and N tile, kept by
              ``_build.staged``): bit for bit its plain version's, its ms
-             and the plain version's, the bytes it moves.
+             and the plain version's, the bytes it moves. At each of the
+             three batches, whose stages split their last, partial wave of
+             tiles by K chunks over every cluster (a line ``stage_split``
+             lists each launch's items, whole and split items, ranges and
+             most parts of a tile), the saving instance against its plain
+             version (every kept tensor, the same limits) and the autograd
+             Function's cotangents against plain autograd (each within
+             1e-4 of the plain one's largest entry), both run twice (the
+             same bits); the split tiles' counters back at 0 after it all.
              Then the shapes of
              the later paths: the Conv1d+GN+Mish kernel at every distinct
              block of the forward model at horizon 24 and 2 (T down to 1,
@@ -584,12 +592,86 @@ def odd_batch_errors(torch, g, dev, C: int, O: int, T: int, batch: int, head: bo
                 cluster=plan.cluster)
 
 
+def stage_splits(C: int, O: int, T: int, batch: int, head: bool, sms: int) -> list[dict]:
+    """The plan of each stage launch of a block (C -> O, then O -> O) or of
+    the head at ``batch`` on ``sms`` SMs: its cluster items, those that run
+    whole, those of the split tail (the last, partial wave), the ranges its
+    chunks go over (one a cluster) and the most parts of a tile."""
+    from cindm_tpu_torch.ops import _build
+
+    out = []
+    for c in (C,) if head else (C, O):
+        p = _build.plan_stage(batch, T, c, O, 8, num_sms=sms)
+        out.append(dict(C=c, O=O, T=T, B=batch, chunks=p.chunks, items=p.items, whole_items=p.whole,
+                        split_items=p.tail, ranges=p.tail_clusters, max_parts=p.max_parts, ctas=p.ctas))
+    return out
+
+
+def saving_and_function_errors(torch, g, dev, C: int, O: int, T: int, batch: int, head: bool) -> dict:
+    """The saving instance (the autograd Functions' forward: out and every
+    tensor it keeps) against its plain version, max abs and max error / max
+    |plain| over the tensors; the Function's output and cotangents against
+    plain autograd, each within TOL of the plain one's largest entry; both
+    run twice (the same bits). Untimed: the split tail's launches at
+    ``batch``."""
+    from cindm_tpu_torch.ops import (fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference,
+                                     fused_rtb_differentiable, fused_rtb_reference)
+    from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish, fused_conv1d_gn_mish_forward_saving_reference
+    from cindm_tpu_torch.ops.fused_rtb import _fused_rtb, fused_rtb_forward_saving_reference
+
+    p = rand_block_params(torch, g, C, O, dev, proj=not head and C != O)
+    x = torch.randn((batch, T, C), generator=g, device=dev)
+    if head:
+        a = dict(x=x, w=p["w1"], b=p["b1"], gn_scale=p["gs1"], gn_bias=p["gb1"])
+        save, save_ref = _conv_gn_mish, fused_conv1d_gn_mish_forward_saving_reference
+        fn, plain = fused_conv1d_gn_mish_differentiable, fused_conv1d_gn_mish_reference
+    else:
+        a = dict(x=x, temb=torch.randn((batch, O), generator=g, device=dev), **p)
+        save, save_ref = _fused_rtb, fused_rtb_forward_saving_reference
+        fn, plain = fused_rtb_differentiable, fused_rtb_reference
+    args = list(a.values()) if head else [a.get(n) for n in (
+        "x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres")]
+    cot = torch.randn((batch, T, O), generator=g, device=dev)
+
+    def fwd_bwd(f):
+        ts = {k: v.detach().requires_grad_(True) for k, v in a.items()}
+        out = f(**ts)
+        return [out.detach(), *torch.autograd.grad(out, list(ts.values()), cot)]
+
+    with torch.no_grad():
+        got = save(*args, 8, 1e-5, save=True)
+        again = save(*args, 8, 1e-5, save=True)
+        want = save_ref(*args, 8, 1e-5)
+    errs = [errors(torch, x, y) for x, y in zip(got, want)]
+    grads, grads_again, grads_plain = fwd_bwd(fn), fwd_bwd(fn), fwd_bwd(plain)
+    grad_rel = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(grads, grads_plain))
+    return dict(B=batch, saving_max_abs_err=max(e[0] for e in errs), saving_max_rel_err=max(e[1] for e in errs),
+                function_max_rel_err=grad_rel,
+                repeats_bit_for_bit=all(bool(torch.equal(u, v)) for u, v in zip(got, again))
+                and all(bool(torch.equal(u, v)) for u, v in zip(grads, grads_again)))
+
+
+def counters_at_zero() -> bool:
+    """The split tiles' arrival counters that the wrappers keep are all 0
+    (each launch leaves them so)."""
+    from cindm_tpu_torch.ops import _build
+
+    return all(int(c.abs().sum()) == 0 for c in _build.stage_work.counters())
+
+
 def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = ODD_BATCH,
                   train_batch: int | None = TRAIN_BATCH) -> dict:
     """Phase 3: every flagship block shape, kernel against plain, timed on
     CUDA, and run twice (the same bits); each also checked, untimed, at
     ``odd_batch`` (its row ``odd``) and ``train_batch`` (its row
-    ``train``); its weights' layout bit for bit the plain version's."""
+    ``train``); its weights' layout bit for bit the plain version's. At
+    each of the three batches, where the stage's last, partial wave of
+    tiles is split by K chunks (``split``: each launch's plan), the saving
+    instance and the autograd Function too (``split_checks``); the split
+    tiles' counters back at 0 after all of it."""
+    from cindm_tpu_torch.ops import _build
+
     g = torch.Generator(device=dev).manual_seed(1234)
     rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda) for C, O, T in RTB_SHAPES]
     head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda)]
@@ -597,15 +679,29 @@ def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = OD
         if b:
             for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
                 r[key] = odd_batch_errors(torch, g, dev, C, O, T, b, r is head_rows[0])
+    sms = _build.num_sms(dev) if cuda else _build.H100_SMS
+    splits = []
+    for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
+        head = r is head_rows[0]
+        for b in dict.fromkeys(b for b in (batch, odd_batch, train_batch) if b):
+            splits += stage_splits(C, O, T, b, head, sms)
+        if cuda:
+            r["split_checks"] = [saving_and_function_errors(torch, g, dev, C, O, T, b, head)
+                                 for b in dict.fromkeys(b for b in (batch, odd_batch, train_batch) if b)]
     bad = [r for r in rtb_rows + head_rows
            if not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL
-                      for e in (r, r.get("odd", r), r.get("train", r)))]
+                      for e in (r, r.get("odd", r), r.get("train", r)))
+           or not all(e["saving_max_abs_err"] <= TOL and e["saving_max_rel_err"] <= TOL
+                      and e["function_max_rel_err"] <= TOL for e in r.get("split_checks", []))]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
-    bad = [r for r in rtb_rows + head_rows if not r["repeats_bit_for_bit"] or r["stage_weights_equal"] is False]
+    bad = [r for r in rtb_rows + head_rows if not r["repeats_bit_for_bit"] or r["stage_weights_equal"] is False
+           or not all(e["repeats_bit_for_bit"] for e in r.get("split_checks", []))]
     if bad:
         raise AssertionError(f"a second run differs, or a weight layout from its plain version: {bad}")
-    return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows}
+    if cuda and not counters_at_zero():
+        raise AssertionError("the split tiles' counters are not back at 0 after the kernels phase")
+    return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows, "stage_split": splits}
 
 
 def conv_block_shapes(torch, model, *inputs) -> list[tuple[int, int, int]]:
@@ -2502,6 +2598,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, fold_batch, cuda, ODD_BATCH if cuda else None,
                            train_batch if cuda else None)
+    # each stage launch's plan at the three batches: items, whole, split, parts
+    emit({"stage_split": checks.pop("stage_split")})
     slice5 = check_slice5_kernels(torch, dev, cuda)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],

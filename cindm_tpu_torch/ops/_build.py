@@ -48,15 +48,15 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
     # x, temb, w1 staged, b1, gs1, gb1, w2 staged, b2, gs2, gb2, wres staged, bres, h, out,
-    # B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster, smem_conv1, smem_conv2, stream
-    "cindm_fused_rtb": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    # x, w staged, b, gs, gb, out, B, T, C, O, K, G, eps, samples, n_tile, ctas, cluster,
-    # smem, stream
-    "cindm_fused_conv1d_gn_mish": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # B, T, C, O, K, G, eps, StageLaunch* of the first stage, of the second, stream
+    "cindm_fused_rtb": [_P] * 14 + [_I] * 6 + [_F] + [_P] * 3,
+    # x, w staged, b, gs, gb, out, B, T, C, O, K, G, eps, StageLaunch*, stream
+    "cindm_fused_conv1d_gn_mish": [_P] * 6 + [_I] * 6 + [_F] + [_P] * 2,
     # the saving instances: as above with z1, z2, mean1, rstd1, mean2, rstd2
     # (the head: z, mean, rstd) after out
-    "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    "cindm_fused_conv1d_gn_mish_saving": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 6 + [_F] + [_P] * 3,
+    "cindm_fused_conv1d_gn_mish_saving": [_P] * 9 + [_I] * 6 + [_F] + [_P] * 2,
+    "cindm_stage_launch_size": [],
     # w, K, C, O, n_tile, out, stream: the stage's weight layout (``staged``)
     "cindm_stage_weights": [_P] + [_I] * 4 + [_P, _P],
     # BackwardArgs*, stream
@@ -73,7 +73,7 @@ SIGNATURES = {
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
 # csrc/stage_ring.cuh's main loop); these mirror its constants and
 # stage_smem_bytes(), and the launch refuses a plan whose shared-memory bytes,
-# CTAs or cluster size differ from its own count.
+# CTAs, cluster size or split differ from its own count.
 TILE_ROWS = 192  # M: three warpgroups x 64 rows, whole samples only
 CONV_K = 5  # the stage's conv width (the projection is its K = 1 case)
 CHUNK = 8  # input channels of one k8 wgmma step
@@ -107,6 +107,20 @@ WIDE_STAGES = 4  # the forward's ring at nt = 128
 NARROW_STAGES = 6  # and at nt = 64
 PROJ_CHUNKS = 2  # the projection's chunks a ring slot (ProjRing)
 STAGE_CLUSTER = 2  # CTAs of a cluster that share an N tile's weight blocks (multicast)
+# The split of a stage launch's last, partial wave of cluster items (its
+# tail) over all clusters by K chunks (stage_split in conv_gn_mish.cuh).
+# A part is at least SPLIT_MIN_CHUNKS chunks: one ring stage. The forward's
+# ring runs on across a cluster's parts, its producer filling the next
+# part's slots while the consumers store a part's partial sums, so a part
+# of one stage leaves it as fed as a whole tile's epilogue does; a longer
+# minimum would leave a launch's busiest cluster more than a chunk above
+# the mean (at batch 5,376 a 64-channel T = 24 stage's tail is 48 chunks
+# for 66 clusters). What bounds a split instead is its finisher, which
+# reads the other parts' partial tiles: the tail is cut into ranges of at
+# least a tile's chunks / SPLIT_PARTS, so that a tile has about
+# SPLIT_PARTS parts at most.
+SPLIT_MIN_CHUNKS = 1
+SPLIT_PARTS = 8
 
 
 def fwd_ring(nt: int) -> tuple[int, int]:
@@ -132,9 +146,32 @@ def stage_smem_bytes(nt: int, samples: int, groups: int) -> int:
     ring (``fwd_ring``); the rows' sums of each of the tile's ``groups``
     GroupNorm groups, 192 x groups floats; mean and rstd of ``samples`` x
     ``groups`` (sample, group) pairs; a full, an empty and an A-box barrier
-    a ring slot (the C side's stage_smem_bytes)."""
+    a ring slot; 16 bytes for a split tile's word that tells its consumers
+    whether they finish it (the C side's stage_smem_bytes)."""
     stages, slot = fwd_ring(nt)
-    return 1024 + stages * slot + 4 * TILE_ROWS * groups + 8 * samples * groups + 24 * stages
+    return 1024 + stages * slot + 4 * TILE_ROWS * groups + 8 * samples * groups + 24 * stages + 16
+
+
+def stage_split(items: int, chunks: int, clusters: int, split: bool = True) -> tuple[int, int, int]:
+    """How a stage launch of ``items`` cluster items of ``chunks`` K chunks
+    each goes over ``clusters`` clusters (stage_split in conv_gn_mish.cuh):
+    (tail, tail_clusters, max_parts). The first items - tail items run whole,
+    round robin (as many full waves as there are); the last ``tail`` (the
+    partial wave, or every item of a launch of fewer items than clusters)
+    are cut, as one sequence of tail x chunks chunks, into
+    ``tail_clusters`` contiguous ranges that differ by one chunk at most,
+    one a cluster: a range's part of each item it meets is a part of that
+    tile. ``max_parts``: the most parts of any item. No split (0, 0, 1)
+    where a tile has one chunk, where no partial wave is left or without
+    ``split``."""
+    tail = items % clusters
+    if not split or chunks < 2 * SPLIT_MIN_CHUNKS or tail == 0:
+        return 0, 0, 1
+    total = tail * chunks
+    qt = min(clusters, tail * SPLIT_PARTS, total // SPLIT_MIN_CHUNKS)
+    owner = lambda j: ((j + 1) * qt - 1) // total  # the range that holds chunk j
+    parts = max(owner((i + 1) * chunks - 1) - owner(i * chunks) + 1 for i in range(tail))
+    return tail, qt, parts
 
 
 @dataclass(frozen=True)
@@ -144,10 +181,16 @@ class StagePlan:
     GroupNorm groups; ``smem_bytes`` of dynamic shared memory (the ring's
     slots: ``stage_smem_bytes``); ``grid`` = (row tiles, channel tiles);
     ``ctas`` persistent CTAs (at most one an SM) in clusters of ``cluster``.
-    Cluster q walks items i = q, q + clusters, .. of (row-tile pair i //
-    grid[1], channel tile i % grid[1]); its rank r takes row tile
-    ``cluster`` * (i // grid[1]) + r, none past the last (the partner of an
-    odd last row tile runs the item's ring and stores nothing)."""
+    A cluster item is a row-tile pair i // grid[1] (rank r of the cluster
+    takes row tile ``cluster`` * (i // grid[1]) + r, none past the last: the
+    partner of an odd last row tile runs the item's ring and stores
+    nothing) by channel tile i % grid[1], ``chunks`` K chunks of 8 input
+    channels deep. Cluster q runs items q, q + clusters, .. below ``whole``
+    whole, then its range of the split tail (``stage_split``:
+    ``tail`` items, ``tail_clusters`` ranges, ``max_parts``); each part of a
+    split tile stores its partial sums to a workspace slot and counts itself
+    in, and the last to arrive sums the parts in part order and finishes the
+    tile. The 1x1 projection runs whole in a tile's first part."""
 
     samples: int
     n_tile: int
@@ -155,6 +198,10 @@ class StagePlan:
     grid: tuple[int, int]
     ctas: int
     cluster: int = 1
+    chunks: int = 1
+    tail: int = 0
+    tail_clusters: int = 0
+    max_parts: int = 1
 
     @property
     def tiles(self) -> int:
@@ -165,12 +212,54 @@ class StagePlan:
         """Cluster items: row-tile groups of ``cluster`` x channel tiles."""
         return -(-self.grid[0] // self.cluster) * self.grid[1]
 
-    def walk(self, cta: int) -> list[tuple[int, int]]:
-        """The (row tile, channel tile) pairs CTA ``cta`` runs, in order, row
-        tiles past the last included."""
+    @property
+    def whole(self) -> int:
+        """The items that run whole (all but the split tail)."""
+        return self.items - self.tail
+
+    @property
+    def work_bytes(self) -> int:
+        """The split tiles' workspace: a slot of 192 x n_tile partial sums per
+        tail item, part and rank (the C side's stage_work_bytes)."""
+        return self.tail * self.max_parts * self.cluster * TILE_ROWS * self.n_tile * 4
+
+    @property
+    def counters(self) -> int:
+        """The split tiles' arrival counters: one per tail item and rank."""
+        return self.tail * self.cluster
+
+    def _owner(self, j: int) -> int:
+        return ((j + 1) * self.tail_clusters - 1) // (self.tail * self.chunks)
+
+    def item_parts(self, item: int) -> list[tuple[int, int]]:
+        """The chunk ranges [c0, c1) of item ``item``'s parts, in part order
+        (one range, all of K, for a whole item)."""
+        if item < self.whole:
+            return [(0, self.chunks)]
+        i, total = item - self.whole, self.tail * self.chunks
+        lo, hi = self._owner(i * self.chunks), self._owner((i + 1) * self.chunks - 1)
+        return [(max(k * total // self.tail_clusters, i * self.chunks) - i * self.chunks,
+                 min((k + 1) * total // self.tail_clusters, (i + 1) * self.chunks) - i * self.chunks)
+                for k in range(lo, hi + 1)]
+
+    def walk(self, cta: int, proj: bool = False) -> list[tuple[int, int, int, int, int, int]]:
+        """The parts CTA ``cta`` runs, in order: (row tile, channel tile, c0,
+        c1, part, parts), row tiles past the last included. Its whole items,
+        then its range of the tail: the last item it meets first, or with
+        the 1x1 projection (``proj``) in range order, so that part 0, which
+        runs it, goes last (cluster_part in conv_gn_mish.cuh)."""
         cs, clusters = self.cluster, self.ctas // self.cluster
-        return [(i // self.grid[1] * cs + cta % cs, i % self.grid[1])
-                for i in range(cta // cs, self.items, clusters)]
+        q, r = divmod(cta, cs)
+        tile = lambda i: (i // self.grid[1] * cs + r, i % self.grid[1])
+        out = [(*tile(i), 0, self.chunks, 0, 1) for i in range(q, self.whole, clusters)]
+        if q < self.tail_clusters:
+            total = self.tail * self.chunks
+            lo, hi = q * total // self.tail_clusters, (q + 1) * total // self.tail_clusters
+            items = range(lo // self.chunks, (hi - 1) // self.chunks + 1)
+            for i in (items if proj else reversed(items)):
+                parts, k = self.item_parts(self.whole + i), q - self._owner(i * self.chunks)
+                out.append((*tile(self.whole + i), *parts[k], k, len(parts)))
+        return out
 
     def weight_bytes(self, C: int, K: int = CONV_K) -> int:
         """Bytes of weights [K, C, O] laid out for this tile: per N tile and
@@ -180,16 +269,19 @@ class StagePlan:
 
 @functools.lru_cache(maxsize=None)
 def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K,
-               num_sms: int = H100_SMS) -> StagePlan:
+               num_sms: int = H100_SMS, split: bool = True, cluster: int | None = None) -> StagePlan:
     """Tile plan for a Conv1d+GN+Mish stage over x [B, T, C] -> [B, T, O].
 
-    Row tiles pair into clusters of ``stage_cluster`` CTAs that share each
-    N tile's weight blocks. The N tile is 64 or 128 channels of whole groups
-    (or all of O), whichever takes the fewer waves of cluster items over the
-    ``num_sms`` SMs' clusters times a tile's width (a tile's work), the wide
-    one on a tie; a tile whose launch would not fit the shared memory is not
-    taken. The plan does not depend on C, so a block's two stages (and the
-    second's 1x1 projection, a second part of K on the same ring) share it."""
+    Row tiles pair into clusters of ``stage_cluster`` CTAs (``cluster``
+    overrides it) that share each N tile's weight blocks. The N tile is 64
+    or 128 channels of whole groups (or all of O), whichever takes the
+    fewer waves of cluster items over the ``num_sms`` SMs' clusters times a
+    tile's width (a tile's work), the wide one on a tie; a tile whose launch
+    would not fit the shared memory is not taken. The items of full waves
+    run whole, the rest split by K chunks over every cluster (``split``;
+    ``stage_split``), so the plan depends on C: a block's two stages are
+    planned apart (the second's 1x1 projection runs whole in a tile's first
+    part, on the same ring); they share the N tile, which does not depend on C."""
     if K != CONV_K:
         raise ValueError(f"the CUDA stage kernel takes K={CONV_K}, got K={K}")
     if T > TILE_ROWS:
@@ -199,7 +291,7 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K,
     og = O // G
     samples = TILE_ROWS // T
     row_tiles = -(-B // samples)
-    cs = stage_cluster(row_tiles)
+    cs = cluster or stage_cluster(row_tiles)
     clusters = num_sms // cs
     smem = {nt: stage_smem_bytes(nt, samples, min(O, nt) // og) for nt in (64, 128)}
     fits = [nt for nt in (128, 64) if (O <= nt or nt % og == 0) and smem[nt] <= SMEM_MAX]
@@ -208,11 +300,71 @@ def plan_stage(B: int, T: int, C: int, O: int, G: int, K: int = CONV_K,
                          f"within the shared memory at T={T}")
     items = {nt: -(-row_tiles // cs) * -(-O // nt) for nt in fits}
     n_tile = min(fits, key=lambda nt: -(-items[nt] // clusters) * nt)  # 128 first: it wins a tie
-    plan = StagePlan(samples, n_tile, smem[n_tile], (row_tiles, -(-O // n_tile)),
-                     cs * min(items[n_tile], clusters), cs)
+    chunks = -(-C // CHUNK)
+    if clusters > 255 or clusters * clusters * chunks >= 2 ** 31:  # the C side's int walk
+        raise ValueError(f"the CUDA stage kernel takes at most 255 clusters and C < {2 ** 34 // clusters ** 2}")
+    tail, qt, parts = stage_split(items[n_tile], chunks, clusters, split)
+    used = min(clusters, max(items[n_tile] - tail, qt))  # clusters with work
+    plan = StagePlan(samples, n_tile, smem[n_tile], (row_tiles, -(-O // n_tile)), cs * used, cs,
+                     chunks, tail, qt, parts)
     assert samples >= 1 and samples * T <= TILE_ROWS, plan
     assert O <= n_tile or n_tile % og == 0, plan
     return plan
+
+class StageLaunch(ctypes.Structure):
+    """One stage launch's plan as the C entries take it; mirrors
+    ``cindm::StageLaunch`` in ``csrc/conv_gn_mish.cuh`` field for field
+    (``load()`` checks its size): the plan's fields, then the split tiles'
+    workspace and counters with their sizes."""
+
+    _fields_ = ([(n, _I) for n in ("samples", "n_tile", "cluster", "smem_bytes", "ctas", "tail",
+                                   "tail_clusters", "max_parts")]
+                + [("work", _P), ("counters", _P), ("work_bytes", _L), ("n_counters", _I)])
+
+
+def stage_launch(plan: StagePlan, work: torch.Tensor | None = None,
+                 counters: torch.Tensor | None = None) -> StageLaunch:
+    """``plan`` as a C entry takes it, with the workspace and counters of its
+    split (``stage_work``; None where the plan splits nothing)."""
+    return StageLaunch(plan.samples, plan.n_tile, plan.cluster, plan.smem_bytes, plan.ctas, plan.tail,
+                       plan.tail_clusters, plan.max_parts, ptr(work), ptr(counters),
+                       0 if work is None else 4 * work.numel(), 0 if counters is None else counters.numel())
+
+
+class StageWork:
+    """The split tiles' workspace and arrival counters, kept per device and
+    stream and grown to the largest launch's (``StagePlan.work_bytes``,
+    ``.counters``): the wrappers allocate them once, not per call. The
+    counters are made zero once; every launch leaves them at 0 (the part
+    that finishes a tile resets its counter), so no launch clears them.
+    Launches on one stream run in order, so they share one set."""
+
+    def __init__(self):
+        self._kept: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def __call__(self, device: torch.device, *plans: StagePlan) -> tuple:
+        """(workspace, counters) for a call whose launches run ``plans`` on
+        ``device``'s current stream; (None, None) where none splits."""
+        nbytes = max(p.work_bytes for p in plans)
+        n = max(p.counters for p in plans)
+        if n == 0:
+            return None, None
+        key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+        work, counters = self._kept.get(key, (None, None))
+        if work is None or 4 * work.numel() < nbytes:
+            work = torch.empty(-(-nbytes // 16) * 4, dtype=torch.float32, device=device)
+        if counters is None or counters.numel() < n:
+            counters = torch.zeros(n, dtype=torch.int32, device=device)
+        self._kept[key] = (work, counters)
+        return work, counters
+
+    def counters(self) -> list[torch.Tensor]:
+        """Every kept set of counters (all 0 between launches)."""
+        return [c for _, c in self._kept.values()]
+
+
+stage_work = StageWork()  # the forward wrappers' workspace and counters
+
 
 # The backward's tiles (csrc/conv_backward.cuh); they mirror its constants.
 WG_TILE = 64  # input and output channels of a wgrad work item
@@ -221,6 +373,13 @@ WG_ROWS_T3 = 48  # at T = 3: 16 whole samples, in position-major order
 WG_STAGES = 4  # stages in wgrad's ring
 WG_HALO = CONV_K // 2  # activation rows either side of a stage that its taps reach
 WG_MIN_STAGES = 4  # a split of a job's rows runs at least this many ring stages
+# ... and at most this many rows: the error of a weight gradient grows with
+# the rows one accumulator sums (on an H100, dwres of 256 -> 128 at T = 12
+# in one run: 6,144 rows at batch 512 ended 5.3e-5 of its largest entry
+# from the float64 plain path, 64,512 at batch 5,376 4.7e-4, where fp32
+# plain is 7e-7 off). Runs of 4,096 rows leave no split at batch 512 but
+# that dwres's (2 runs of 3,072); grad_reduce adds a job's runs in order.
+WG_MAX_RUN_ROWS = 4096
 COL_PARTS = 7  # kinds of column partials of the block: dgs2, dgb2, db2, dbres, dgs1, dgb1, db1
 # The dgrads run the stage's main loop (stage_ring), K split over a cluster
 # of one of CLUSTER_SIZES CTAs.
@@ -514,15 +673,16 @@ def plan_backward(B: int, T: int, C: int, O: int, G: int, proj: bool, rtb: bool 
     grid_d1 = (row_tiles * cs_d1, -(-C // 64))
     jobs = [(C, CONV_K)] + ([(O, CONV_K)] if rtb else []) + ([(C, 1)] if rtb and proj else [])
     wgrad_jobs = [(Ca, taps, -(-Ca // WG_TILE) * -(-O // WG_TILE)) for Ca, taps in jobs]
-    # Split a job's rows only where the items would leave SMs idle: with
-    # each SM's fair share of the work (tiles x taps x stages), a job is cut
-    # into as many splits as its item holds shares, none shorter than
-    # WG_MIN_STAGES stages.
+    # Split a job's rows where the items would leave SMs idle: with each
+    # SM's fair share of the work (tiles x taps x stages), a job is cut into
+    # as many splits as its item holds shares, none shorter than
+    # WG_MIN_STAGES stages; and where a run would pass WG_MAX_RUN_ROWS rows.
     stages = -(-B * T // wgrad_stage_rows(T))
     share = sum(tiles * taps for _, taps, tiles in wgrad_jobs) * stages / num_sms
     splits, sps, items, wpart = [], [], 0, 0
     for Ca, taps, tiles in wgrad_jobs:
-        n = max(1, min(int(taps * stages / share), stages // WG_MIN_STAGES))
+        n = max(1, min(int(taps * stages / share), stages // WG_MIN_STAGES),
+                -(-stages // (WG_MAX_RUN_ROWS // wgrad_stage_rows(T))))
         per = -(-stages // n)
         n = -(-stages // per)
         splits.append(n)
@@ -676,6 +836,8 @@ def load() -> ctypes.CDLL:
             raise RuntimeError("BackwardArgs does not match the C structure BlockBwdArgs")
         if lib.cindm_reduce_args_size() != ctypes.sizeof(ReduceArgs):
             raise RuntimeError("ReduceArgs does not match the C structure cindm::ReduceArgs")
+        if lib.cindm_stage_launch_size() != ctypes.sizeof(StageLaunch):
+            raise RuntimeError("StageLaunch does not match the C structure cindm::StageLaunch")
         _lib = lib
     return _lib
 

@@ -18,7 +18,7 @@
 // (192/T whole samples: 8 at T=24, 64 at T=3) x an N tile of 64 or 128
 // channels that holds whole groups, so the GroupNorm of every (sample,
 // group) it owns is complete inside it and its epilogue reads nothing of
-// another tile: no atomics, no sums across CTAs.
+// another tile. Only a split tile's K is summed across CTAs (below).
 //
 // Main loop: the forward's of stage_ring.cuh (its dgrads' loop beside it).
 // A producer warpgroup feeds three consumer warpgroups (64 rows each)
@@ -70,15 +70,38 @@
 //
 // Persistent clusters: at most one CTA an SM (the plan's `ctas`, in
 // clusters of the plan's `cs`, 2 wherever there are two row tiles), each
-// cluster walking items i = cluster, + clusters, .. (row-tile pair i / N
-// tiles, N tile i % N tiles); the partner of an odd last row tile runs the
-// ring with zeros and stores nothing. Nothing lies over the ring, so the
-// producer runs on into the next tile's slots while the consumers run this
-// tile's epilogue: 6 slots at NT = 64, 4 at NT = 128. The plan
-// (ops/_build.plan_stage) takes the N tile by the waves of cluster items
-// over the SMs times a tile's width, the wide one on a tie; the launch
-// recomputes the plan's shared-memory bytes, CTAs and cluster size and
-// refuses one that differs.
+// cluster walking whole items i = cluster, + clusters, .. (row-tile pair i
+// / N tiles, N tile i % N tiles) as long as they fill whole waves; the
+// partner of an odd last row tile runs the ring with zeros and stores
+// nothing. Nothing lies over the ring, so the producer runs on into the
+// next tile's slots while the consumers run this tile's epilogue: 6 slots
+// at NT = 64, 4 at NT = 128. The plan (ops/_build.plan_stage) takes the N
+// tile by the waves of cluster items over the SMs times a tile's width,
+// the wide one on a tie; the launch recomputes the plan's shared-memory
+// bytes, CTAs, cluster size and split and refuses one that differs.
+//
+// The split tail (stage_split): the items past the last full wave (every
+// item of a launch of fewer items than clusters) would leave most clusters
+// idle, so their K chunks, as one sequence, are cut into one contiguous
+// range a cluster, ranges that differ by a chunk at most: at batch 5,376 a
+// stage runs 168 items on 66 clusters, 2.55 waves of work in 3 of time, at
+// 512 16 or 32. A range's run of each tile it meets is a part of that tile
+// (RingPart's chunks [c0, c1), walked by producer and consumers alike);
+// the projection runs whole in a tile's first part, which writes P to out
+// as a whole tile does. Each part stores its partial sums, fragment-major
+// (each thread's own float4s, 512 contiguous bytes a warp store), to its
+// slot of the workspace, then one thread counts the part in on the tile's
+// counter (atom.acq_rel.gpu: it releases the CTA's stores, P's included,
+// and acquires the other parts'). The part that finds itself last sums the
+// tile's parts in part order, not arrival order (part 0's partial sums from
+// its registers where it is part 0), resets the counter to 0 for the next
+// launch and runs the epilogue; the others go on to their next part. No
+// CTA waits on another, so nothing depends on which CTAs are resident, and
+// two runs give the same bits. Whole tiles keep the path above, bit for bit.
+// A cluster walks its range's items in the order that lets it finish only
+// the tile of its last part (cluster_part). What a split costs: its fixup,
+// 0.006-0.010 ms a launch on an H100 (PERF.md), which 8-chunk tiles' short
+// ranges do not win back.
 //
 // The saving instance (Args = SaveArgs) is the forward of the autograd
 // Functions: it also stores z = conv + bias and each (sample, group)'s mean
@@ -151,14 +174,80 @@ __host__ __device__ constexpr int stage_cluster(int row_tiles) { return row_tile
 // Shared memory of a stage launch (mirrors ops/_build.plan_stage; the
 // launch refuses a plan whose bytes differ): 1,024 bytes to align the ring
 // to the swizzle's period, the ring, the rows' sums of each group of the
-// tile [192][groups_per_tile], each (sample, group)'s mean and rstd, and
-// each ring slot's full, empty and abox barriers.
+// tile [192][groups_per_tile], each (sample, group)'s mean and rstd, each
+// ring slot's full, empty and abox barriers, and 16 bytes for the word that
+// tells a split tile's consumers whether they finish it.
 __host__ __device__ inline size_t stage_smem_bytes(int nt, int samples, int groups_per_tile) {
   const size_t ring = nt == 128 ? ConvRing<128>::kRingBytes : ConvRing<64>::kRingBytes;
   const int stages = nt == 128 ? kWideStages : kNarrowStages;
   return 1024 + ring + 4 * size_t(kTileRows) * groups_per_tile + 8 * size_t(samples) * groups_per_tile +
-         24 * stages;
+         24 * stages + 16;
 }
+
+// The split of a launch's tail (mirrors ops/_build.stage_split and its
+// SPLIT_MIN_CHUNKS, SPLIT_PARTS): a part is one ring stage at least (the
+// ring runs on across a cluster's parts); the tail's chunks go into ranges
+// of at least a tile's chunks / kSplitParts, so a tile has about
+// kSplitParts parts at most, each of which its finisher reads.
+constexpr int kSplitMinChunks = 1;
+constexpr int kSplitParts = 8;
+constexpr bool kSplitTail = true;
+struct StageSplit {
+  int tail;           // the last `tail` cluster items are split; 0: every item runs whole
+  int tail_clusters;  // the tail's chunks in this many contiguous ranges, one a cluster
+  int max_parts;      // the most parts of a tile
+};
+
+// The range of the tail's `total` chunks, cut into `ranges`, that holds
+// chunk j; the first chunk of range k (total x ranges < 2^31: the launch
+// refuses a plan past it).
+__host__ __device__ inline int range_of(int j, int total, int ranges) { return ((j + 1) * ranges - 1) / total; }
+__host__ __device__ inline int range_start(int k, int total, int ranges) { return k * total / ranges; }
+
+// How `items` cluster items of `chunks` K chunks go over `clusters`
+// clusters: those of full waves whole, the rest (items % clusters) cut into
+// ranges of their chunks, one a cluster, at most as many ranges as
+// tail x kSplitParts; no split where a tile has one chunk or every wave is
+// full.
+inline StageSplit stage_split(int items, int chunks, int clusters) {
+  StageSplit s{0, 0, 1};
+  const int tail = items % clusters;
+  if (!kSplitTail || chunks < 2 * kSplitMinChunks || tail == 0) return s;
+  const int total = tail * chunks;
+  int q = clusters;
+  if (q > tail * kSplitParts) q = tail * kSplitParts;
+  if (q > total / kSplitMinChunks) q = total / kSplitMinChunks;
+  s.tail = tail;
+  s.tail_clusters = q;
+  for (int i = 0; i < tail; ++i) {
+    const int parts = range_of((i + 1) * chunks - 1, total, q) - range_of(i * chunks, total, q) + 1;
+    if (parts > s.max_parts) s.max_parts = parts;
+  }
+  return s;
+}
+
+// Bytes of a launch's workspace: a slot of 192 x nt partial sums per tail
+// item, part and rank (mirrors StagePlan.work_bytes).
+inline size_t stage_work_bytes(const StageSplit& s, int cs, int nt) {
+  return size_t(s.tail) * s.max_parts * cs * kTileRows * nt * 4;
+}
+
+// One stage launch's plan as ops/_build.plan_stage makes it (the ctypes
+// structure _build.StageLaunch mirrors it field for field): the launch
+// recomputes every field but the pointers and byte counts and refuses a
+// plan that differs, or a workspace or counters too small for its split.
+struct StageLaunch {
+  int samples;        // whole samples per tile (samples * T <= 192)
+  int n_tile;         // 64 or 128 output channels
+  int cluster;        // CTAs of a cluster
+  int smem_bytes;     // stage_smem_bytes
+  int ctas;           // persistent CTAs
+  int tail, tail_clusters, max_parts;  // stage_split
+  float* work;        // the split tiles' workspace, work_bytes of it
+  int* counters;      // their arrival counters, n_counters of them, all 0
+  long long work_bytes;
+  int n_counters;
+};
 
 struct StageArgs {
   const float* x;     // [B, T, C]  conv input
@@ -175,6 +264,10 @@ struct StageArgs {
   float eps;
   int samples;        // whole samples per tile (samples * T <= 192)
   int cs;             // CTAs of a cluster (1 or 2): row tiles 2q and 2q + 1 share an N tile's weights
+  int items, chunks;  // cluster items, and K chunks of an item
+  StageSplit split;   // the split tail
+  float* work;        // its workspace: slot ((tail item * max_parts + part) * cs + rank), 192 x NT floats
+  int* counters;      // its arrival counters: tail item * cs + rank, 0 between launches
 };
 
 // The saving instance's arguments: what the backward (conv_backward.cuh)
@@ -348,19 +441,162 @@ __device__ __forceinline__ float4 quad_pairs(float2 a, float2 b, int q) {
 }
 __device__ __forceinline__ int quad_col(int j, int q) { return q & 1 ? 8 * (j + 1) + 2 * (q - 1) : 8 * j + 2 * q; }
 
-// One tile of a persistent CTA's walk, on the consumer warpgroups: row
-// tile rt (samples [rt S, rt S + ns); none where rt is past the last row
-// tile: a cluster's partner that only keeps the ring going) x N tile nti.
-// `it` counts the ring's stages as the producer does. KW = 3: T = 3, the
-// tile position-major, A by descriptor (ring_consume_ss); KW = 5: the tile
+// One part of a cluster's walk: cluster item `item`, its chunks [c0, c1),
+// and `tag`: part | parts << 8 | slot << 16, part `part` of the item's
+// `parts` (a whole item: all of K, part 0 of 1), `slot` the item's index in
+// the split tail (its workspace slots and counters). One register for the
+// three, which the consumers keep across the main loop (parts < 256: at
+// most one a cluster).
+struct StagePart {
+  int item, c0, c1, tag;
+};
+__device__ __forceinline__ int part_of(int tag) { return tag & 0xFF; }
+__device__ __forceinline__ int parts_of(int tag) { return (tag >> 8) & 0xFF; }
+__device__ __forceinline__ int slot_of(int tag) { return tag >> 16; }
+
+// Part n of the walk of this CTA's cluster, in order: whole items cluster,
+// + clusters, .. below items - tail, then its range of the tail's chunks,
+// a part of each tail item the range meets; false past its last. A range
+// ends in the first part of an item (part 0, which runs the projection)
+// and starts in the end of another. Without the projection the range's
+// last item goes first: an item's start then arrives early, and a cluster
+// finishes at most the tile of its last part. In range order, a cluster
+// that finished a tile with its first part (a tie with another part of
+// that tile) ran its epilogue before its second part, arrived last for
+// that one too and ran two epilogues in a row: the split was 10% slower
+// than whole tiles at 16 chunks a tile (128 -> 128, T = 12). With the
+// projection, range order: part 0, longer by the projection, goes last,
+// and run first it was the last of its tile and finished it before the
+// cluster's other part (2-8% slower at T = 3 to 12; PERF.md). From
+// the launch's parameters and the CTA's index alone, read anew for each
+// part (volatile), so that a walk keeps one counter across the main loop
+// and not the cluster's state: with it, the consumers of the N-tile-128
+// instances spilled.
+__device__ __forceinline__ bool cluster_part(const StageArgs& a, int n, StagePart& p) {
+  unsigned cta, ctas;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(cta));
+  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(ctas));
+  const int shift = a.cs >> 1;  // clusters of 1 or 2 CTAs
+  const int cluster = static_cast<int>(cta) >> shift, clusters = static_cast<int>(ctas) >> shift;
+  const StageSplit& s = a.split;
+  const int chunks = a.chunks, whole = a.items - s.tail;
+  if (cluster + n * clusters < whole) {
+    p = StagePart{cluster + n * clusters, 0, chunks, 1 << 8};
+    return true;
+  }
+  if (cluster >= s.tail_clusters) return false;
+  const int nw = cluster < whole ? (whole - 1 - cluster) / clusters + 1 : 0;  // its whole items
+  const int total = s.tail * chunks;
+  const int lo = range_start(cluster, total, s.tail_clusters), hi = range_start(cluster + 1, total, s.tail_clusters);
+  const bool reverse = a.wress == nullptr;
+  const int i = reverse ? (hi - 1) / chunks - (n - nw) : lo / chunks + (n - nw), b = i * chunks;
+  if (reverse ? b + chunks <= lo : b >= hi) return false;
+  const int first = range_of(b, total, s.tail_clusters), last = range_of(b + chunks - 1, total, s.tail_clusters);
+  p = StagePart{whole + i, max(lo, b) - b, min(hi, b + chunks) - b,
+                (cluster - first) | (last - first + 1) << 8 | i << 16};
+  return true;
+}
+
+// Calls f(part) for each part of this CTA's cluster, in order. The
+// producer and the consumers walk alike, so their ring stages agree.
+template <class F>
+__device__ __forceinline__ void walk_parts(const StageArgs& a, const F& f) {
+  StagePart p;
+  for (int n = 0; cluster_part(a, n, p); ++n) f(p);
+}
+
+// The consumers' word that tells them whether they finish a split tile, at
+// shared address `flag`.
+__device__ __forceinline__ void put_flag(uint32_t flag, int v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
+}
+__device__ __forceinline__ int get_flag(uint32_t flag) {
+  int v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
+  return v;
+}
+
+// Adds 1 to a split tile's counter and returns its value before, with
+// acquire and release semantics at the device's scope: the CTA's stores
+// before it (ordered to this thread by the consumers' barrier) are seen by
+// whoever reads the count after, and this thread sees theirs.
+__device__ __forceinline__ int count_in(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// A split tile's part (tag: StagePart's), on the consumer warpgroups, after
+// its main loop: stores its partial sums `acc` to its workspace slot (each
+// thread its own float4s, fragment-major) and counts itself in. The part
+// that arrives last (flag: the shared address of the CTA's word that tells
+// its consumers so) sums every part's partial sums into acc in part order,
+// part 0's first (from acc where this is part 0, else from its slot),
+// resets the counter to 0 and returns true: it finishes the tile. The
+// others return false, as does the partner of an odd last row tile (live
+// false), whose parts store and count nothing.
+template <int NT>
+__device__ __forceinline__ bool finish_split(const StageArgs& a, int tag, uint32_t rank, bool live, uint32_t flag,
+                                             float (&acc)[NT / 2]) {
+  if (!live) return false;
+  constexpr int kUnits = NT / 8;  // float4s a thread
+  const unsigned tid = threadIdx.x;
+  const int part = part_of(tag), parts = parts_of(tag), item = slot_of(tag);
+  const size_t slot = size_t(kThreads) * kUnits;  // float4s a slot
+  float4* part0 =
+      reinterpret_cast<float4*>(a.work) + (size_t(item) * a.split.max_parts * a.cs + rank) * slot + tid;
+  const size_t stride = size_t(a.cs) * slot;  // from one part's slot to the next's
+  float4* mine = part0 + part * stride;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u)
+    __stcg(mine + u * kThreads, make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2], acc[4 * u + 3]));
+  consumer_sync();  // every consumer's partial sums are stored
+  if (tid == 0) {
+    int* counter = a.counters + item * a.cs + rank;
+    const bool last = count_in(counter) == parts - 1;
+    if (last) atomicExch(counter, 0);  // every part is in: 0 again for the next launch
+    put_flag(flag, last);
+  }
+  consumer_sync();
+  if (get_flag(flag) == 0) return false;
+  for (int q = part == 0 ? 1 : 0; q < parts; ++q) {
+    const float4* src = part0 + q * stride;
+#pragma unroll
+    for (int u0 = 0; u0 < kUnits; u0 += 4) {  // four float4 loads in flight, then their adds
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldcg(src + (u0 + u) * kThreads);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = 4 * (u0 + u);
+        if (q == 0) {
+          acc[e] = v[u].x, acc[e + 1] = v[u].y, acc[e + 2] = v[u].z, acc[e + 3] = v[u].w;
+        } else {
+          acc[e] += v[u].x, acc[e + 1] += v[u].y, acc[e + 2] += v[u].z, acc[e + 3] += v[u].w;
+        }
+      }
+    }
+  }
+  return true;
+}
+
+// One part of a tile of a persistent CTA's walk (all of it for a whole
+// tile), on the consumer warpgroups: row tile rt (samples [rt S, rt S +
+// ns); none where rt is past the last row tile: a cluster's partner that
+// only keeps the ring going) x N tile nti, chunks [p.c0, p.c1). `it` counts
+// the ring's stages as the producer does. KW = 3: T = 3, the tile
+// position-major, A by descriptor (ring_consume_ss); KW = 5: the tile
 // row-major, A's fragments from the split planes (ring_consume, kPre).
 // kProj: with the 1x1 projection (a.wress), an instance of its own:
 // decided at run time, the accumulator's flow merged at branches and ptxas
-// serialized every instance's wgmmas (C7511) and spilled at NT = 128.
-// psum [192][gpt] and stats [samples][gpt] (mean, rstd) are the CTA's.
+// serialized every instance's wgmmas (C7511) and spilled at NT = 128; a
+// part past a tile's first runs the projection's loop over no chunks.
+// psum [192][gpt] and stats [samples][gpt] (mean, rstd) are the CTA's;
+// its split tiles' word (finish_split) lies past the barriers. The
+// epilogue runs where the tile is whole, or this part finishes it.
 template <int NT, int KW, bool kProj, class Args>
-__device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const char* ring, float* psum,
-                                           float2* stats, const FwdRing& f, int& it) {
+__device__ __forceinline__ void stage_tile(const Args& a, StagePart p, int rt, int nti, const char* ring,
+                                           float* psum, float2* stats, const FwdRing& f, int& it) {
   constexpr bool kSave = !std::is_same<Args, StageArgs>::value;
   using CR = ConvRing<NT>;
   using PR = ProjRing<NT>;
@@ -371,13 +607,15 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
     const int ns = max(0, min(a.samples, a.B - rt * a.samples));
     const TileRows tr = tile_rows<kConvK, KW>(a.samples, ns, a.T);
     if constexpr (kProj) {
-      // the 1x1 projection first, from zero, in the registers the conv then
-      // takes (its rows in the conv's tile order: at T = 3 its boxes are
-      // position-major too); its product P goes to the rows' own out,
-      // which only this thread reads back (the final pass), then is
-      // overwritten
-      ring_consume_ss<PR, 1>(0, 64 * (threadIdx.x >> 7), ring_part<PR>(a.wress, a.Cres, 1, 0, 1, nti), ring, f, it,
-                             acc);
+      // the 1x1 projection first, whole, in a tile's first part, from zero,
+      // in the registers the conv then takes (its rows in the conv's tile
+      // order: at T = 3 its boxes are position-major too); its product P
+      // goes to the rows' own out, which the final pass reads back (this
+      // thread, or its counterpart in the part that finishes a split
+      // tile), then is overwritten
+      const bool first = p.c0 == 0;
+      const RingPart pres = ring_range<PR>(a.wress, a.Cres, 1, 0, first ? (a.Cres + kChunk - 1) / kChunk : 0, nti);
+      ring_consume_ss<PR, 1>(0, 64 * (threadIdx.x >> 7), pres, ring, f, it, acc);
       const int n0 = nti * NT, ncols = min(NT, a.O - n0);
       const int q = threadIdx.x & 3;
 #pragma unroll
@@ -385,15 +623,15 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
         float* prow = a.out + static_cast<size_t>(rt * a.samples * a.T + tr.r[i]) * a.O + n0;
 #pragma unroll
         for (int j = 0; j < NT / 8; j += 2) {
-          const float4 p = quad_pairs(make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]),
-                                      make_float2(acc[4 * j + 4 + 2 * i], acc[4 * j + 5 + 2 * i]), q);
-          if (tr.live[i] && quad_col(j, q) < ncols) *reinterpret_cast<float4*>(prow + quad_col(j, q)) = p;
+          const float4 pp = quad_pairs(make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]),
+                                       make_float2(acc[4 * j + 4 + 2 * i], acc[4 * j + 5 + 2 * i]), q);
+          if (first && tr.live[i] && quad_col(j, q) < ncols) *reinterpret_cast<float4*>(prow + quad_col(j, q)) = pp;
         }
       }
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
     }
-    const RingPart conv = ring_part<CR>(a.ws, a.C, kConvK, 0, 1, nti);
+    const RingPart conv = ring_range<CR>(a.ws, a.C, kConvK, p.c0, p.c1, nti);
     if constexpr (kDescA<NT, KW>)  // position t = wg: taps 2 - t .. 4 - t read positions 0 .. 2
       ring_consume_ss<CR, kConvK>(tr.klo, 0, conv, ring, f, it, acc);
     else
@@ -404,7 +642,9 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
   // neither keeps them live across the loop (the NT = 128 instances with the
   // projection spilled them there) nor merges them with the loop's own.
   unsigned tid = threadIdx.x;
-  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));
+  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid), "+r"(p.tag));
+  const uint32_t flag = f.abox + 8 * CR::kStages;  // the word past the barriers
+  if (parts_of(p.tag) > 1 && !finish_split<NT>(a, p.tag, f.rank, a.B > rt * a.samples, flag, acc)) return;
   const int b0 = rt * a.samples;
   const int ns = max(0, min(a.samples, a.B - b0));
   const int row0 = b0 * a.T;
@@ -508,9 +748,10 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
       float4 o = quad_pairs(v[0][i], v[1][i], q);
       if (!tr.live[i] || c4 >= ncols) continue;
       if constexpr (kProj) {
-        const float4 p = *reinterpret_cast<const float4*>(a.out + grow[i] + c4);  // this thread's own P
+        // P, which this thread or its counterpart in the tile's first part wrote: from L2
+        const float4 pr = __ldcg(reinterpret_cast<const float4*>(a.out + grow[i] + c4));
         const float4 bres = __ldg(reinterpret_cast<const float4*>(a.bres + n0 + c4));
-        o = make_float4((o.x + p.x) + bres.x, (o.y + p.y) + bres.y, (o.z + p.z) + bres.z, (o.w + p.w) + bres.w);
+        o = make_float4((o.x + pr.x) + bres.x, (o.y + pr.y) + bres.y, (o.z + pr.z) + bres.z, (o.w + pr.w) + bres.w);
       } else {
         if (a.temb != nullptr) {
           const float4 t = __ldg(reinterpret_cast<const float4*>(a.temb + (b0 + smp[i]) * size_t(a.O) + n0 + c4));
@@ -531,10 +772,10 @@ __device__ __forceinline__ void stage_tile(const Args& a, int rt, int nti, const
 // for the backward (conv_backward.cuh); with StageArgs it compiles without.
 // kProj: with the 1x1 projection (a.wress). mx: x as position_map views it
 // (kDescA) or ring_map; mres: xres likewise (its own pitch) where the
-// projection runs (else unused). Launched in
-// clusters of a.cs CTAs: cluster q walks items i = q, q + clusters, .. of
-// (row-tile pair i / N tiles, N tile i % N tiles), rank r taking row tile
-// 2 (i / N tiles) + r.
+// projection runs (else unused). Launched in clusters of a.cs CTAs:
+// cluster q walks its parts (walk_parts) of items i (row-tile pair i / N
+// tiles, N tile i % N tiles), rank r taking row tile 2 (i / N tiles) + r;
+// its consumers' word for split tiles lies past the barriers.
 template <int NT, int KW, bool kProj, class Args>
 __global__ void __launch_bounds__(kStageThreads, 1)
     conv_gn_mish_stage(const Args a, const __grid_constant__ CUtensorMap mx,
@@ -566,17 +807,16 @@ __global__ void __launch_bounds__(kStageThreads, 1)
   // value): wgmma is issued only in code it knows no warp diverges into
   const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
   const int ntiles = (a.O + NT - 1) / NT;
-  const int row_tiles = (a.B + a.samples - 1) / a.samples;
-  const int items = (row_tiles + a.cs - 1) / a.cs * ntiles;
-  const int cluster = blockIdx.x / a.cs, clusters = gridDim.x / a.cs;
   int it = 0;
   if (warp >= kWarps) {
     regs_dec<kProducerRegs>();
-    for (int i = cluster; i < items; i += clusters) {
-      const int rt = i / ntiles * a.cs + static_cast<int>(f.rank), nti = i % ntiles;
+    walk_parts(a, [&](const StagePart& p) {
+      const int rt = p.item / ntiles * a.cs + static_cast<int>(f.rank), nti = p.item % ntiles;
       const int b0 = rt * a.samples, row0 = b0 * a.T;
-      const RingPart conv = ring_part<R>(a.ws, a.C, kConvK, 0, 1, nti);
-      const RingPart pres = ring_part<P>(a.wress, a.Cres, 1, 0, 1, nti);
+      const RingPart conv = ring_range<R>(a.ws, a.C, kConvK, p.c0, p.c1, nti);
+      // the projection whole in a tile's first part (stage_tile)
+      const int pch = p.c0 == 0 ? (a.Cres + kChunk - 1) / kChunk : 0;
+      const RingPart pres = ring_range<P>(a.wress, a.Cres, 1, 0, pch, nti);
       if (warp == kWarps) {
         if constexpr (kDescA<NT, KW>) {  // T = 3: positions 0, 1, 2 of 64 samples, one box each
           if constexpr (kProj)
@@ -598,12 +838,13 @@ __global__ void __launch_bounds__(kStageThreads, 1)
         if constexpr (kProj) ring_split<P>(pres, smem, f, t, it);
         ring_split<R>(conv, smem, f, t, it);
       }
-    }
+    });
   } else {
     regs_inc<kConsumerRegs>();
-    for (int i = cluster; i < items; i += clusters)
-      stage_tile<NT, KW, kProj>(a, i / ntiles * a.cs + static_cast<int>(f.rank), i % ntiles, smem, psum, stats, f,
-                                it);
+    walk_parts(a, [&](const StagePart& p) {
+      stage_tile<NT, KW, kProj>(a, p, p.item / ntiles * a.cs + static_cast<int>(f.rank), p.item % ntiles, smem,
+                                psum, stats, f, it);
+    });
   }
   cluster_sync();  // no CTA leaves while its peer may still copy or arrive into it
 }
@@ -619,14 +860,22 @@ cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, ui
   return cudaGetLastError();
 }
 
-// The CTAs of a stage launch of `items` cluster items (row-tile pairs x N
-// tiles) in clusters of cs on the current device: cs CTAs an item, one an
-// SM at most (mirrors ops/_build.plan_stage).
-cudaError_t stage_ctas(int items, int cs, int* ctas) {
+// The split and CTAs of a stage launch of `items` cluster items (row-tile
+// pairs x N tiles) of `chunks` K chunks in clusters of cs on the current
+// device: cs CTAs a cluster with work, one an SM at most (mirrors
+// ops/_build.plan_stage).
+cudaError_t stage_ctas(int items, int chunks, int cs, StageSplit* split, int* ctas) {
   int dev = 0, sms = 0;
   CINDM_TRY(cudaGetDevice(&dev));
   CINDM_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  *ctas = cs * (items < sms / cs ? items : sms / cs);
+  const int clusters = sms / cs;
+  // the walk's int arithmetic (range_of: tail x chunks x ranges) and
+  // StagePart's tag (parts and tail items < 256)
+  if (clusters > 255 || static_cast<long long>(clusters) * clusters * chunks >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  *split = stage_split(items, chunks, clusters);
+  const int used = items - split->tail > split->tail_clusters ? items - split->tail : split->tail_clusters;
+  *ctas = cs * (used < clusters ? used : clusters);
   return cudaSuccess;
 }
 
@@ -654,14 +903,18 @@ cudaError_t launch_nt(const Args& a, size_t bytes, int ctas, const CUtensorMap& 
 }
 
 // One stage launch on weights that stage_weights laid out (a.ws, and
-// a.wress with the projection), with the planner's tile: `samples` whole
-// samples per tile, an N tile of `nt` channels, `smem_bytes` of dynamic
-// shared memory, `ctas` persistent CTAs in clusters of `cs`. With SaveArgs
-// it launches the saving instance. Refuses (cudaErrorInvalidValue) a plan
-// that breaks the tiling's rules or differs from the one recomputed here.
+// a.wress with the projection), with the planner's plan `s`: `samples`
+// whole samples per tile, an N tile of `n_tile` channels, `smem_bytes` of
+// dynamic shared memory, `ctas` persistent CTAs in clusters of `cluster`,
+// the split tail with its workspace and counters. With SaveArgs it
+// launches the saving instance. Refuses (cudaErrorInvalidValue) a plan
+// that breaks the tiling's rules or differs from the one recomputed here,
+// or a workspace or counters too small for its split.
 template <class Args>
-cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas, int cs, void* stream) {
+cudaError_t launch_stage(const Args& a0, int K, const StageLaunch& s, void* stream) {
   Args a = a0;
+  const int nt = s.n_tile, ctas = s.ctas;
+  a.samples = s.samples;
   const bool proj = a.wress != nullptr;
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.O <= 0 || a.G <= 0 || a.O % a.G != 0 ||
       a.C % 4 != 0 || a.O % 4 != 0 || K != kConvK || (nt != 64 && nt != 128) ||
@@ -672,12 +925,23 @@ cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas
   if (a.O > nt && nt % og != 0) return cudaErrorInvalidValue;  // an N tile holds whole groups
   const int gpt = (a.O < nt ? a.O : nt) / og;
   const size_t bytes = stage_smem_bytes(nt, a.samples, gpt);
-  if (static_cast<size_t>(smem_bytes) != bytes || bytes > kSmemMax) return cudaErrorInvalidValue;
+  if (static_cast<size_t>(s.smem_bytes) != bytes || bytes > kSmemMax) return cudaErrorInvalidValue;
   const int row_tiles = (a.B + a.samples - 1) / a.samples;
   a.cs = stage_cluster(row_tiles);
+  a.items = (row_tiles + a.cs - 1) / a.cs * ((a.O + nt - 1) / nt);
+  a.chunks = (a.C + kChunk - 1) / kChunk;
   int want = 0;
-  CINDM_TRY(stage_ctas((row_tiles + a.cs - 1) / a.cs * ((a.O + nt - 1) / nt), a.cs, &want));
-  if (cs != a.cs || ctas != want) return cudaErrorInvalidValue;
+  CINDM_TRY(stage_ctas(a.items, a.chunks, a.cs, &a.split, &want));
+  if (s.cluster != a.cs || ctas != want || s.tail != a.split.tail || s.tail_clusters != a.split.tail_clusters ||
+      s.max_parts != a.split.max_parts)
+    return cudaErrorInvalidValue;
+  a.work = s.work;
+  a.counters = s.counters;
+  if (a.split.tail > 0 &&
+      (s.work == nullptr || s.counters == nullptr || reinterpret_cast<uintptr_t>(s.work) % 16 != 0 ||
+       s.work_bytes < static_cast<long long>(stage_work_bytes(a.split, a.cs, nt)) ||
+       s.n_counters < a.split.tail * a.cs))
+    return cudaErrorInvalidValue;
   constexpr int kPitch = ConvRing<64>::kPitch;  // one chunk a slot at either N tile
   constexpr int kProjPitch = ProjRing<64>::kPitch;
   static_assert(ConvRing<128>::kPitch == kPitch && ProjRing<128>::kPitch == kProjPitch, "");
@@ -690,16 +954,16 @@ cudaError_t launch_stage(const Args& a0, int K, int nt, int smem_bytes, int ctas
     if (proj) CINDM_TRY(ring_map(&mres, a.xres, a.B * a.T, a.Cres, kProjPitch));
   }
   if (!proj) mres = mx;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.T == 3)
-    return nt == 64 ? (proj ? launch_nt<64, 3, true>(a, bytes, ctas, mx, mres, s)
-                            : launch_nt<64, 3, false>(a, bytes, ctas, mx, mres, s))
-                    : (proj ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, s)
-                            : launch_nt<128, 3, false>(a, bytes, ctas, mx, mres, s));
-  return nt == 64 ? (proj ? launch_nt<64, kConvK, true>(a, bytes, ctas, mx, mres, s)
-                          : launch_nt<64, kConvK, false>(a, bytes, ctas, mx, mres, s))
-                  : (proj ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, s)
-                          : launch_nt<128, kConvK, false>(a, bytes, ctas, mx, mres, s));
+    return nt == 64 ? (proj ? launch_nt<64, 3, true>(a, bytes, ctas, mx, mres, st)
+                            : launch_nt<64, 3, false>(a, bytes, ctas, mx, mres, st))
+                    : (proj ? launch_nt<128, 3, true>(a, bytes, ctas, mx, mres, st)
+                            : launch_nt<128, 3, false>(a, bytes, ctas, mx, mres, st));
+  return nt == 64 ? (proj ? launch_nt<64, kConvK, true>(a, bytes, ctas, mx, mres, st)
+                          : launch_nt<64, kConvK, false>(a, bytes, ctas, mx, mres, st))
+                  : (proj ? launch_nt<128, kConvK, true>(a, bytes, ctas, mx, mres, st)
+                          : launch_nt<128, kConvK, false>(a, bytes, ctas, mx, mres, st));
 }
 
 }  // namespace

@@ -22,7 +22,8 @@
 // grid of at most one CTA an SM on stage_ring.cuh's main loop (a producer
 // warpgroup's TMA and bulk-copy ring, three wgmma consumer warpgroups), so
 // that one tile's epilogue overlaps the next tile's loads (672 tiles at
-// batch 5,376).
+// batch 5,376), the last, partial wave's tiles split by K chunks over
+// every cluster.
 //
 // cindm_fused_conv1d_gn_mish_saving is the forward of the autograd
 // Function: the stage's saving instance, which also writes z [B, T, O] (the
@@ -32,20 +33,19 @@
 
 namespace {
 
-// ws: w [K, C, O] laid out by stage_weights for N tiles of nt.
+// ws: w [K, C, O] laid out by stage_weights for N tiles of the plan's
+// n_tile; s: the launch's plan.
 int conv_gn_mish(const float* x, const void* ws, const float* b, const float* gs, const float* gb,
                  float* out, float* z, float* mean, float* rstd, int B, int T, int C, int O, int K,
-                 int G, float eps, int samples, int nt, int ctas, int cs, int smem_bytes,
-                 void* stream) {
-  if (ws == nullptr) return cudaErrorInvalidValue;
+                 int G, float eps, const cindm::StageLaunch* s, void* stream) {
+  if (ws == nullptr || s == nullptr) return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
   a.x = x; a.b = b; a.gs = gs; a.gb = gb; a.out = out;
   a.ws = static_cast<const uint32_t*>(ws);
-  a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
+  a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps;
   a.z = z; a.mean = mean; a.rstd = rstd;
-  return z != nullptr ? cindm::launch_stage(a, K, nt, smem_bytes, ctas, cs, stream)
-                      : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                            smem_bytes, ctas, cs, stream);
+  return z != nullptr ? cindm::launch_stage(a, K, *s, stream)
+                      : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, *s, stream);
 }
 
 }  // namespace
@@ -53,21 +53,18 @@ int conv_gn_mish(const float* x, const void* ws, const float* b, const float* gs
 extern "C" int cindm_fused_conv1d_gn_mish(const float* x, const void* ws, const float* b,
                                           const float* gs, const float* gb, float* out, int B,
                                           int T, int C, int O, int K, int G, float eps,
-                                          int samples, int nt, int ctas, int cs, int smem_bytes,
-                                          void* stream) {
-  return conv_gn_mish(x, ws, b, gs, gb, out, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps,
-                      samples, nt, ctas, cs, smem_bytes, stream);
+                                          const cindm::StageLaunch* s, void* stream) {
+  return conv_gn_mish(x, ws, b, gs, gb, out, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps, s,
+                      stream);
 }
 
 extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const void* ws, const float* b,
                                                  const float* gs, const float* gb, float* out,
                                                  float* z, float* mean, float* rstd, int B, int T,
                                                  int C, int O, int K, int G, float eps,
-                                                 int samples, int nt, int ctas, int cs,
-                                                 int smem_bytes, void* stream) {
+                                                 const cindm::StageLaunch* s, void* stream) {
   if (z == nullptr || mean == nullptr || rstd == nullptr) return cudaErrorInvalidValue;
-  return conv_gn_mish(x, ws, b, gs, gb, out, z, mean, rstd, B, T, C, O, K, G, eps, samples, nt,
-                      ctas, cs, smem_bytes, stream);
+  return conv_gn_mish(x, ws, b, gs, gb, out, z, mean, rstd, B, T, C, O, K, G, eps, s, stream);
 }
 
 // stage_weights: w [K][C][O] laid out for N tiles of nt into `out`

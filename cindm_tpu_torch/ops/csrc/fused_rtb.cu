@@ -27,8 +27,10 @@
 // taps on wgmma with one group in flight and a tile's GroupNorm, Mish and
 // stores from their registers while the producer fills the next tile's
 // slots. The 1x1 residual projection is a second part of K = 1 on the same
-// ring inside the second launch, accumulated onto Mish(y) in the conv's
-// registers.
+// ring inside the second launch, run first in the conv's registers. Each
+// launch is planned on its own (its K is its own): the items of its last,
+// partial wave are split by K chunks over every cluster, the last part of
+// a tile to arrive finishing it (conv_gn_mish.cuh).
 //
 // cindm_fused_rtb_saving is the forward of the autograd Function: the same
 // two launches through the stage's saving instance, which also writes what
@@ -40,20 +42,23 @@
 namespace {
 
 // w1s, w2s: w1 [K, C, O] and w2 [K, O, O] laid out by stage_weights for N
-// tiles of nt; wress: wres [C, O] likewise (K = 1), or null (identity).
+// tiles of the plans' n_tile; wress: wres [C, O] likewise (K = 1), or null
+// (identity). s1, s2: the plans of the two stage launches (a block's second
+// stage is C = O: its K, and so its split, is its own); they may share one
+// workspace and counters, since each launch leaves its counters at 0.
 int fused_rtb(const float* x, const float* temb, const void* w1s, const float* b1, const float* gs1,
               const float* gb1, const void* w2s, const float* b2, const float* gs2, const float* gb2,
               const void* wress, const float* bres, float* h, float* out, float* z1, float* z2,
               float* mean1, float* rstd1, float* mean2, float* rstd2, int B, int T, int C, int O, int K,
-              int G, float eps, int samples, int nt, int ctas, int cs, int smem1, int smem2,
+              int G, float eps, const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
               void* stream) {
   if ((wress == nullptr) != (bres == nullptr) || (wress == nullptr && C != O) || w1s == nullptr ||
-      w2s == nullptr)
+      w2s == nullptr || s1 == nullptr || s2 == nullptr || s1->n_tile != s2->n_tile)
     return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
   a.x = x; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.out = h;
   a.ws = static_cast<const uint32_t*>(w1s);
-  a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps; a.samples = samples;
+  a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps;
   a.z = z1; a.mean = mean1; a.rstd = rstd1;
   cindm::SaveArgs b = a;
   b.x = h; b.b = b2; b.gs = gs2; b.gb = gb2; b.temb = nullptr; b.out = out;
@@ -62,13 +67,11 @@ int fused_rtb(const float* x, const float* temb, const void* w1s, const float* b
   b.wress = static_cast<const uint32_t*>(wress);
   b.z = z2; b.mean = mean2; b.rstd = rstd2;
   const bool save = z1 != nullptr;
-  cudaError_t err = save ? cindm::launch_stage(a, K, nt, smem1, ctas, cs, stream)
-                         : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, nt,
-                                               smem1, ctas, cs, stream);
+  cudaError_t err = save ? cindm::launch_stage(a, K, *s1, stream)
+                         : cindm::launch_stage(static_cast<const cindm::StageArgs&>(a), K, *s1, stream);
   if (err != cudaSuccess) return err;
-  return save ? cindm::launch_stage(b, K, nt, smem2, ctas, cs, stream)
-              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, nt, smem2, ctas, cs,
-                                    stream);
+  return save ? cindm::launch_stage(b, K, *s2, stream)
+              : cindm::launch_stage(static_cast<const cindm::StageArgs&>(b), K, *s2, stream);
 }
 
 }  // namespace
@@ -78,11 +81,10 @@ extern "C" int cindm_fused_rtb(const float* x, const float* temb, const void* w1
                                const void* w2s, const float* b2, const float* gs2,
                                const float* gb2, const void* wress, const float* bres, float* h,
                                float* out, int B, int T, int C, int O, int K, int G, float eps,
-                               int samples, int nt, int ctas, int cs, int smem1, int smem2,
+                               const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
                                void* stream) {
   return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps, samples, nt,
-                   ctas, cs, smem1, smem2, stream);
+                   nullptr, nullptr, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps, s1, s2, stream);
 }
 
 extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const void* w1s,
@@ -91,12 +93,15 @@ extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const v
                                       const float* gb2, const void* wress, const float* bres,
                                       float* h, float* out, float* z1, float* z2, float* mean1,
                                       float* rstd1, float* mean2, float* rstd2, int B, int T,
-                                      int C, int O, int K, int G, float eps, int samples, int nt,
-                                      int ctas, int cs, int smem1, int smem2, void* stream) {
+                                      int C, int O, int K, int G, float eps,
+                                      const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
+                                      void* stream) {
   if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
       mean2 == nullptr || rstd2 == nullptr)
     return cudaErrorInvalidValue;
   return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, z1, z2,
-                   mean1, rstd1, mean2, rstd2, B, T, C, O, K, G, eps, samples, nt, ctas, cs, smem1,
-                   smem2, stream);
+                   mean1, rstd1, mean2, rstd2, B, T, C, O, K, G, eps, s1, s2, stream);
 }
+
+// sizeof(StageLaunch), which load() holds the ctypes structure to.
+extern "C" int cindm_stage_launch_size() { return static_cast<int>(sizeof(cindm::StageLaunch)); }

@@ -47,7 +47,8 @@
 // (ring_consume_ss) and issue a slot's chunks x taps x passes as one wgmma
 // group, one group in flight. At other T the consumers load A's fragments
 // from the split planes into registers, one tap a group as the dgrads do
-// (ring_consume with Split::kPre).
+// (ring_consume with Split::kPre). A forward part is any run of a tile's
+// chunks (ring_range): all of them, or a split tile's part.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver function is called by name)
@@ -400,22 +401,30 @@ struct RingPart {
   const char* w;
 };
 
+// Chunks [c0, c1) of a K of `cin` channels for N tile `ntile` on ring R
+// (c0 on a whole ring stage of R::kCh chunks; both cut to K's last chunk):
+// the forward's part of a split tile, or with c1 <= c0 none.
+template <class R>
+__device__ __forceinline__ RingPart ring_range(const uint32_t* ws, int cin, int taps, int c0, int c1,
+                                               int ntile) {
+  const int nch = (cin + kChunk - 1) / kChunk;
+  RingPart p;
+  p.c0 = min(nch, c0);
+  p.c1 = min(nch, c1);
+  p.taps = taps;
+  p.w = reinterpret_cast<const char*>(ws) + size_t(ntile) * nch * weight_block_bytes(R::kNT, taps);
+  return p;
+}
+
 // Part q of cs of a K of `cin` channels for N tile `ntile` on ring R: the
 // q-th of cs runs of whole ring stages (R::kCh chunks a stage); q = 0 of
 // cs = 1 is all of K.
 template <class R>
 __device__ __forceinline__ RingPart ring_part(const uint32_t* ws, int cin, int taps, int q, int cs,
                                               int ntile) {
-  constexpr int NT = R::kNT;
   constexpr int kCh = R::kCh;
-  const int nch = (cin + kChunk - 1) / kChunk;
-  const int nst = (nch + kCh - 1) / kCh;
-  RingPart p;
-  p.c0 = min(nch, nst * q / cs * kCh);
-  p.c1 = min(nch, nst * (q + 1) / cs * kCh);
-  p.taps = taps;
-  p.w = reinterpret_cast<const char*>(ws) + size_t(ntile) * nch * weight_block_bytes(NT, taps);
-  return p;
+  const int nst = ((cin + kChunk - 1) / kChunk + kCh - 1) / kCh;
+  return ring_range<R>(ws, cin, taps, nst * q / cs * kCh, nst * (q + 1) / cs * kCh, ntile);
 }
 
 // The producer warp: for each stage of the part, once the slot is free, one

@@ -3,7 +3,8 @@
 Port of ``cindm_tpu/ops/fused_conv_gn.py``. ``fused_conv1d_gn_mish`` launches
 the hand-written CUDA kernel in ``csrc/fused_conv_gn.cu`` (one launch of the
 3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh``, tiled by
-``_build.plan_stage``, on w as ``_build.staged`` keeps it laid out: once per
+``_build.plan_stage``, its last, partial wave of tiles split by K chunks
+over every cluster, on w as ``_build.staged`` keeps it laid out: once per
 weight version and N tile) for CUDA tensors and uses
 ``fused_conv1d_gn_mish_reference`` for CPU tensors. Layout is channel-last:
 x [B, T, C], w [K, C, O] (the JAX package's layout, which the kernel reads
@@ -24,6 +25,7 @@ default head of TemporalUnet1D on CUDA, so training needs its gradient.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
@@ -203,6 +205,7 @@ def _conv_gn_mish(x, w, b, gn_scale, gn_bias, groups, eps, save: bool) -> tuple:
     plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=_build.num_sms(x.device))
     lib = _build.load()
     ws = _build.staged(w, plan.n_tile)  # laid out once per weight version and N tile
+    work = _build.stage_work(x.device, plan)  # the split tail's workspace and counters, kept
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     saved = ()
     if save:
@@ -211,8 +214,7 @@ def _conv_gn_mish(x, w, b, gn_scale, gn_bias, groups, eps, save: bool) -> tuple:
         x.device,
         lib.cindm_fused_conv1d_gn_mish_saving if save else lib.cindm_fused_conv1d_gn_mish,
         *map(_build.ptr, (x, ws, b, gn_scale, gn_bias, out, *saved)),
-        B, T, C, O, K, groups, eps, plan.samples, plan.n_tile, plan.ctas, plan.cluster,
-        plan.smem_bytes,
+        B, T, C, O, K, groups, eps, ctypes.byref(_build.stage_launch(plan, *work)),
     )
     _build.raise_on_error("fused_conv1d_gn_mish", err)
     fused_conv1d_gn_mish.launches += 1

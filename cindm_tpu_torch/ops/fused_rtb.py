@@ -11,7 +11,9 @@ in one call of ``csrc/fused_rtb.cu`` for CUDA tensors: two launches of the
 3xTF32 tensor-core stage of ``csrc/conv_gn_mish.cuh`` (persistent CTAs on
 the main loop of ``csrc/stage_ring.cuh``, tiled by ``_build.plan_stage``),
 the first writing h [B, T, O] to device memory once and the second reading
-it, with the 1x1 residual projection inside the second. The stage reads
+it, with the 1x1 residual projection inside the second; each launch has its
+own plan, whose last, partial wave of tiles is split by K chunks over every
+cluster (workspace and counters kept by ``_build.stage_work``). The stage reads
 w1, w2 and wres as ``_build.staged`` keeps them laid out (staged once per
 weight version and N tile; ``_build.staged.clear()`` drops them).
 ``fused_rtb.launches`` counts calls. CPU tensors use
@@ -31,6 +33,7 @@ autograd), serve CPU tensors and the comparisons on the card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
@@ -191,10 +194,12 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
     _build.check_aligned("fused_rtb", x=x, temb=temb, w1=w1, w2=w2, wres=wres, b1=b1, gs1=gs1,
                          gb1=gb1, b2=b2, gs2=gs2, gb2=gb2, bres=bres)
     sms = _build.num_sms(x.device)
-    plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=sms)  # both stages' (it does not depend on C)
+    # each stage's own plan (the split depends on its K); the N tile is the same
+    plans = [_build.plan_stage(B, T, Ci, O, groups, K, num_sms=sms) for Ci in (C, O)]
     lib = _build.load()
     # the weights as the stage reads them, laid out once per version and N tile
-    staged = [None if w is None else _build.staged(w, plan.n_tile) for w in (w1, w2, wres)]
+    staged = [None if w is None else _build.staged(w, plans[0].n_tile) for w in (w1, w2, wres)]
+    work = _build.stage_work(x.device, *plans)
     h = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     saved = ()
@@ -204,8 +209,7 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
         x.device, lib.cindm_fused_rtb_saving if save else lib.cindm_fused_rtb,
         *map(_build.ptr, (x, temb, staged[0], b1, gs1, gb1, staged[1], b2, gs2, gb2, staged[2], bres,
                           h, out, *saved)),
-        B, T, C, O, K, groups, eps, plan.samples, plan.n_tile, plan.ctas, plan.cluster,
-        plan.smem_bytes, plan.smem_bytes,
+        B, T, C, O, K, groups, eps, *(ctypes.byref(_build.stage_launch(p, *work)) for p in plans),
     )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1

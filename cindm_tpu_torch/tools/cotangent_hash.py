@@ -1,8 +1,9 @@
 """Hashes of every cotangent of one backward pass, to compare two checkouts bit for bit.
 
     python3 -m cindm_tpu_torch.tools.cotangent_hash [--batch 512] > hashes.json
-    python3 -m cindm_tpu_torch.tools.cotangent_hash --forward [--batch 512 5376] > fwd.json
+    python3 -m cindm_tpu_torch.tools.cotangent_hash --forward [--batch 512 5376] [--tiles] > fwd.json
     python3 -m cindm_tpu_torch.tools.cotangent_hash --compare a.json b.json
+    python3 -m cindm_tpu_torch.tools.cotangent_hash --compare-whole a.json b.json
     python3 -m cindm_tpu_torch.tools.cotangent_hash --plain [--batch 512]
 
 Runs the backward kernels of the denoiser's 16 fused ResidualTemporalBlocks
@@ -15,7 +16,13 @@ checkouts whose backwards agree bit for bit print equal objects;
 exits 1 when they differ. ``--forward`` hashes the forward kernels instead:
 per block and batch (512 and 5,376 unless ``--batch`` names others), out
 of the plain instance and out, h, z1, z2, mean1, rstd1, mean2, rstd2 of
-the saving instance (the head: out, then out, z, mean, rstd). ``--plain``
+the saving instance (the head: out, then out, z, mean, rstd); with
+``--tiles`` also, per block and batch, each saved z's hash tile by tile
+(its plan's row tiles of whole samples x N tiles, row-major).
+``--compare-whole`` compares two such files tile by tile and splits the
+count by this checkout's plans: the tiles that a launch runs whole, and
+those of its split tail (the last, partial wave, whose parts are summed in
+another order); it exits 1 when a whole tile differs. ``--plain``
 prints, per block and cotangent, the largest |kernel - plain| over the
 plain largest entry of the backward kernel against its closed form on the
 same saved tensors (what the saving forward kept: a change of the forward's
@@ -101,7 +108,54 @@ def against_plain(torch, dev, batch: int = 512, seed: int = 77) -> tuple[dict, d
     return out, chain
 
 
-def forward_hashes(torch, dev, batches=(512, 5376), seed: int = 77) -> dict:
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def tile_hashes(z, samples: int, n_tile: int) -> list[str]:
+    """z [B, T, O]'s hash per tile: row tile rt (samples rt S .. rt S + S -
+    1) x N tile n (channels n nt ..), row-major."""
+    B, _, O = z.shape
+    z = z.cpu()
+    return [_digest(z[r:r + samples, :, n:n + n_tile]) for r in range(0, B, samples) for n in range(0, O, n_tile)]
+
+
+def stage_shapes(key: str) -> list[tuple[int, int, int, int]]:
+    """(B, T, C, O) of the stage launches whose z a ``--tiles`` entry holds,
+    in its order: a block's two (C -> O, then O -> O), the head's one."""
+    shape, batch = key.split("@")
+    i, dims = shape.split(":")
+    C, O, T = map(int, dims.split(","))
+    from cindm_tpu_torch.tools.backward_profile import RTB_SHAPES
+
+    return [(int(batch), T, C, O)] + ([(int(batch), T, O, O)] if int(i) < len(RTB_SHAPES) else [])
+
+
+def compare_whole(a: dict, b: dict) -> dict:
+    """Two ``--tiles`` files' z, tile by tile: equal and differing tiles
+    among those that this checkout's plans (for the card the hashes were
+    taken on) run whole, and among the split tail's."""
+    from cindm_tpu_torch.ops import _build
+
+    count = {"whole_equal": 0, "whole_differ": 0, "split_equal": 0, "split_differ": 0}
+    differ = []
+    for key in sorted(k for k in a if k.endswith(":tiles") and k in b):
+        block = key[:-len(":tiles")]
+        for j, (B, T, C, O) in enumerate(stage_shapes(block)):
+            plan = _build.plan_stage(B, T, C, O, 8, num_sms=b[key]["sms"])
+            assert a[key]["n_tile"] == b[key]["n_tile"] == plan.n_tile and a[key]["samples"] == plan.samples
+            for t, (x, y) in enumerate(zip(a[key]["z"][j], b[key]["z"][j])):
+                rt, nti = divmod(t, plan.grid[1])
+                item = rt // plan.cluster * plan.grid[1] + nti
+                kind = "whole" if len(plan.item_parts(item)) == 1 else "split"
+                count[f"{kind}_{'equal' if x == y else 'differ'}"] += 1
+                if kind == "whole" and x != y:
+                    differ.append(f"{block} z{j + 1} tile {t}")
+    return {"whole_bit_identical": not differ, **count, "whole_tiles_that_differ": differ[:20]}
+
+
+def forward_hashes(torch, dev, batches=(512, 5376), seed: int = 77, tiles: bool = False) -> dict:
+    from cindm_tpu_torch.ops import _build
     from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
     from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
     from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, RTB_SHAPES, block_inputs
@@ -122,8 +176,13 @@ def forward_hashes(torch, dev, batches=(512, 5376), seed: int = 77) -> dict:
                     args = [x if n == "x" else p.get(n) for n in names]
                     got = list(_fused_rtb(*args, 8, 1e-5, save=False))
                     got += list(_fused_rtb(*args, 8, 1e-5, save=True))
-                out[f"{i}:{C},{O},{T}@{batch}"] = [
-                    hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in got]
+                out[f"{i}:{C},{O},{T}@{batch}"] = [_digest(t) for t in got]
+                if tiles:  # the saving instance's z (z1, z2; the head's z) tile by tile
+                    plan = _build.plan_stage(batch, T, C, O, 8, num_sms=_build.num_sms(dev))
+                    zs = [got[2]] if head else [got[3], got[4]]
+                    out[f"{i}:{C},{O},{T}@{batch}:tiles"] = {
+                        "samples": plan.samples, "n_tile": plan.n_tile, "sms": _build.num_sms(dev),
+                        "z": [tile_hashes(z, plan.samples, plan.n_tile) for z in zs]}
     return out
 
 
@@ -133,6 +192,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--forward", action="store_true",
                     help="hash the forward kernels' outputs and saved tensors instead")
     ap.add_argument("--compare", nargs=2, metavar="FILE")
+    ap.add_argument("--compare-whole", nargs=2, metavar="FILE",
+                    help="two --forward --tiles files' z tile by tile, whole and split tiles apart")
+    ap.add_argument("--tiles", action="store_true", help="with --forward: each saved z's hash per tile")
     ap.add_argument("--plain", action="store_true",
                     help="each cotangent's error against the closed form and the plain path")
     args = ap.parse_args(argv)
@@ -141,6 +203,11 @@ def main(argv: list[str] | None = None) -> int:
         differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
         print(json.dumps({"bit_identical": not differ, "blocks": len(a), "differ": differ}))
         return 1 if differ else 0
+    if args.compare_whole:
+        a, b = (json.load(open(f)) for f in args.compare_whole)
+        res = compare_whole(a, b)
+        print(json.dumps(res))
+        return 0 if res["whole_bit_identical"] else 1
     import torch
 
     if not torch.cuda.is_available():
@@ -155,7 +222,7 @@ def main(argv: list[str] | None = None) -> int:
                           "chain": chain}), flush=True)
         return 0
     if args.forward:
-        print(json.dumps(forward_hashes(torch, dev, tuple(args.batch or (512, 5376)))), flush=True)
+        print(json.dumps(forward_hashes(torch, dev, tuple(args.batch or (512, 5376)), tiles=args.tiles)), flush=True)
     else:
         print(json.dumps(hashes(torch, dev, (args.batch or [512])[0])), flush=True)
     return 0

@@ -1,12 +1,17 @@
 """Where the time of the forward kernels goes, shape by shape.
 
     python3 -m cindm_tpu_torch.tools.forward_profile [--batch 5376] [--reps 20] [--design]
+        [--saving-batch 512]
 
 Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
 16 block shapes of the flagship denoiser (TemporalUnet1D(24, 8, dim 64)) and
 the head's Conv1d+GN+Mish kernel, at one batch (the flagship's folded 5,376
 by default) on seeded random inputs, and beside each its stage plan (N tile,
-tiles, persistent CTAs) and, where the checkout's library has the C entry
+tiles, persistent CTAs; ``split``: each stage launch's items, split items
+and most parts of a tile, 0 and 1 in a checkout without the split;
+``stage_device_ms``: each stage launch's device ms from torch.profiler)
+and,
+where the checkout's library has the C entry
 ``cindm_stage_weights``, the ms of its weight-layout launches alone
 (``stage_weights_ms``). Where the checkout keeps the staged layouts
 (``_build.staged``), ``ms`` is a call on kept layouts (as sampling calls
@@ -20,6 +25,12 @@ With ``--design`` it also runs ``cli.design_1d`` once at the flagship
 geometry (B 64, 8 bodies, n_composed 2, standard-recurrence-10) on a 20-step
 schedule from those weights and gives pair-window denoiser forwards per
 second (reverse steps x 10 x 3 windows x 28 pairs x B over its seconds).
+
+With ``--saving-batch`` it also times the autograd Functions' forward (the
+kernels' saving instance) of the 16 blocks and of the head at that batch
+(the training batch, 512, where a stage runs 16 or 32 cluster items):
+device ms a pass from torch.profiler (the stage kernels' summed time, the
+median of ``reps`` traced passes) beside CUDA-event ms.
 
 Prints one JSON line, then the nvidia-smi name and power limit line. It
 runs against the package it is imported from, so a copy of this file in
@@ -37,7 +48,7 @@ import sys
 import tempfile
 import time
 
-from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, K, RTB_SHAPES
+from cindm_tpu_torch.tools.backward_profile import HEAD_SHAPE, K, RTB_SHAPES, block_inputs
 
 DESIGN_ARGS = ["--batch_size", "64", "--compose_n_bodies", "8", "--n_composed", "2",
                "--compose_start_step", "4", "--design_guidance", "standard-recurrence-10"]
@@ -113,7 +124,72 @@ def design_rate(torch, dev, model) -> dict:
     return {"design_seconds": seconds, "pair_window_fwds_per_s": fwds / seconds}
 
 
-def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False) -> dict:
+def stage_device_ms(torch, fn, reps: int = 5) -> list[float] | str:
+    """Device ms of each stage launch one call of ``fn`` makes, in launch
+    order (torch.profiler, median over ``reps`` traced calls)."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    per = []
+    for _ in range(reps):
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "conv_gn_mish_stage" in e.name), key=lambda e: e.time_range.start)
+        per.append([e.time_range.elapsed_us() / 1e3 for e in ev])
+    n = max(len(p) for p in per)
+    if n == 0:
+        return "not measured (no device events)"
+    return [statistics.median(p[i] for p in per if len(p) == n) for i in range(n)]
+
+
+def saving_forward(torch, dev, batch: int = 512, reps: int = 20) -> dict:
+    """The saving instance's forward of the 16 blocks (and of the head) at
+    ``batch``: device ms a pass of the stage kernels (torch.profiler,
+    median pass) and CUDA-event ms."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
+    from cindm_tpu_torch.ops.fused_rtb import _fused_rtb
+
+    g = torch.Generator(device=dev).manual_seed(512)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    blocks, head = [], None
+    for i, (C, O, T) in enumerate(RTB_SHAPES + [HEAD_SHAPE]):
+        x, p, _ = block_inputs(torch, g, C, O, T, batch, dev, i == len(RTB_SHAPES))
+        if i == len(RTB_SHAPES):
+            head = [x, p["w1"], p["b1"], p["gs1"], p["gb1"]]
+        else:
+            blocks.append([x if n == "x" else p.get(n) for n in names])
+    out = {"batch": batch}
+    with torch.no_grad():
+        for key, fn in (("blocks", lambda: [_fused_rtb(*a, 8, 1e-5, save=True) for a in blocks]),
+                        ("head", lambda: _conv_gn_mish(*head, 8, 1e-5, save=True))):
+            fn()
+            torch.cuda.synchronize()
+            passes, launches = [], 0
+            for _ in range(reps):
+                with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "conv_gn_mish_stage" in e.name]
+                passes.append(sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+                launches = max(launches, len(ev))
+            out[f"{key}_device_ms"] = statistics.median(passes) if launches else "not measured (no device events)"
+            out[f"{key}_stage_launches"] = launches
+            out[f"{key}_events_ms"] = events_ms(torch, fn, reps)
+    return out
+
+
+def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
+            saving_batch: int | None = None) -> dict:
     from cindm_tpu_torch.models import TemporalUnet1D
     from cindm_tpu_torch.ops import _build, fused_conv1d_gn_mish, fused_rtb
 
@@ -146,7 +222,12 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False)
                          "staged_launches": staged0 if cache is not None else None, "n_tile": plan.n_tile,
                          "tiles": plan.grid[0] * plan.grid[1], "ctas": getattr(plan, "ctas", None),
                          "cluster": getattr(plan, "cluster", None),
-                         "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps)})
+                         # each stage launch's (items, split items, most parts of a tile)
+                         "split": [[p.items, getattr(p, "tail", 0), getattr(p, "max_parts", 1)]
+                                   for p in ([plan] if head else
+                                             [plan, _build.plan_stage(batch, T, O, O, 8, num_sms=sms)])],
+                         "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps),
+                         "stage_device_ms": stage_device_ms(torch, call)})
             del x, p
         model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
         xd = torch.randn((batch, 24, 8), generator=g, device=dev)
@@ -162,6 +243,8 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False)
     out["fused_rtb_stage_weights_ms"] = None if None in sw else sum(sw)
     if design:
         out.update(design_rate(torch, dev, model))
+    if saving_batch:
+        out["saving_forward"] = saving_forward(torch, dev, saving_batch, reps)
     return out
 
 
@@ -170,6 +253,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--batch", type=int, default=5376)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--design", action="store_true", help="also time one flagship design run")
+    ap.add_argument("--saving-batch", type=int, default=None,
+                    help="also time the saving forward of the 16 blocks and the head at this batch")
     args = ap.parse_args(argv)
     import torch
 
@@ -179,7 +264,7 @@ def main(argv: list[str] | None = None) -> int:
     from cindm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")  # TF32 off, as every entry point of the port sets it
-    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design)), flush=True)
+    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0

@@ -19,8 +19,15 @@ occur exactly once in its source (``patched``). Variants:
               planes are not written; the consumers read what lies there)
     nomcast   clusters of one CTA: each CTA copies its own weight blocks
               (the plan's cluster 1, as the C side then recomputes it)
+    wholetiles  not a cut: no split tail, every item whole, round robin
+              over the clusters (the walk before the split; its time and
+              result are real)
     noepi     a tile's consumers stop once its accumulator is final (no
-              bias, GroupNorm statistics, Mish or output)
+              bias, GroupNorm statistics, Mish or output; a split tile's
+              parts still store, count in and sum)
+    nofixup   a split tile's parts neither store, count in nor sum: part 0
+              runs the epilogue on its own partial sums, the others stop
+              (what the split's walk gives without its fixup)
     nostats   no GroupNorm statistics (the rows' and the pairs' sums and
               their four barriers)
     nofinal   no normalise/Mish/store pass
@@ -71,6 +78,8 @@ _STATS = """    row_group_sums<NT, false>(acc, tr, sb, og, gpt, stats, psum);
     pair_stats<true>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, rstd_out, out0);
     consumer_sync();  // rstd is in
 """
+_FINISH = "  if (parts_of(p.tag) > 1 && !finish_split<NT>(a, p.tag, f.rank, a.B > rt * a.samples, flag, acc)) return;\n"
+_STORED = "  consumer_sync();  // every consumer's partial sums are stored\n"
 RING, STAGE = "stage_ring.cuh", "conv_gn_mish.cuh"
 # variant: [(source, pattern, replacement)]
 VARIANTS = {
@@ -80,8 +89,11 @@ VARIANTS = {
     "nosplit": [(RING, _SPLIT, "    for (int i = kUnits + t; i < kUnits; ++i) {")],
     "nomcast": [(STAGE, "stage_cluster(int row_tiles) { return row_tiles > 1 ? 2 : 1; }",
                  "stage_cluster(int row_tiles) { return row_tiles > 0 ? 1 : 1; }")],
-    "noepi": [(STAGE, '  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));\n',
-               '  if (a.eps > 0.f) return;\n  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));\n')],
+    "wholetiles": [(STAGE, "constexpr bool kSplitTail = true;", "constexpr bool kSplitTail = false;")],
+    "noepi": [(STAGE, _FINISH, _FINISH + "  if (a.eps > 0.f) return;\n")],
+    "nofixup": [(STAGE, _STORED, "  if (a.eps > 0.f) return part == 0;\n" + _STORED),
+                (STAGE, "#pragma unroll\n  for (int u = 0; u < kUnits; ++u)\n    __stcg(",
+                 "#pragma unroll\n  for (int u = 0; u < kUnits && a.eps < 0.f; ++u)\n    __stcg(")],
     "nostats": [(STAGE, _STATS, "")],
     "nofinal": [(STAGE, "  for (int j = 0; j < NT / 8; j += 2) {\n    float2 v[2][2];",
                  "  for (int j = 0; j < NT / 8 && a.eps < 0.f; j += 2) {\n    float2 v[2][2];")],
@@ -94,7 +106,8 @@ VARIANTS = {
     "rega64": [(STAGE, "constexpr bool kDescA = KW == 3;", "constexpr bool kDescA = KW == 3 && NT == 128;"),
                (STAGE, "if (a.T == 3) {  // kDescA", "if (a.T == 3 && nt == 128) {  // kDescA")],
 }
-CLUSTER = {"nomcast": 1}  # the plan's cluster size where a variant changes it
+# the plan's arguments where a variant changes them: its cluster size, no split
+PLAN = {"nomcast": dict(cluster=1), "wholetiles": dict(split=False)}
 # (C, O, T) of the flagship's stages: T = 3, 6, 12, 24 and the head
 SHAPES = [(512, 512, 3), (1024, 512, 3), (512, 256, 3), (256, 256, 6), (128, 128, 12), (64, 64, 24)]
 BATCH = 5376
@@ -159,21 +172,26 @@ def main(argv: list[str]) -> int:
             out = torch.empty((BATCH, T, O), device=dev)
             plan = _build.plan_stage(BATCH, T, C, O, 8, num_sms=_build.num_sms(dev))
             row = {"C": C, "O": O, "T": T, "B": BATCH, "n_tile": plan.n_tile, "tiles": plan.tiles,
-                   "ctas": plan.ctas, "cluster": plan.cluster}
+                   "ctas": plan.ctas, "cluster": plan.cluster, "items": plan.items, "split_items": plan.tail,
+                   "max_parts": plan.max_parts}
             for n, lib in fns.items():
-                cs = CLUSTER.get(n, plan.cluster)
-                ctas = plan.ctas if cs == plan.cluster else min(plan.tiles, _build.num_sms(dev))
+                vplan = _build.plan_stage(BATCH, T, C, O, 8, num_sms=_build.num_sms(dev), **PLAN.get(n, {}))
                 ws = _build.scratch(plan.weight_bytes(C), dev)  # w as this copy lays it out
                 err = lib.cindm_stage_weights(w.data_ptr(), 5, C, O, plan.n_tile, ws.data_ptr(), stream)
                 if err:
                     raise RuntimeError(f"{n}: stage_weights: cudaError_t {err}")
+                work = _build.scratch(max(vplan.work_bytes, 16), dev)
+                counters = torch.zeros(max(vplan.counters, 1), dtype=torch.int32, device=dev)
+                launch = _build.stage_launch(vplan, work, counters)
 
-                def call(fn=lib.cindm_fused_conv1d_gn_mish, cs=cs, ctas=ctas, ws=ws):
+                def call(fn=lib.cindm_fused_conv1d_gn_mish, launch=launch, ws=ws):
                     err = fn(*(t.data_ptr() for t in (x, ws, b, gs, gb, out)), BATCH, T, C, O, 5, 8, 1e-5,
-                             plan.samples, plan.n_tile, ctas, cs, plan.smem_bytes, stream)
+                             ctypes.byref(launch), stream)
                     if err:
                         raise RuntimeError(f"{n}: cudaError_t {err}")
                 row[n + "_ms"] = ms_per_call(call)
+                if int(counters.abs().sum()):
+                    raise RuntimeError(f"{n}: the split tiles' counters are not back at 0")
             print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

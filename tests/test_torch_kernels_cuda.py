@@ -150,14 +150,35 @@ def test_saved_z_follows_the_emulated_ring_order(dev, C, O, T, B):
     a = _args(C, O, B, T, dev, seed=3 * C + O + T)
     names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
     got = _fused_rtb(*[a.get(n) for n in names], 8, 1e-5, save=True)
-    nt = _build.plan_stage(B, T, C, O, 8, num_sms=_build.num_sms(dev)).n_tile
-    out, h, z1, z2, _ = block_emulated({k: v.cpu().numpy() for k, v in a.items()}, nt)
+    plans = [_build.plan_stage(B, T, c, O, 8, num_sms=_build.num_sms(dev)) for c in (C, O)]
+    out, h, z1, z2, _ = block_emulated({k: v.cpu().numpy() for k, v in a.items()}, plans[0].n_tile, plans=plans)
     for name, want, have in (("z1", z1, got[2]), ("z2", z2, got[3])):
         err = float(np.abs(have.cpu().numpy() - want).max())
         assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
     for want, have in ((h, got[1]), (out, got[0])):  # after GroupNorm: the kernels' own limit
         torch.testing.assert_close(have.cpu(), torch.from_numpy(want), **TOL)
 
+
+
+@pytest.mark.parametrize("B", [5376, 5000, 512])
+@pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (512, 256, 6), (64, 128, 12), (64, 64, 24)],
+                         ids=lambda v: str(v))
+def test_split_tail_matches_plain_in_both_instances(dev, C, O, T, B):
+    """A launch whose last, partial wave of tiles is split by K chunks over
+    every cluster: the plain and the saving instance against their plain
+    versions, two runs the same bits, the split tiles' counters back at 0."""
+    plans = [_build.plan_stage(B, T, c, O, 8, num_sms=_build.num_sms(dev)) for c in (C, O)]
+    assert any(p.max_parts > 1 for p in plans)
+    a = _args(C, O, B, T, dev, seed=C + O + T + B)
+    names = ["x", "temb", "w1", "b1", "gs1", "gb1", "w2", "b2", "gs2", "gb2", "wres", "bres"]
+    args = [a.get(n) for n in names]
+    torch.testing.assert_close(fused_rtb(**a), fused_rtb_reference(**a), **TOL)
+    got = _fused_rtb(*args, 8, 1e-5, save=True)
+    for have, want in zip(got, fused_rtb_forward_saving_reference(*args)):
+        torch.testing.assert_close(have, want, **TOL)
+    assert all(torch.equal(x, y) for x, y in zip(got, _fused_rtb(*args, 8, 1e-5, save=True)))
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in _build.stage_work.counters())
 
 
 @pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (64, 128, 12), (64, 64, 24), (48, 96, 12)],

@@ -265,3 +265,17 @@ def test_wgrad_partials_at_the_training_batch():
     assert total <= 150e6
     head = _build.plan_backward(512, 24, 64, 64, 8, proj=False, rtb=False)
     assert head.splits[0] > 1 and head.wpart_bytes <= 8e6
+
+
+@pytest.mark.parametrize("B", [512, 5000, 5376])
+def test_wgrad_runs_stay_within_the_row_limit(B):
+    """No weight gradient sums more than WG_MAX_RUN_ROWS rows in one run: at
+    batch 5,376 the 256 -> 128 (T = 12) block's dwres once ran all 64,512
+    rows in one accumulator and ended 4.7e-4 of its largest entry from the
+    float64 plain path (on an H100); at 512 only that job splits for it."""
+    for C, O, T in RTB_SHAPES:
+        plan = _build.plan_backward(B, T, C, O, 8, proj=C != O)
+        rows = _build.wgrad_stage_rows(T)
+        assert all(sps * rows <= _build.WG_MAX_RUN_ROWS for sps in plan.sps), (C, O, T, plan.sps)
+        if B == 512 and (C, O, T) == (256, 128, 12):
+            assert plan.splits[2] == 2 and plan.sps[2] * rows == 3072

@@ -31,7 +31,14 @@ Mish's closed form as the kernel takes it; the 1x1 projection's product P
 (its own accumulation from zero, in the conv's tile rows) added as
 (Mish(y) + P) + bres. The accumulators (``parts``: the conv's, then the
 projection's) are returned in natural row order, live rows only, so that
-orders with different tile layouts compare."""
+orders with different tile layouts compare.
+
+Given a stage plan (``_build.plan_stage``), the split tail's tiles run as
+the plan's parts: each part accumulates its chunks [c0, c1) from zero, and
+the tile's conv accumulator is the parts' sum in part order
+(``SplitTile``: finish_split's workspace and counter, in which the last
+part to arrive sums them); the projection runs whole, as in a tile's first
+part."""
 
 import numpy as np
 
@@ -108,13 +115,14 @@ def desc_rows(planes, row, ch, pitch):
     return [pl[idx] for pl in planes]
 
 
-def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
+def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1, chunks=None):
     """One part of K for one tile into a [192, nt] accumulator (tile rows):
     src [R, Cin] the part's input, wk [taps, Cin, nt] the N tile's weights
     (channels past O zero), ``rows`` the conv's ``fwd_tile_rows`` (the
     projection, taps = 1, runs in the conv's registers: its rows are the
     conv's, position-major at T = 3). The ring's slots (``order="ring"``)
-    or the earlier loop's chunks (``"chunks"``)."""
+    or the earlier loop's chunks (``"chunks"``); ``chunks`` = (c0, c1): a
+    split tile's part, its chunks c0 .. c1 - 1 only (default all)."""
     r, live, ok, klo, KW = rows
     cin = src.shape[1]
     nch = -(-cin // 8)
@@ -126,7 +134,8 @@ def ring_gemm(src, wk, row0, nrows, rows, nt, taps, order="ring", T=1):
     desc = taps == 1 or KW < K  # A by descriptor: the projection, the conv at T = 3
     acc = np.zeros((ROWS, nt), np.float32)
     cols = np.arange(8)[None, :]
-    for c in range(0, nch, ch_slot):  # a ring slot
+    c0, c1 = chunks or (0, nch)
+    for c in range(c0, min(c1, nch), ch_slot):  # a ring slot
         if order == "ring":
             planes = split_box(tma_box(src, box_rows(row0, T, ROWS // T, KW < K), 8 * c, pitch))
         for ch in range(min(ch_slot, nch - c)):
@@ -205,13 +214,50 @@ def tile_stats(zt, ns, T, og, gpt, eps):
     return mean, (np.float32(1.0) / np.sqrt(var + np.float32(eps))).astype(np.float32)
 
 
+class SplitTile:
+    """finish_split of conv_gn_mish.cuh for one split tile of ``parts``
+    parts, on numpy: the tile's workspace slots and arrival counter. A part
+    stores its partial sums in its slot and counts itself in; the one that
+    finds the counter at parts - 1 is last: it resets the counter to 0 and
+    sums the slots in part order (part 0's own accumulator where it is part
+    0, equal to its slot), the others get None."""
+
+    def __init__(self, parts):
+        self.slots = [None] * parts
+        self.counter = 0
+
+    def arrive(self, part, acc):
+        self.slots[part] = np.array(acc, np.float32)
+        old, self.counter = self.counter, self.counter + 1
+        if old != len(self.slots) - 1:
+            return None
+        self.counter = 0
+        total = np.array(acc if part == 0 else self.slots[0], np.float32)
+        for q in range(1, len(self.slots)):
+            total = (total + self.slots[q]).astype(np.float32)
+        return total
+
+
+def split_sum(partials, arrival=None):
+    """The accumulator a split tile's finisher sums from ``partials`` (in
+    part order) when the parts arrive in ``arrival`` (default part order)."""
+    tile = SplitTile(len(partials))
+    done = [tile.arrive(q, partials[q]) for q in (arrival or range(len(partials)))]
+    finished = [d for d in done if d is not None]
+    assert len(finished) == 1 and done[-1] is not None and tile.counter == 0
+    return finished[0]
+
+
 def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wres=None, bres=None,
-                   order="ring"):
+                   order="ring", plan=None):
     """One launch of the stage over x [B, T, C], w [5, C, O]: (out, z, mean,
     rstd, parts), ``parts`` the accumulators of every tile and part (conv,
     then the projection's), natural rows of the live samples,
     row tile by row tile. ``temb`` adds after Mish; ``xres`` alone is the
-    identity residual, with ``wres`` and ``bres`` the projection's input."""
+    identity residual, with ``wres`` and ``bres`` the projection's input.
+    ``plan``: the launch's stage plan, whose split tail's tiles run as its
+    parts (the conv accumulator their sum in part order); None: every tile
+    whole."""
     B, T, C = x.shape
     O = w.shape[2]
     og = O // G
@@ -232,7 +278,12 @@ def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wre
             gpt = ncols // og
             wk = np.zeros((K, C, nt), np.float32)
             wk[..., :ncols] = w[..., n0:n0 + ncols]
-            acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order, T)
+            item = rt // plan.cluster * plan.grid[1] + n0 // nt if plan else 0
+            ranges = plan.item_parts(item) if plan else [None]
+            acc = ring_gemm(x2, wk, row0, nrows, rows, nt, K, order, T, ranges[0])
+            if len(ranges) > 1:
+                acc = split_sum([acc] + [ring_gemm(x2, wk, row0, nrows, rows, nt, K, order, T, c)
+                                         for c in ranges[1:]])
             tile = np.zeros((nrows, nt), np.float32)
             tile[live_r] = acc[rows[1]]
             parts.append(tile)
@@ -264,11 +315,12 @@ def stage_emulated(x, w, b, gs, gb, nt, G=8, eps=1e-5, temb=None, xres=None, wre
     return out.reshape(B, T, O), z.reshape(B, T, O), mean, rstd, parts
 
 
-def block_emulated(a, nt, order="ring"):
+def block_emulated(a, nt, order="ring", plans=(None, None)):
     """The fused ResidualTemporalBlock as its two stage launches compute it:
-    (out, h, z1, z2, parts of both launches)."""
+    (out, h, z1, z2, parts of both launches); ``plans``: each launch's plan
+    (its split tail's tiles run as parts), or None (every tile whole)."""
     h, z1, _, _, p1 = stage_emulated(a["x"], a["w1"], a["b1"], a["gs1"], a["gb1"], nt, temb=a["temb"],
-                                     order=order)
+                                     order=order, plan=plans[0])
     out, z2, _, _, p2 = stage_emulated(h, a["w2"], a["b2"], a["gs2"], a["gb2"], nt, xres=a["x"],
-                                       wres=a.get("wres"), bres=a.get("bres"), order=order)
+                                       wres=a.get("wres"), bres=a.get("bres"), order=order, plan=plans[1])
     return out, h, z1, z2, p1 + p2
