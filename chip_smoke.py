@@ -36,9 +36,10 @@ after a ``torch.cuda.synchronize()``:
              cores (``bound_ms``) and the kernels' own 3xTF32 on the tensor
              cores (``bound_tc_ms``: 3 x FLOP at 495 TFLOP/s); each row
              also its stage plan (N tile, tiles, persistent CTAs, waves
-             over the SMs) and its weights' layout (``stage_weights``, one
-             launch a weight version and N tile, kept by
-             ``_build.staged``): bit for bit its plain version's, its ms
+             over the SMs) and its weights' layout (``stage_weights``,
+             one launch for a call's weights, kept per weight version and
+             N tile by ``_build.staged``) at its N tile and at the
+             training batch's: bit for bit its plain version's, its ms
              and the plain version's, the bytes it moves. At each of the
              three batches, whose stages split their last, partial wave of
              tiles by K chunks over every cluster (a line ``stage_split``
@@ -63,7 +64,8 @@ after a ``torch.cuda.synchronize()``:
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot;
-             each weight laid out once per N tile (``staging``).
+             each weight laid out once per N tile, a kernel call's in one
+             launch (``staging``: 17 launches for 43 layouts an N tile).
 6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
              saving forward, the backward kernel on what it saved) and the
              head's against plain autograd at batch 512 (entries beyond
@@ -103,7 +105,8 @@ after a ``torch.cuda.synchronize()``:
              ``grad_reduce``'s inside the backwards among them (17 a step,
              ``_build.launch_backward.reduce_launches``); after each run's
              last optimizer step every block of the trained model, kernel
-             against plain on the updated weights (each laid out anew).
+             against plain on the updated weights (each laid out anew); the
+             layouts, one launch a kernel call (17 a step, 43 layouts).
 8. analysis: ``cindm_tpu_torch.cli.analysis_1d`` twice, on snapshots of
              seeded random weights at full width: the multibody strategies
              (8 bodies, the 2-body prior and a 1-body prior, batch 16, 16
@@ -201,8 +204,9 @@ after a ``torch.cuda.synchronize()``:
              ``launches_multigpu_ranks`` (phase 19 (b), per rank)), and an
              entry of its own for ``grad_reduce`` (its launches inside the
              train phase's backwards, its standalone check's numbers) and
-             one for ``stage_weights`` (its launches in the design and train
-             phases, the layout's ms, plain ms and bytes bound), the
+             one for ``stage_weights`` (its launches and layouts per path,
+             the layout's ms, plain ms and bytes bound at both batches' N
+             tiles), the
              nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -459,36 +463,55 @@ def rand_block_params(torch, g, C, O, dev, proj: bool):
     return p
 
 
-def stage_fields(torch, dev, weights, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+def stage_fields(torch, dev, weights, C: int, O: int, T: int, batch: int, cuda: bool,
+                 layout_batches: tuple[int, ...] = ()) -> dict:
     """The plan of a row's stage launches (N tile, tiles, persistent CTAs,
-    waves of tiles over the SMs) and, on CUDA, its weights' layout
-    (``weights``: its [K, C_in, O] weights in launch order) by the
-    stage_weights kernel against ``stage_weights_reference`` (bit for bit),
-    the ms of the kernel's launches alone and of the plain version (CUDA
-    events), and the bytes they must move (w read, the planes written). The
-    wrappers lay the weights out once per version and N tile, not per call."""
+    waves of tiles over the SMs) and its weights' layout (``weights``: its
+    [K, C_in, O] weights in launch order; ``layout_fields``) at the plan's N
+    tile and, under ``layout_<batch>``, at the N tile of each of
+    ``layout_batches``. The wrappers lay a call's weights out once per
+    version and N tile, not per call."""
     from cindm_tpu_torch.ops import _build
-    from cindm_tpu_torch.tools.forward_profile import stage_weights_ms
 
     sms = _build.num_sms(dev) if cuda else _build.H100_SMS
     plan = _build.plan_stage(batch, T, C, O, 8, num_sms=sms)
     out = dict(n_tile=plan.n_tile, tiles=plan.tiles, ctas=plan.ctas, cluster=plan.cluster,
-               waves=plan.items / (sms // plan.cluster), stage_weights_ms=None, stage_weights_plain_ms=None,
-               stage_weights_bytes=sum(4 * w.numel() + _build.staged_weight_bytes(plan.n_tile, w.shape[1], O,
-                                                                                 w.shape[0]) for w in weights),
-               stage_weights_equal=None)
-    if cuda:
-        nt = plan.n_tile
-        out["stage_weights_ms"] = stage_weights_ms(torch, _build, _build.load(), plan, weights, O, dev, 10)
-        out["stage_weights_plain_ms"] = event_ms(
-            torch, lambda: [_build.stage_weights_reference(w, nt) for w in weights], 5)
-        stage = _build.WeightStage()
-        out["stage_weights_equal"] = all(
-            bool(torch.equal(stage(w, nt), _build.stage_weights_reference(w, nt))) for w in weights)
+               waves=plan.items / (sms // plan.cluster), **layout_fields(torch, dev, weights, plan, cuda))
+    for b in layout_batches:
+        out[f"layout_{b}"] = layout_fields(torch, dev, weights, _build.plan_stage(b, T, C, O, 8, num_sms=sms), cuda)
     return out
 
 
-def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+def layout_fields(torch, dev, weights, plan, cuda: bool) -> dict:
+    """A kernel call's weights laid out for ``plan``'s N tile: the bytes the
+    layout must move (w read, its two planes written) and, on CUDA, the one
+    launch of the stage_weights kernel that lays them out (``_build.staged``'s
+    path; its launches, 1) bit for bit against ``stage_weights_reference``,
+    the ms of that launch alone and of the plain version (CUDA events),
+    and the launch's device ms (torch.profiler)."""
+    from cindm_tpu_torch.ops import _build
+    from cindm_tpu_torch.tools.forward_profile import stage_weights_ms
+
+    nt = plan.n_tile
+    out = dict(stage_weights_n_tile=nt, stage_weights_ms=None, stage_weights_device_ms=None,
+               stage_weights_plain_ms=None,
+               stage_weights_bytes=sum(4 * w.numel() + plan.weight_bytes(w.shape[1], w.shape[0]) for w in weights),
+               stage_weights_equal=None, stage_weights_launches=None)
+    if cuda:
+        out["stage_weights_ms"], out["stage_weights_device_ms"] = stage_weights_ms(
+            torch, _build, _build.load(), plan, weights, dev, 10)
+        out["stage_weights_plain_ms"] = event_ms(
+            torch, lambda: [_build.stage_weights_reference(w, nt) for w in weights], 5)
+        stage = _build.WeightStage()
+        got = stage.many([(w, nt) for w in weights])
+        out["stage_weights_launches"] = stage.launches
+        out["stage_weights_equal"] = all(
+            bool(torch.equal(g, _build.stage_weights_reference(w, nt))) for g, w in zip(got, weights))
+    return out
+
+
+def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool,
+            layout_batches: tuple[int, ...] = ()) -> dict:
     """One fused-RTB shape: kernel against plain, timed beside its bounds."""
     from cindm_tpu_torch.ops import fused_rtb, fused_rtb_reference
 
@@ -508,10 +531,12 @@ def rtb_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> di
     weights = [p["w1"], p["w2"]] + ([p["wres"].view(1, C, O)] if C != O else [])
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
                 repeats_bit_for_bit=repeats, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                **bounds(2 * macs, nbytes), **stage_fields(torch, dev, weights, C, O, T, batch, cuda))
+                **bounds(2 * macs, nbytes),
+                **stage_fields(torch, dev, weights, C, O, T, batch, cuda, layout_batches))
 
 
-def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> dict:
+def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool,
+             layout_batches: tuple[int, ...] = ()) -> dict:
     """One Conv1d+GN+Mish shape: kernel against plain, timed beside its bounds."""
     from cindm_tpu_torch.ops import fused_conv1d_gn_mish, fused_conv1d_gn_mish_reference
 
@@ -529,7 +554,7 @@ def conv_row(torch, g, dev, C: int, O: int, T: int, batch: int, cuda: bool) -> d
     return dict(C=C, O=O, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
                 repeats_bit_for_bit=repeats, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 **bounds(2 * batch * valid_taps(T, K) * C * O, nbytes),
-                **stage_fields(torch, dev, [args[1]], C, O, T, batch, cuda))
+                **stage_fields(torch, dev, [args[1]], C, O, T, batch, cuda, layout_batches))
 
 
 def conv_grad_row(torch, g, dev, C: int, O: int, T: int, batch: int, x_only: bool,
@@ -673,8 +698,9 @@ def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = OD
     from cindm_tpu_torch.ops import _build
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda) for C, O, T in RTB_SHAPES]
-    head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda)]
+    at = (train_batch,) if train_batch else ()  # the layouts also at the training batch's N tiles
+    rtb_rows = [rtb_row(torch, g, dev, C, O, T, batch, cuda, at) for C, O, T in RTB_SHAPES]
+    head_rows = [conv_row(torch, g, dev, *HEAD_SHAPE, batch, cuda, at)]
     for key, b in (("odd", odd_batch), ("train", train_batch)):
         if b:
             for (C, O, T), r in zip(RTB_SHAPES + [HEAD_SHAPE], rtb_rows + head_rows):
@@ -695,13 +721,21 @@ def check_kernels(torch, dev, batch: int, cuda: bool, odd_batch: int | None = OD
                       and e["function_max_rel_err"] <= TOL for e in r.get("split_checks", []))]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version beyond {TOL}: {bad}")
-    bad = [r for r in rtb_rows + head_rows if not r["repeats_bit_for_bit"] or r["stage_weights_equal"] is False
+    bad = [r for r in rtb_rows + head_rows if not r["repeats_bit_for_bit"]
+           or any(f["stage_weights_equal"] is False or f["stage_weights_launches"] not in (None, 1)
+                  for f in layout_rows(r))
            or not all(e["repeats_bit_for_bit"] for e in r.get("split_checks", []))]
     if bad:
-        raise AssertionError(f"a second run differs, or a weight layout from its plain version: {bad}")
+        raise AssertionError(f"a second run differs, or a call's weight layout from its plain version or "
+                             f"not in one launch: {bad}")
     if cuda and not counters_at_zero():
         raise AssertionError("the split tiles' counters are not back at 0 after the kernels phase")
     return {"fused_rtb": rtb_rows, "fused_conv1d_gn_mish": head_rows, "stage_split": splits}
+
+
+def layout_rows(row: dict) -> list[dict]:
+    """A kernel row's weight-layout fields: at its batch's N tile, then at each other batch's."""
+    return [row] + [v for k, v in row.items() if k.startswith("layout_")]
 
 
 def conv_block_shapes(torch, model, *inputs) -> list[tuple[int, int, int]]:
@@ -786,6 +820,7 @@ def reset_counts():
 
     _build.launch_backward.reduce_launches = 0
     _build.staged.launches = 0
+    _build.staged.layouts = 0
     fused_rtb.launches = 0
     fused_conv1d_gn_mish.launches = 0
     fused_rtb_backward.launches = 0
@@ -816,6 +851,14 @@ def staged_launches() -> int:
     from cindm_tpu_torch.ops import _build
 
     return _build.staged.launches
+
+
+def staged_counts() -> dict:
+    """stage_weights' launches and the layouts they made since the last
+    reset_counts (one launch lays out a kernel call's weights)."""
+    from cindm_tpu_torch.ops import _build
+
+    return {"staged_launches": _build.staged.launches, "staged_layouts": _build.staged.layouts}
 
 
 def check_denoiser(torch, dev, batch: int, model, cuda: bool) -> dict:
@@ -913,7 +956,7 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
                 torch.cuda.synchronize()
             runs[name] = {"record": record, "seconds": time.perf_counter() - t0,
                           "strategy_seconds": timings, "launches": read_counts(backwards=True),
-                          "staged_launches": staged_launches()}
+                          **staged_counts()}
     flag = lambda args, k: int(args[args.index(k) + 1])
     T, t_switch = flag(cuts, "--timesteps"), flag(cuts, "--t_switch")
     n, B = flag(multi, "--compose_multibodies"), flag(multi, "--batch_size")
@@ -938,7 +981,7 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
     if failed:
         raise AssertionError(f"analysis phase checks failed: {failed}; runs {runs}")
     return {"runs": runs, "launches": launches, "checks": checks, "cuts": cuts,
-            "staged_launches": sum(r["staged_launches"] for r in runs.values()),
+            **{k: sum(r[k] for r in runs.values()) for k in ("staged_launches", "staged_layouts")},
             "ula_pair_window_fwds": ula_fwds,
             "ula_pair_window_fwds_per_s": ula_fwds / runs["multibody"]["strategy_seconds"]["cf_compose_ULA"]}
 
@@ -999,7 +1042,7 @@ def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN
                     row["seconds_per_iteration"] = timings["design"] / n_design
                 design[f"{method}/{mt}"] = row
     counts = read_counts(backwards=True)
-    staged = staged_launches()
+    staged = staged_counts()
     checks = {
         "losses_finite": all(r["losses_finite"] for r in train.values()),
         "forward_model_loss_falls": train["forward_model"]["loss_last3_mean"]
@@ -1015,7 +1058,7 @@ def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN
         raise AssertionError(f"baselines phase checks failed: {failed}; train {train}; design {design}")
     cuts = {"train_num_steps": steps, "train_num_steps_script": "100,000-200,000",
             "max_design_steps": n_design, "max_design_steps_script": 1000}
-    return {"train": train, "design": design, "launches": counts, "staged_launches": staged, "checks": checks,
+    return {"train": train, "design": design, "launches": counts, **staged, "checks": checks,
             "cuts": cuts, "seconds": time.perf_counter() - t_phase}
 
 
@@ -1025,9 +1068,9 @@ def staging_log(_build):
     offset, shape, N tile) a layout."""
     log, stager = [], _build.staged.stager
 
-    def logged(w, nt):
-        log.append((w.untyped_storage().data_ptr(), w.storage_offset(), tuple(w.shape), nt))
-        return stager(w, nt)
+    def logged(jobs):
+        log.extend((w.untyped_storage().data_ptr(), w.storage_offset(), tuple(w.shape), nt) for w, nt in jobs)
+        return stager(jobs)
 
     _build.staged.stager = logged
     try:
@@ -1043,6 +1086,18 @@ def kernel_weights(model) -> int:
 
     return sum(isinstance(m, Conv1dBlock) or (isinstance(m, ResidualTemporalBlock) and m.residual is not None)
                for m in model.modules())
+
+
+def kernel_calls(model) -> int:
+    """The stage kernel calls of one forward of ``model``, each laying its
+    stale weights out in one launch: one per ResidualTemporalBlock
+    (fused_rtb: w1, w2 and wres) and one per Conv1dBlock outside them
+    (fused_conv1d_gn_mish)."""
+    from cindm_tpu_torch.models.blocks import Conv1dBlock, ResidualTemporalBlock
+
+    rtbs = [m for m in model.modules() if isinstance(m, ResidualTemporalBlock)]
+    inner = {id(c) for r in rtbs for c in r.modules()}
+    return len(rtbs) + sum(isinstance(m, Conv1dBlock) and id(m) not in inner for m in model.modules())
 
 
 def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: bool) -> dict:
@@ -1071,18 +1126,22 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        staging = {"launches": _build.staged.launches, "layouts": len(log), "distinct": len(set(log)),
-                   "weight_tensors": kernel_weights(model)}
+        staging = {"launches": _build.staged.launches, "layouts": _build.staged.layouts,
+                   "logged": len(log), "distinct": len(set(log)), "n_tiles": len({k[-1] for k in log}),
+                   "weight_tensors": kernel_weights(model), "kernel_calls": kernel_calls(model)}
     vals = [record[k] for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"design record is not finite: {record}")
     per_step = {k: v / timesteps for k, v in counts.items()}
     if cuda and per_step != {"fused_rtb": 16.0 * RECURRENCE, "fused_conv1d_gn_mish": 1.0 * RECURRENCE}:
         raise AssertionError(f"expected 160 and 10 launches per reverse step, got {per_step}")
-    # at most one layout per weight tensor and N tile: none made twice
-    if cuda and not (staging["launches"] == staging["layouts"] == staging["distinct"]
-                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"]):
-        raise AssertionError(f"design should lay each weight out once per N tile: {staging}")
+    # at most one layout per weight tensor and N tile: none made twice; a
+    # kernel call's weights in one launch: at most one a call per N tile
+    if cuda and not (staging["layouts"] == staging["logged"] == staging["distinct"]
+                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"]
+                     and 0 < staging["launches"] <= staging["kernel_calls"] * staging["n_tiles"]):
+        raise AssertionError(f"design should lay each weight out once per N tile, a call's in one launch: "
+                             f"{staging}")
     batch = int(design_args[design_args.index("--batch_size") + 1])
     fwds = timesteps * RECURRENCE * N_WINDOWS * N_PAIRS * batch
     return {"record": record, "reverse_steps": timesteps, "seconds": seconds,
@@ -1369,11 +1428,11 @@ def check_trained_blocks(torch, dev, model, batch: int) -> dict:
     """After a training run's last optimizer step: every block of the
     trained model, kernel against plain on the updated weights (a layout
     kept from before the step would not match), and the layouts made anew
-    meanwhile (each weight's, once)."""
+    meanwhile (each weight's, once; each call's in one launch)."""
     from cindm_tpu_torch.ops import _build
 
     g = torch.Generator(device=dev).manual_seed(4321)
-    n0 = _build.staged.launches
+    n0, m0 = _build.staged.launches, _build.staged.layouts
     errs = []
     with torch.no_grad():
         for rtb, T in zip(model.rtbs, rtb_times(model)):
@@ -1384,7 +1443,8 @@ def check_trained_blocks(torch, dev, model, batch: int) -> dict:
         x = torch.randn((batch, model.horizon, head.conv.weight.shape[1]), generator=g, device=dev)
         errs.append(errors(torch, head(x), head(x, use_kernels=False)))
     return {"max_abs_err": max(e[0] for e in errs), "max_rel_err": max(e[1] for e in errs),
-            "restaged": _build.staged.launches - n0, "weight_tensors": kernel_weights(model)}
+            "restaged": _build.staged.layouts - m0, "restaged_launches": _build.staged.launches - n0,
+            "weight_tensors": kernel_weights(model), "kernel_calls": kernel_calls(model)}
 
 
 def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int], cuda: bool) -> dict:
@@ -1417,10 +1477,11 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             seconds = time.perf_counter() - t0
             lines = out.getvalue().strip().splitlines()
             counts, reduce, staged = (read_counts(backwards=True), _build.launch_backward.reduce_launches,
-                                      _build.staged.launches)
+                                      staged_counts())
             fresh = check_trained_blocks(torch, dev, state.model, TRAIN_BATCH) if cuda else None
-            runs.append({"seconds": seconds, "launches": counts,
-                         "staged_launches": staged, "after_last_step": fresh,
+            runs.append({"seconds": seconds, "launches": counts, **staged,
+                         "weight_tensors": kernel_weights(state.model), "kernel_calls": kernel_calls(state.model),
+                         "after_last_step": fresh,
                          "grad_reduce_launches": reduce,
                          "record": json.loads(lines[-1]), "step": state.step,
                          "first_lines": lines[:2], "last_lines": lines[-3:-1]})
@@ -1459,10 +1520,20 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                        "fused_conv1d_gn_mish_backward": n2}
             # every backward of a training step wants the weights: one grad_reduce each
             and first["grad_reduce_launches"] == 17 * n_steps and second["grad_reduce_launches"] == 17 * n2)
-        # the kernels on the weights of the last optimizer step, each laid out anew
+        # the kernels on the weights of the last optimizer step, each laid out
+        # anew, a call's weights in one launch
         checks["after_last_step"] = all(
             r["after_last_step"]["max_abs_err"] <= TOL and r["after_last_step"]["max_rel_err"] <= TOL
-            and r["after_last_step"]["restaged"] == r["after_last_step"]["weight_tensors"] for r in runs)
+            and r["after_last_step"]["restaged"] == r["after_last_step"]["weight_tensors"]
+            and r["after_last_step"]["restaged_launches"] == r["after_last_step"]["kernel_calls"] for r in runs)
+        # each step's first forward lays every weight out anew (the optimizer
+        # changed it), one launch a kernel call: 17 launches and 43 layouts a
+        # step for the flagship
+        checks["staging"] = (
+            first["staged_launches"] == first["kernel_calls"] * n_steps
+            and first["staged_layouts"] == first["weight_tensors"] * n_steps
+            and all(r["staged_layouts"] * r["kernel_calls"] == r["staged_launches"] * r["weight_tensors"]
+                    for r in runs))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train phase checks failed: {failed}; runs {runs}; "
@@ -2259,7 +2330,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
             _, lines = quiet(train_main, base + ["--results_folder", os.path.join(tmp, "one"),
                                                  "--n_devices", "1"])
             train_counts = read_counts(backwards=True)
-            train_staged = staged_launches()
+            train_staged = staged_counts()
         finally:
             torch.backends.cudnn.deterministic = was
         runs = {}
@@ -2273,7 +2344,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                         for k in mp[part])
         record1 = json.loads(lines[-1])
         rec["a_train"] = {"loss_err": loss_err, "param_err": param_err, "losses": lo.tolist(),
-                          "record": record1, "launches": train_counts, "staged_launches": train_staged}
+                          "record": record1, "launches": train_counts, **train_staged}
         checks["a_train_equal"] = (len(lo) == len(lp) == steps and loss_err <= MULTIGPU_EXACT_TOL
                                    and param_err <= MULTIGPU_EXACT_TOL)
         checks["a_group_destroyed"] = not dist.is_initialized()
@@ -2283,7 +2354,7 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                                         str(steps), "--device", str(dev), *design_args,
                                         "--n_devices", "1"])
         design_counts = read_counts(backwards=True)
-        rec["a_design"] = {"record": record, "launches": design_counts, "staged_launches": staged_launches()}
+        rec["a_design"] = {"record": record, "launches": design_counts, **staged_counts()}
         checks["a_design_record"] = (set(record) == DESIGN1D_RECORD_KEYS and all(
             math.isfinite(record[k]) for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")))
         if cuda:
@@ -2507,30 +2578,50 @@ def reduce_entry(alone: dict, train: dict, bprof: dict | str) -> dict:
 def stage_weights_entry(checks: dict, des: dict, train: dict, ana: dict, base: dict, d2d: dict,
                         path2d: dict, multi: dict) -> dict:
     """stage_weights' entry: the weight layout of both stage kernels, one
-    launch a weight version and N tile (``_build.staged``). ``launches``: the
-    design phase's (each weight once); ``launches_train``: the training
-    runs' (each weight once a step, after the optimizer's update); then per
-    later path as the other entries count them (the 2D phases: 0, checked;
-    the multigpu phase: (a), in the smoke's process). ms, plain ms and
-    bytes: one layout of the 16 blocks' and the head's weights at the
-    folded batch's N tiles (phase 3), bit for bit the plain version's."""
+    launch for a kernel call's weights that changed (``_build.staged``).
+    ``launches`` / ``layouts``: the design phase's (each weight once);
+    ``launches_train`` / ``layouts_train``: the training runs' (a call's
+    weights in one launch, each step, after the optimizer's update); then
+    per later path as the other entries count them (the 2D phases: 0,
+    checked; the multigpu phase: (a), in the smoke's process). ms, plain ms,
+    bytes and bound: one layout of the 16 blocks' and the head's weights at
+    the folded batch's N tiles (phase 3), one launch a call, bit for bit the
+    plain version's; ``at_train_batch``: the same at the training batch's
+    N tiles."""
     rows = checks["fused_rtb"] + checks["fused_conv1d_gn_mish"]
-    nbytes = sum(r["stage_weights_bytes"] for r in rows)
     a = multi.get("a_train", {}), multi.get("a_design", {})
+
+    def at(fields: list[dict]) -> dict:
+        nbytes = sum(f["stage_weights_bytes"] for f in fields)
+        device = [f["stage_weights_device_ms"] for f in fields]
+        return {"ms": sum(f["stage_weights_ms"] or 0.0 for f in fields),
+                "device_ms": sum(device) if all(isinstance(v, float) for v in device) else "not measured",
+                "plain_ms": sum(f["stage_weights_plain_ms"] or 0.0 for f in fields),
+                "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes": nbytes,
+                "kernel_launches": sum(f["stage_weights_launches"] or 0 for f in fields),
+                "n_tiles": [f["stage_weights_n_tile"] for f in fields]}
+
+    main = at(rows)
+    train_key = f"layout_{TRAIN_BATCH}"
     return {"name": "stage_weights", "route": "cuda", "source": "cindm_tpu_torch/ops/csrc/conv_gn_mish.cuh",
             "replaces": "none of its own: the weight layout of the ports of cindm_tpu/ops/fused_rtb.py:179 "
                         "and cindm_tpu/ops/fused_conv_gn.py:112",
-            "launches": des["staging"]["launches"],
+            "launches": des["staging"]["launches"], "layouts": des["staging"]["layouts"],
             "launches_train": sum(r["staged_launches"] for r in train["runs"]),
-            "launches_analysis": ana["staged_launches"], "launches_baselines": base["staged_launches"],
+            "layouts_train": sum(r["staged_layouts"] for r in train["runs"]),
+            "launches_analysis": ana["staged_launches"], "layouts_analysis": ana["staged_layouts"],
+            "launches_baselines": base["staged_launches"], "layouts_baselines": base["staged_layouts"],
             "launches_design2d": d2d["launches"]["stage_weights"],
             **{f"launches_{phase}": counts["stage_weights"] for phase, counts in path2d.items()},
             "launches_multigpu": sum(r.get("staged_launches", 0) for r in a),
-            "max_abs_err": 0.0 if all(r["stage_weights_equal"] for r in rows) else float("inf"),
-            "ms": sum(r["stage_weights_ms"] or 0.0 for r in rows),
-            "plain_ms": sum(r["stage_weights_plain_ms"] or 0.0 for r in rows),
-            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes", "library_ms": None,
-            "bytes": nbytes, "design_staging": des["staging"]}
+            "layouts_multigpu": sum(r.get("staged_layouts", 0) for r in a),
+            "max_abs_err": 0.0 if all(f["stage_weights_equal"] for r in rows for f in layout_rows(r))
+            else float("inf"),
+            "ms": main["ms"], "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "bytes": main["bytes"],
+            "at_train_batch": at([r[train_key] for r in rows]) if all(train_key in r for r in rows) else None,
+            "design_staging": des["staging"]}
 
 
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],

@@ -57,8 +57,12 @@ SIGNATURES = {
     "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 6 + [_F] + [_P] * 3,
     "cindm_fused_conv1d_gn_mish_saving": [_P] * 9 + [_I] * 6 + [_F] + [_P] * 2,
     "cindm_stage_launch_size": [],
-    # w, K, C, O, n_tile, out, stream: the stage's weight layout (``staged``)
-    "cindm_stage_weights": [_P] + [_I] * 4 + [_P, _P],
+    # w[], out[], (K, C, O, n_tile)[], jobs, stream: the stage's weight layout
+    # of up to LAYOUT_JOBS tensors of one N tile in one launch (``staged``,
+    # ``layout_args``)
+    "cindm_stage_weights": [_P, _P, _P, _I, _P],
+    # the same arguments: the dgrads' layout (w [K, O, C] flipped) alone
+    "cindm_stage_weights_t": [_P, _P, _P, _I, _P],
     # BackwardArgs*, stream
     "cindm_fused_rtb_backward": [_P, _P],
     # cluster size, int* out: the dgrads' clusters the device runs at once
@@ -977,13 +981,30 @@ def stage_weights_reference(w: torch.Tensor, nt: int) -> torch.Tensor:
     return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32)
 
 
+LAYOUT_JOBS = 3  # weight tensors of one stage_weights launch (kLayoutJobs): a block's w1, w2, wres
+
+
+def layout_args(jobs: list[tuple[torch.Tensor, int]], outs: list[torch.Tensor]) -> tuple:
+    """The arguments but the stream of ``cindm_stage_weights`` for jobs
+    [(w [K, C, O], n_tile)] (at most LAYOUT_JOBS) laid out into ``outs``:
+    the arrays of w's and out's pointers and of (K, C, O, n_tile), and the
+    count."""
+    n = len(jobs)
+    return ((ctypes.c_void_p * n)(*(w.data_ptr() for w, _ in jobs)),
+            (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
+            (ctypes.c_int * (4 * n))(*(d for w, nt in jobs for d in (*w.shape, nt))), n)
+
+
 class WeightStage:
     """The stage kernels' weights laid out by ``cindm_stage_weights`` (tf32
     big and small planes, ``stage_weights_reference`` on the CPU), kept
-    per weight version: ``staged(w, n_tile)`` stages w on its first use, or
-    after it changed, and returns the kept planes otherwise. Sampling never
-    changes the weights, so a design run stages each once per N tile;
-    training restages once a step, after the optimizer's in-place update.
+    per weight version: ``many([(w, n_tile), ...])`` returns the planes of a
+    kernel call's weights, laying out those it has not seen (on their first
+    use, or after they changed) together, in one ``stager`` call, and taking
+    the others from the cache; ``staged(w, n_tile)`` is its one-weight form.
+    Sampling never changes the weights, so a design run stages each once per
+    N tile; training restages once a step, after the optimizer's in-place
+    update: one launch a block (w1, w2 and wres) and one for the head.
 
     An entry is keyed by the tensor that owns w's view chain (its identity),
     w's storage pointer, offset, version counter (``_version``, which every
@@ -994,15 +1015,38 @@ class WeightStage:
     would call ``Tensor.__eq__``). A write that bypasses the version counter
     (through ``.data``) must be followed by ``clear()``, as
     ``parallel.mesh.replicate`` does. ``launches`` counts the layout
-    kernel's launches on CUDA tensors; ``stager`` (w [K, C, O], n_tile) ->
-    planes may be replaced, as the CPU tests do."""
+    kernel's launches on CUDA tensors, ``layouts`` the layouts they made;
+    ``stager`` (jobs [(w [K, C, O], n_tile)] -> their planes) may be
+    replaced, as the CPU tests do."""
 
     def __init__(self, stager=None):
         self.launches = 0
+        self.layouts = 0
         self.stager = stager or self.stage
         self._owners: dict[int, dict] = {}
 
     def __call__(self, w: torch.Tensor, nt: int) -> torch.Tensor:
+        return self.many([(w, nt)])[0]
+
+    def many(self, pairs: list[tuple[torch.Tensor, int]]) -> list[torch.Tensor]:
+        """The planes of each (w, n_tile) of ``pairs`` (a kernel call's
+        weights): the kept ones, and the others laid out together in one
+        ``stager`` call (a weight asked for twice, once)."""
+        keys, stale = [], {}
+        for w, nt in pairs:
+            entries, key = self._entry(w, nt)
+            keys.append((entries, key))
+            if key not in entries:
+                stale[id(entries), key] = (entries, key, w.reshape(1, *w.shape) if w.dim() == 2 else w, nt)
+        if stale:
+            jobs = list(stale.values())
+            for (entries, key, _, _), planes in zip(jobs, self.stager([(w, nt) for *_, w, nt in jobs])):
+                entries[key] = planes
+        return [entries[key] for entries, key in keys]
+
+    def _entry(self, w: torch.Tensor, nt: int) -> tuple[dict, tuple]:
+        """The entries of w's owner and w's key in them; where the key is new,
+        the owner's planes of older versions go (never asked for again)."""
         owner = w if w._base is None else w._base
         base = (w.untyped_storage().data_ptr(), w._version)
         key = (*base, w.storage_offset(), tuple(w.shape), tuple(w.stride()), nt)
@@ -1010,28 +1054,32 @@ class WeightStage:
         if entries is None:
             entries = self._owners[id(owner)] = {}
             weakref.finalize(owner, self._owners.pop, id(owner), None)
-        planes = entries.get(key)
-        if planes is None:
-            for k in [k for k in entries if k[:2] != base]:  # older versions: never asked for again
+        if key not in entries:
+            for k in [k for k in entries if k[:2] != base]:
                 del entries[k]
-            planes = entries[key] = self.stager(w.reshape(1, *w.shape) if w.dim() == 2 else w, nt)
-        return planes
+        return entries, key
 
-    def stage(self, w: torch.Tensor, nt: int) -> torch.Tensor:
-        """w [K, C, O] laid out for N tiles of ``nt``: ``cindm_stage_weights``
-        on a CUDA tensor (counted in ``launches``), the plain version on a CPU
-        one."""
-        if w.device.type == "cpu":
-            return stage_weights_reference(w, nt)
-        if w.device.type != "cuda":
-            raise ValueError(f"stage_weights: unsupported device {w.device}")
-        K, C, O = w.shape
-        check_inputs("stage_weights", w.device, w=(w, (K, C, O)))
-        out = torch.empty(staged_weight_bytes(nt, C, O, K) // 4, dtype=torch.int32, device=w.device)
-        raise_on_error("stage_weights", call_on(w.device, load().cindm_stage_weights, w.data_ptr(), K, C,
-                                                O, nt, out.data_ptr()))
+    def stage(self, jobs: list[tuple[torch.Tensor, int]]) -> list[torch.Tensor]:
+        """jobs [(w [K, C, O], n_tile)] laid out: on CUDA tensors one launch of
+        ``cindm_stage_weights`` (up to LAYOUT_JOBS weights of one N tile, as
+        a kernel call hands them in; counted in ``launches``, its layouts in
+        ``layouts``), each layout a view of one allocation; the plain
+        version on CPU tensors."""
+        device = jobs[0][0].device
+        if device.type == "cpu":
+            return [stage_weights_reference(w, nt) for w, nt in jobs]
+        if device.type != "cuda":
+            raise ValueError(f"stage_weights: unsupported device {device}")
+        if len(jobs) > LAYOUT_JOBS or len({nt for _, nt in jobs}) != 1:
+            raise ValueError(f"stage_weights: one launch lays out up to {LAYOUT_JOBS} weights of one N tile")
+        for w, _ in jobs:
+            check_inputs("stage_weights", device, w=(w, w.shape))
+        sizes = [staged_weight_bytes(nt, w.shape[1], w.shape[2], w.shape[0]) // 4 for w, nt in jobs]
+        outs = torch.empty(sum(sizes), dtype=torch.int32, device=device).split(sizes)
+        raise_on_error("stage_weights", call_on(device, load().cindm_stage_weights, *layout_args(jobs, outs)))
         self.launches += 1
-        return out
+        self.layouts += len(jobs)
+        return list(outs)
 
     def clear(self) -> None:
         """Drop every kept layout (their weights then restage on next use)."""

@@ -300,18 +300,17 @@ int block_backward(const BlockBwdArgs& a, bool rtb, void* stream) {
 
   // 1. the weights of the dgrad stages, flipped and transposed
   char* ws = reinterpret_cast<char*>(a.wstage);
-  StageJobT sj[3] = {};
-  int nsj = 0, sblocks = 0;
+  LayoutJob sj[kLayoutJobs] = {};
+  int nsj = 0;
   auto add_t = [&](const float* w, size_t off, int k, int cs, int os, int nt) {
-    sj[nsj++] = StageJobT{w, reinterpret_cast<uint32_t*>(ws + off), k, cs, os, nt, sblocks};
-    sblocks += stage_t_blocks(k, cs, os, nt);
+    sj[nsj++] = LayoutJob{w, reinterpret_cast<uint32_t*>(ws + off), k, cs, os, nt, 0};
   };
   if (rtb) add_t(a.w2, 0, K, a.O, a.O, a.nt_d2);
   if (want_dx) add_t(a.w1, n_w2, K, a.O, a.C, a.nt_d1);
   if (n_wr) add_t(a.wres, n_w2 + n_w1, 1, a.O, a.C, a.nt_d1);
-  for (int q = nsj; q < 3; ++q) sj[q].block0 = sblocks;  // absent jobs start past the grid
+  const int sblocks = layout_grid(sj, nsj);  // absent jobs start past the grid
   if (nsj > 0) {
-    stage_weights_t<<<sblocks, kStageTThreads, 0, s>>>(sj[0], sj[1], sj[2]);
+    stage_weights_t<<<sblocks, kLayoutThreads, 0, s>>>(sj[0], sj[1], sj[2]);
     CINDM_TRY(cudaGetLastError());
   }
 
@@ -406,6 +405,29 @@ extern "C" int cindm_reduce_args_size() { return static_cast<int>(sizeof(cindm::
 // on `grid` CTAs (the same kernel and checks as the backward's launch).
 extern "C" int cindm_grad_reduce(const cindm::ReduceArgs* a, int grid, void* stream) {
   return launch_reduce(*a, grid, static_cast<cudaStream_t>(stream));
+}
+
+// stage_weights_t alone (the same kernel as the backward's first launch):
+// njobs (1 to 3) weight tensors w[i] [K][O][C] (dims[4 i .. 4 i + 3] = K,
+// C, O, nt) laid out into out[i] (staged_weight_bytes(nt, C, O, K) bytes
+// each) as the dgrads read a conv from C to O, flipped in time.
+extern "C" int cindm_stage_weights_t(const float* const* w, void* const* out, const int* dims, int njobs,
+                                     void* stream) {
+  if (w == nullptr || out == nullptr || dims == nullptr || njobs < 1 || njobs > cindm::kLayoutJobs)
+    return cudaErrorInvalidValue;
+  cindm::LayoutJob jobs[cindm::kLayoutJobs] = {};
+  for (int i = 0; i < njobs; ++i) {
+    const cindm::LayoutJob j{w[i], static_cast<uint32_t*>(out[i]), dims[4 * i], dims[4 * i + 1],
+                             dims[4 * i + 2], dims[4 * i + 3], 0};
+    if (j.w == nullptr || j.out == nullptr || reinterpret_cast<uintptr_t>(j.w) % 16 != 0 || j.K <= 0 ||
+        j.C <= 0 || j.C % 4 != 0 || j.O <= 0 || (j.nt != 64 && j.nt != 128))
+      return cudaErrorInvalidValue;
+    jobs[i] = j;
+  }
+  const int blocks = cindm::layout_grid(jobs, njobs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cindm::stage_weights_t<<<blocks, cindm::kLayoutThreads, 0, s>>>(jobs[0], jobs[1], jobs[2]);
+  return cudaGetLastError();
 }
 
 extern "C" int cindm_fused_rtb_backward(const BlockBwdArgs* a, void* stream) {

@@ -855,50 +855,29 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   cluster_sync();  // no rank leaves while another reads its partial
 }
 
-// One weight layout job of stage_weights_t: w [K][Os][Cs] laid out as the
-// stage reads a conv from Cs to Os channels, flipped in time:
-// staged[k][c][o] = w[K - 1 - k][o][c]. (For w [K][C][O] of a conv C -> O
-// that is the conv O -> C whose forward is the original's dgrad.)
-struct StageJobT {
-  const float* w;
-  uint32_t* out;
-  int K, Cs, Os, nt;
-  int block0;  // the job's first thread block
-};
-
-constexpr int kStageTThreads = 256;
-constexpr int kStageTCols = 8 * kChunk;  // Cs channels of one thread block: 8 chunks
-
-// Thread blocks of one layout job: per N tile, group of 8 chunks and tap.
-inline int stage_t_blocks(int K, int Cs, int Os, int nt) {
-  return (Os + nt - 1) / nt * (((Cs + kChunk - 1) / kChunk + 7) / 8) * K;
-}
-
-// Up to three weight tensors in one launch. A thread block moves one tap of
-// nt rows of w (the staged N tile) x 64 of their channels (8 chunks): it
-// reads the rows along their contiguous axis, 256 bytes a row in 16-byte
-// pieces, into shared memory, and writes the 8 chunks' big and small planes
-// of that tap, each a contiguous run of nt x 8 words (stage_weights's
-// layout). Bounded by bytes: each weight read once, two planes written.
-__global__ void __launch_bounds__(kStageTThreads) stage_weights_t(const StageJobT j0, const StageJobT j1,
-                                                                  const StageJobT j2) {
-  __shared__ __align__(16) float s[128][kStageTCols + 4];  // + 4: conflict-free plane reads
-  const int bx = static_cast<int>(blockIdx.x);
-  StageJobT j = j0;
-  if (bx >= j1.block0) j = bx < j2.block0 ? j1 : j2;
-  const int local = bx - j.block0;
-  const int nchunks = (j.Cs + kChunk - 1) / kChunk;
-  const int ngroups = (nchunks + 7) / 8;
-  const int tap = local % j.K;
-  const int grp = local / j.K % ngroups;
-  const int ntile = local / (j.K * ngroups);
-  const int o0 = ntile * j.nt, c0 = grp * kStageTCols;
-  const float* src = j.w + static_cast<size_t>(j.K - 1 - tap) * j.Os * j.Cs;
-  for (int i = threadIdx.x; i < j.nt * (kStageTCols / 4); i += kStageTThreads) {
-    const int ol = i / (kStageTCols / 4), c4 = 4 * (i % (kStageTCols / 4));
+// Up to three weight layout jobs (LayoutJob, stage_ring.cuh) in one launch,
+// each a w [K][O][C] laid out as the stage reads a conv from C to O
+// channels, flipped in time: staged[k][c][o] = w[K - 1 - k][o][c]. (For w
+// [K][C'][O'] of a conv C' -> O' that is the conv O' -> C' whose forward is
+// the original's dgrad.) A thread block moves one tap of nt rows of w (the
+// staged N tile) x 64 of their channels (8 chunks): it reads the rows along
+// their contiguous axis, 256 bytes a row in 16-byte pieces, into shared
+// memory, and writes the 8 chunks' big and small planes of that tap, each a
+// contiguous run of nt x 8 words (stage_weights's layout). Bounded by
+// bytes: each weight read once, two planes written.
+__global__ void __launch_bounds__(kLayoutThreads) stage_weights_t(const LayoutJob j0, const LayoutJob j1,
+                                                                  const LayoutJob j2) {
+  __shared__ __align__(16) float s[128][kLayoutCols + 4];  // + 4: conflict-free plane reads
+  const LayoutBlock lb = layout_block(j0, j1, j2);
+  const LayoutJob& j = lb.j;
+  const int nchunks = lb.nchunks, tap = lb.tap, grp = lb.grp, ntile = lb.ntile;
+  const int o0 = ntile * j.nt, c0 = grp * kLayoutCols;
+  const float* src = j.w + static_cast<size_t>(j.K - 1 - tap) * j.O * j.C;
+  for (int i = threadIdx.x; i < j.nt * (kLayoutCols / 4); i += kLayoutThreads) {
+    const int ol = i / (kLayoutCols / 4), c4 = 4 * (i % (kLayoutCols / 4));
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (o0 + ol < j.Os && c0 + c4 < j.Cs)  // Cs is a multiple of 4
-      v = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(o0 + ol) * j.Cs + c0 + c4));
+    if (o0 + ol < j.O && c0 + c4 < j.C)  // C is a multiple of 4
+      v = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(o0 + ol) * j.C + c0 + c4));
     *reinterpret_cast<float4*>(&s[ol][c4]) = v;
   }
   __syncthreads();
@@ -908,7 +887,7 @@ __global__ void __launch_bounds__(kStageTThreads) stage_weights_t(const StageJob
   const int nch = min(8, nchunks - grp * 8);
   uint32_t* out = j.out + (static_cast<size_t>(ntile) * nchunks + grp * 8) * block + 2 * tap * plane;
   for (int ch = 0; ch < nch; ++ch, out += block)
-    for (int e = threadIdx.x; e < plane; e += kStageTThreads) {
+    for (int e = threadIdx.x; e < plane; e += kLayoutThreads) {
       const int q = e & 63;
       uint32_t big, small;
       split_tf32(s[(e >> 6) * 8 + ((q & 31) >> 2)][ch * kChunk + (q >> 5) * 4 + (q & 3)], big, small);

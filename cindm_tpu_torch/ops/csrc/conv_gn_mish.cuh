@@ -28,8 +28,9 @@
 // it is in, into tf32 big and small planes (split_tf32, round-to-nearest)
 // in the slot. The weight blocks are the tf32 big/small planes that
 // stage_weights lays out, one contiguous block per (N tile, chunk): its own
-// launch (cindm_stage_weights), which the wrappers run once per weight
-// version and N tile and keep (ops/_build.staged), not on every call. Two
+// launch (cindm_stage_weights, below), one for all of a call's weights
+// that changed, which the wrappers keep per weight version and N tile
+// (ops/_build.staged), not laid out on every call. Two
 // CTAs of a cluster take row tiles 2q and 2q + 1 of the same N tile, and
 // each copies half of a slot's weight blocks into both (multicast), so the
 // weights cross L2 once for two tiles; a slot is refilled once both CTAs'
@@ -303,34 +304,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Lays the weights w [K][C][O] out as the stage reads them, in tf32 big and
-// small planes: for each N tile and chunk of 8 input channels one block of
-// weight_block_bytes(nt, K), contiguous, so that one bulk copy stages it.
-// Within a plane, word q of n8 block n8 is channel n8*8 + (q % 32) / 4 of
-// input q / 32 * 4 + q % 4 (kSboBytes = 64 words per n8 block, kLboBytes =
+// stage_weights: the weights w [K][C][O] of up to three convs (a block's
+// w1, w2 and wres, or the head's w: one LayoutJob each) laid out as the
+// stage reads them, in tf32 big and small planes, for N tiles of NT: for
+// each N tile and chunk of 8 input channels one block of
+// weight_block_bytes(NT, K), contiguous, so that one bulk copy stages it.
+// Within a plane, word e is channel (e / 64) * 8 + (e % 32) / 4 of input
+// (e % 64) / 32 * 4 + e % 4 (kSboBytes = 64 words per n8 block, kLboBytes =
 // 32 words per K half). Channels past C or O are zero.
-__global__ void stage_weights(const float* __restrict__ w, int K, int C, int O, int nt,
-                              uint32_t* __restrict__ out, size_t total) {
+//
+// It replaces no TPU kernel: it is the weight layout of the ports of
+// cindm_tpu/ops/fused_rtb.py:179 and cindm_tpu/ops/fused_conv_gn.py:112,
+// run once per weight version (ops/_build.staged). What bounds it on an
+// H100: bytes. Each weight is read once and two planes of it are written:
+// 226 MB for the denoiser's 16 blocks and head at batch 5,376's N tiles,
+// 0.067 ms at 3.35 TB/s. So the design moves each byte once, in 16-byte
+// pieces, with no more arithmetic a word than the split: a thread block
+// per (job, N tile, group of 8 chunks, tap) reads w[tap][c0 .. c0 + 64][o0
+// .. o0 + NT] along O, its contiguous axis (a float4 a thread, a warp 256
+// or 512 contiguous bytes; O is a multiple of 4 and w 16-byte aligned),
+// into a shared tile [64][NT + 4], zero past C or O. After one barrier it
+// writes, for each of the 8 chunks, the tap's big and small planes, each a
+// contiguous run of NT x 8 words: words e .. e + 3 are four consecutive
+// inputs of one channel, a column of the tile, so a thread reads 4 values,
+// splits each once (split_tf32, round-to-nearest) and stores a uint4 to
+// each plane, a warp 512 contiguous bytes. Tile rows are kLayoutPitch =
+// 132 floats apart, 4 banks: each of a warp's four reads takes 16
+// consecutive channels (16 banks) of two inputs 4 rows (16 banks) apart,
+// 32 distinct banks. One launch for a call's weights (17 for the denoiser,
+// not 43), a grid of exactly the jobs' blocks, and 32-bit index arithmetic
+// (the launch refuses a job of 2^31 words or more).
+constexpr int kLayoutPitch = 128 + 4;
+
+template <int NT>
+__global__ void __launch_bounds__(kLayoutThreads) stage_weights(const LayoutJob j0, const LayoutJob j1,
+                                                                const LayoutJob j2) {
   static_assert(kSboBytes == 256 && kLboBytes == 128, "the indexing below is for dense blocks");
-  const int plane = nt * 8;  // words: nt channels x 8 inputs
-  const size_t block = size_t(2 * K) * plane;
-  const int nchunks = (C + kChunk - 1) / kChunk;
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < total;
-       i += size_t(gridDim.x) * blockDim.x) {
-    const size_t b = i / block;
-    const int rem = static_cast<int>(i - b * block);
-    const int tp = rem / plane, e = rem % plane;  // tp = 2 * tap + (small)
-    const int n8 = e / 64, q = e % 64;
-    const int ntile = static_cast<int>(b / nchunks), chunk = static_cast<int>(b % nchunks);
-    const int o = ntile * nt + n8 * 8 + (q % 32) / 4;
-    const int c = chunk * kChunk + (q / 32) * 4 + q % 4;
-    uint32_t v = 0u;
-    if (o < O && c < C) {
-      uint32_t big, small;
-      split_tf32(w[(static_cast<size_t>(tp / 2) * C + c) * O + o], big, small);
-      v = tp % 2 ? small : big;
-    }
-    out[i] = v;
+  static_assert(NT + 4 <= kLayoutPitch && kLayoutPitch % 32 == 4, "conflict-free plane reads");
+  __shared__ __align__(16) float s[kLayoutCols][kLayoutPitch];
+  const LayoutBlock lb = layout_block(j0, j1, j2);
+  const LayoutJob& j = lb.j;
+  const int o0 = lb.ntile * NT, c0 = lb.grp * kLayoutCols;
+  constexpr int kRow4 = NT / 4;  // float4s of a tile row
+  const float* src = j.w + (lb.tap * j.C + c0) * j.O + o0;
+#pragma unroll
+  for (int k = 0; k < kLayoutCols * kRow4 / kLayoutThreads; ++k) {
+    const int i = threadIdx.x + k * kLayoutThreads, c = i / kRow4, o = 4 * (i % kRow4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c0 + c < j.C && o0 + o < j.O) v = __ldg(reinterpret_cast<const float4*>(src + c * j.O + o));
+    *reinterpret_cast<float4*>(&s[c][o]) = v;
+  }
+  __syncthreads();
+  constexpr int kPlane = NT * 8;     // words of a plane
+  constexpr int kQuads = kPlane / 4;  // its uint4s
+  const int block = 2 * j.K * kPlane;
+  const int nch = min(8, lb.nchunks - lb.grp * 8);
+  uint32_t* out = j.out + (lb.ntile * lb.nchunks + lb.grp * 8) * block + 2 * lb.tap * kPlane;
+  for (int i = threadIdx.x; i < nch * kQuads; i += kLayoutThreads) {
+    const int ch = i / kQuads, e = 4 * (i % kQuads);
+    const int o = (e >> 6) * 8 + ((e & 31) >> 2), c = ch * kChunk + ((e & 63) >> 5) * 4;
+    uint4 big, small;
+    split_tf32(s[c][o], big.x, small.x);
+    split_tf32(s[c + 1][o], big.y, small.y);
+    split_tf32(s[c + 2][o], big.z, small.z);
+    split_tf32(s[c + 3][o], big.w, small.w);
+    uint32_t* dst = out + ch * block + e;
+    *reinterpret_cast<uint4*>(dst) = big;
+    *reinterpret_cast<uint4*>(dst + kPlane) = small;
   }
 }
 
@@ -849,14 +889,28 @@ __global__ void __launch_bounds__(kStageThreads, 1)
   cluster_sync();  // no CTA leaves while its peer may still copy or arrive into it
 }
 
-// Lays w [K][C][O] out for N tiles of nt into `out`
-// (staged_weight_bytes(nt, C, O, K) bytes): cindm_stage_weights, which the
-// wrappers run once per weight version and N tile.
-cudaError_t launch_stage_weights(const float* w, int K, int C, int O, int nt, uint32_t* out,
-                                 cudaStream_t stream) {
-  const size_t total = staged_weight_bytes(nt, C, O, K) / 4;
-  const size_t blocks = (total + 255) / 256;
-  stage_weights<<<blocks < 4096 ? blocks : 4096, 256, 0, stream>>>(w, K, C, O, nt, out, total);
+// stage_weights on n jobs (1 to kLayoutJobs; jobs[n ..] are filled in) of
+// one N tile nt, each job's out staged_weight_bytes(nt, C, O, K) bytes, in
+// one launch: cindm_stage_weights, which the wrappers run for a call's
+// stale weights (ops/_build.staged). Refuses (cudaErrorInvalidValue) a job
+// whose w or out is null or not 16-byte aligned, whose O is not a multiple
+// of 4, whose N tile differs, or whose weights or layout hold 2^31 words or
+// more.
+cudaError_t launch_stage_weights(LayoutJob* jobs, int n, int nt, cudaStream_t stream) {
+  if (n < 1 || n > kLayoutJobs || (nt != 64 && nt != 128)) return cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    const LayoutJob& j = jobs[i];
+    if (j.w == nullptr || j.out == nullptr || reinterpret_cast<uintptr_t>(j.w) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(j.out) % 16 != 0 || j.K <= 0 || j.C <= 0 || j.O <= 0 || j.O % 4 != 0 ||
+        j.nt != nt || static_cast<long long>(j.K) * j.C * j.O >= (1ll << 31) ||
+        staged_weight_bytes(nt, j.C, j.O, j.K) / 4 >= (size_t(1) << 31))
+      return cudaErrorInvalidValue;
+  }
+  const int blocks = layout_grid(jobs, n);
+  if (nt == 64)
+    stage_weights<64><<<blocks, kLayoutThreads, 0, stream>>>(jobs[0], jobs[1], jobs[2]);
+  else
+    stage_weights<128><<<blocks, kLayoutThreads, 0, stream>>>(jobs[0], jobs[1], jobs[2]);
   return cudaGetLastError();
 }
 

@@ -67,16 +67,21 @@ extern "C" int cindm_fused_conv1d_gn_mish_saving(const float* x, const void* ws,
   return conv_gn_mish(x, ws, b, gs, gb, out, z, mean, rstd, B, T, C, O, K, G, eps, s, stream);
 }
 
-// stage_weights: w [K][C][O] laid out for N tiles of nt into `out`
-// (staged_weight_bytes(nt, C, O, K) bytes), as the stage's launches read
-// it: per N tile and chunk of 8 input channels one block of the K taps'
-// tf32 big and small planes. What bounds it: bytes (w read once, twice as
-// many written). The wrappers of both stage kernels call it once per
-// weight version and N tile (ops/_build.staged) and keep the planes.
-extern "C" int cindm_stage_weights(const float* w, int K, int C, int O, int nt, void* out,
+// stage_weights: njobs (1 to 3) weight tensors w[i] [K][C][O] (dims[4 i ..
+// 4 i + 3] = K, C, O, nt, nt the same for all) laid out for N tiles of nt
+// into out[i] (staged_weight_bytes(nt, C, O, K) bytes each), as the
+// stage's launches read them, in one launch: per N tile and chunk of 8
+// input channels one block of the K taps' tf32 big and small planes. What
+// bounds it: bytes (w read once, twice as many written). The wrappers of
+// both stage kernels call it once for a call's weights that changed
+// (ops/_build.staged) and keep the planes.
+extern "C" int cindm_stage_weights(const float* const* w, void* const* out, const int* dims, int njobs,
                                    void* stream) {
-  if ((nt != 64 && nt != 128) || K <= 0 || C <= 0 || O <= 0 || w == nullptr || out == nullptr)
+  if (w == nullptr || out == nullptr || dims == nullptr || njobs < 1 || njobs > cindm::kLayoutJobs)
     return cudaErrorInvalidValue;
-  return cindm::launch_stage_weights(w, K, C, O, nt, static_cast<uint32_t*>(out),
-                                     static_cast<cudaStream_t>(stream));
+  cindm::LayoutJob jobs[cindm::kLayoutJobs] = {};
+  for (int i = 0; i < njobs; ++i)
+    jobs[i] = cindm::LayoutJob{w[i], static_cast<uint32_t*>(out[i]), dims[4 * i], dims[4 * i + 1],
+                               dims[4 * i + 2], dims[4 * i + 3], 0};
+  return cindm::launch_stage_weights(jobs, njobs, dims[3], static_cast<cudaStream_t>(stream));
 }

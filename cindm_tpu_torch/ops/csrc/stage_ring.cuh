@@ -83,6 +83,39 @@ __host__ __device__ constexpr size_t weight_block_bytes(int nt, int k) {
 __host__ __device__ constexpr size_t tile_bytes(int nt) { return size_t(kTileRows) * (nt + 4) * 4; }
 __host__ __device__ constexpr size_t align1024(size_t b) { return (b + 1023) / 1024 * 1024; }
 
+// One job of a weight layout kernel: the weights w (K taps) of a conv from
+// C to O channels laid out for N tiles of nt into `out` as the ring's bulk
+// copies read them, per N tile and chunk of 8 input channels one block of
+// weight_block_bytes(nt, K). stage_weights (the forward's,
+// conv_gn_mish.cuh) reads w [K][C][O]; stage_weights_t (the dgrads',
+// conv_backward.cuh) reads w [K][O][C], flipped in time. A launch takes up
+// to kLayoutJobs jobs, one after another in its grid.
+struct LayoutJob {
+  const float* w;
+  uint32_t* out;
+  int K, C, O, nt;
+  int block0;  // the job's first thread block
+};
+constexpr int kLayoutJobs = 3;
+constexpr int kLayoutThreads = 256;
+constexpr int kLayoutCols = 8 * kChunk;  // input channels of one thread block: 8 chunks
+
+// Thread blocks of one job: one per N tile, group of 8 chunks and tap.
+__host__ __device__ inline int layout_blocks(int K, int C, int O, int nt) {
+  return (O + nt - 1) / nt * (((C + kChunk - 1) / kChunk + 7) / 8) * K;
+}
+
+// Gives each of the n jobs its first thread block, and the absent ones
+// (n .. kLayoutJobs - 1) the first past the grid; returns the grid.
+inline int layout_grid(LayoutJob* jobs, int n) {
+  int blocks = 0;
+  for (int i = 0; i < kLayoutJobs; ++i) {
+    jobs[i].block0 = blocks;
+    if (i < n) blocks += layout_blocks(jobs[i].K, jobs[i].C, jobs[i].O, jobs[i].nt);
+  }
+  return blocks;
+}
+
 // The ring for an N tile of NT channels: Stages slots of SlotBytes, each
 // holding kCh chunks of 8 input channels of one part of K: the tile's 192
 // input rows (kPitch bytes a row, swizzled over kPitch bytes by TMA), with
@@ -147,6 +180,26 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
 __device__ __forceinline__ void split_tf32_fast(float v, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
   small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// A layout kernel's thread block: its job, and the N tile, group of 8
+// chunks and tap of that job it lays out (blockIdx.x - job.block0 =
+// (ntile * groups + grp) * K + tap).
+struct LayoutBlock {
+  LayoutJob j;
+  int nchunks, tap, grp, ntile;
+};
+__device__ __forceinline__ LayoutBlock layout_block(const LayoutJob& j0, const LayoutJob& j1, const LayoutJob& j2) {
+  const int bx = static_cast<int>(blockIdx.x);
+  LayoutBlock b;
+  b.j = bx < j1.block0 ? j0 : bx < j2.block0 ? j1 : j2;
+  const int local = bx - b.j.block0;
+  b.nchunks = (b.j.C + kChunk - 1) / kChunk;
+  const int ngroups = (b.nchunks + 7) / 8;
+  b.tap = local % b.j.K;
+  b.grp = local / b.j.K % ngroups;
+  b.ntile = local / (b.j.K * ngroups);
+  return b;
 }
 
 // An mbarrier whose phase completes after `count` arrivals (and the bytes they expect).

@@ -204,7 +204,7 @@ def _conv_gn_mish(x, w, b, gn_scale, gn_bias, groups, eps, save: bool) -> tuple:
     _build.check_aligned("fused_conv1d_gn_mish", x=x, w=w, b=b, gn_scale=gn_scale, gn_bias=gn_bias)
     plan = _build.plan_stage(B, T, C, O, groups, K, num_sms=_build.num_sms(x.device))
     lib = _build.load()
-    ws = _build.staged(w, plan.n_tile)  # laid out once per weight version and N tile
+    ws, = _build.staged.many([(w, plan.n_tile)])  # laid out once per weight version and N tile
     work = _build.stage_work(x.device, plan)  # the split tail's workspace and counters, kept
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     saved = ()

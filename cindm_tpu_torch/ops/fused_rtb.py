@@ -14,8 +14,9 @@ the first writing h [B, T, O] to device memory once and the second reading
 it, with the 1x1 residual projection inside the second; each launch has its
 own plan, whose last, partial wave of tiles is split by K chunks over every
 cluster (workspace and counters kept by ``_build.stage_work``). The stage reads
-w1, w2 and wres as ``_build.staged`` keeps them laid out (staged once per
-weight version and N tile; ``_build.staged.clear()`` drops them).
+w1, w2 and wres as ``_build.staged`` keeps them laid out (once per weight
+version and N tile, those that changed in one launch;
+``_build.staged.clear()`` drops them).
 ``fused_rtb.launches`` counts calls. CPU tensors use
 ``fused_rtb_reference``.
 
@@ -198,7 +199,9 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
     plans = [_build.plan_stage(B, T, Ci, O, groups, K, num_sms=sms) for Ci in (C, O)]
     lib = _build.load()
     # the weights as the stage reads them, laid out once per version and N tile
-    staged = [None if w is None else _build.staged(w, plans[0].n_tile) for w in (w1, w2, wres)]
+    # (those that changed in one launch)
+    staged = _build.staged.many([(w, plans[0].n_tile) for w in (w1, w2, wres) if w is not None])
+    wress = staged[2] if wres is not None else None
     work = _build.stage_work(x.device, *plans)
     h = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
@@ -207,7 +210,7 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
         saved = tuple(_build.carve(x.device, (B, T, O), (B, T, O), *[(B, groups)] * 4))
     err = _build.call_on(
         x.device, lib.cindm_fused_rtb_saving if save else lib.cindm_fused_rtb,
-        *map(_build.ptr, (x, temb, staged[0], b1, gs1, gb1, staged[1], b2, gs2, gb2, staged[2], bres,
+        *map(_build.ptr, (x, temb, staged[0], b1, gs1, gb1, staged[1], b2, gs2, gb2, wress, bres,
                           h, out, *saved)),
         B, T, C, O, K, groups, eps, *(ctypes.byref(_build.stage_launch(p, *work)) for p in plans),
     )

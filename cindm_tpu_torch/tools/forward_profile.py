@@ -1,7 +1,7 @@
 """Where the time of the forward kernels goes, shape by shape.
 
     python3 -m cindm_tpu_torch.tools.forward_profile [--batch 5376] [--reps 20] [--design]
-        [--saving-batch 512]
+        [--saving-batch 512] [--train-step-batch 512]
 
 Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
 16 block shapes of the flagship denoiser (TemporalUnet1D(24, 8, dim 64)) and
@@ -12,8 +12,10 @@ and most parts of a tile, 0 and 1 in a checkout without the split;
 ``stage_device_ms``: each stage launch's device ms from torch.profiler)
 and,
 where the checkout's library has the C entry
-``cindm_stage_weights``, the ms of its weight-layout launches alone
-(``stage_weights_ms``). Where the checkout keeps the staged layouts
+``cindm_stage_weights``, the ms of its weight-layout launch alone (a
+call's weights in one launch; ``stage_weights_ms`` beside the rows: the
+16 blocks' and the head's; ``stage_weights_device_ms`` their device time
+from torch.profiler). Where the checkout keeps the staged layouts
 (``_build.staged``), ``ms`` is a call on kept layouts (as sampling calls
 it), ``ms_restaged`` a call that lays its weights out anew (as the first
 call after an optimizer step does), and ``staged_launches`` the layout
@@ -25,6 +27,10 @@ With ``--design`` it also runs ``cli.design_1d`` once at the flagship
 geometry (B 64, 8 bodies, n_composed 2, standard-recurrence-10) on a 20-step
 schedule from those weights and gives pair-window denoiser forwards per
 second (reverse steps x 10 x 3 windows x 28 pairs x B over its seconds).
+
+With ``--train-step-batch`` it also times one training step of that
+denoiser at that batch (``train_step``: ms, the device's busy share, and
+the weight layout's launches and device ms in the step).
 
 With ``--saving-batch`` it also times the autograd Functions' forward (the
 kernels' saving instance) of the 16 blocks and of the head at that batch
@@ -82,24 +88,32 @@ def block_params(torch, g, C: int, O: int, dev, head: bool) -> dict:
     return p
 
 
-def stage_weights_ms(torch, _build, lib, plan, weights, O: int, dev, reps: int):
-    """ms of the weight-layout launches of one call alone, or None where the
+def stage_weights_call(torch, _build, lib, plan, weights, dev):
+    """The weight-layout launches of one call as a function (its weights laid
+    out for the plan's N tile as the wrappers do: in one launch, or one a
+    tensor in a checkout without ``_build.layout_args``), or None where the
     library has no ``cindm_stage_weights``."""
     fn = getattr(lib, "cindm_stage_weights", None)
     if fn is None:
         return None
-    sizes = [plan.weight_bytes(w.shape[1], w.shape[0]) for w in weights]
-    scratch = _build.scratch(sum(sizes), dev)
+    outs = [_build.scratch(plan.weight_bytes(w.shape[1], w.shape[0]), dev) for w in weights]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if hasattr(_build, "layout_args"):
+        calls = [_build.layout_args([(w, plan.n_tile) for w in weights], outs)]
+    else:
+        calls = [(w.data_ptr(), *w.shape, plan.n_tile, o.data_ptr()) for w, o in zip(weights, outs)]
+    return lambda: [_build.raise_on_error("stage_weights", fn(*a, stream)) for a in calls]
 
-    def layout():
-        off = scratch.data_ptr()
-        for w, n in zip(weights, sizes):
-            _build.raise_on_error("stage_weights", fn(w.data_ptr(), w.shape[0], w.shape[1], O, plan.n_tile,
-                                                      off, stream))
-            off += n
 
-    return events_ms(torch, layout, reps)
+def stage_weights_ms(torch, _build, lib, plan, weights, dev, reps: int):
+    """(CUDA-event ms of the weight-layout launches of one call, issued back
+    to back, and their device ms from torch.profiler), or (None, None)
+    where the library has no ``cindm_stage_weights``."""
+    call = stage_weights_call(torch, _build, lib, plan, weights, dev)
+    if call is None:
+        return None, None
+    device = stage_device_ms(torch, call, reps=3, name="stage_weights")
+    return events_ms(torch, call, reps), (sum(device) if isinstance(device, list) else device)
 
 
 def design_rate(torch, dev, model) -> dict:
@@ -124,9 +138,10 @@ def design_rate(torch, dev, model) -> dict:
     return {"design_seconds": seconds, "pair_window_fwds_per_s": fwds / seconds}
 
 
-def stage_device_ms(torch, fn, reps: int = 5) -> list[float] | str:
-    """Device ms of each stage launch one call of ``fn`` makes, in launch
-    order (torch.profiler, median over ``reps`` traced calls)."""
+def stage_device_ms(torch, fn, reps: int = 5, name: str = "conv_gn_mish_stage") -> list[float] | str:
+    """Device ms of each launch of the kernel ``name`` (the stage by default)
+    that one call of ``fn`` makes, in launch order (torch.profiler, median
+    over ``reps`` traced calls)."""
     import statistics
 
     from torch.profiler import ProfilerActivity
@@ -138,7 +153,7 @@ def stage_device_ms(torch, fn, reps: int = 5) -> list[float] | str:
             fn()
             torch.cuda.synchronize()
         ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "conv_gn_mish_stage" in e.name), key=lambda e: e.time_range.start)
+                     and name in e.name), key=lambda e: e.time_range.start)
         per.append([e.time_range.elapsed_us() / 1e3 for e in ev])
     n = max(len(p) for p in per)
     if n == 0:
@@ -188,8 +203,43 @@ def saving_forward(torch, dev, batch: int = 512, reps: int = 20) -> dict:
     return out
 
 
+def train_step(torch, dev, batch: int = 512, reps: int = 10) -> dict:
+    """One training step of the full-width denoiser on the kernel path at
+    ``batch`` (forward, backward, clip, Adam, the EMA update; every weight
+    changed, so each step lays them all out anew): ms a step with CUDA
+    events, and from one torch.profiler trace of a step the device's busy
+    ms and share and the weight layout's launches and device ms
+    (``stage_weights``, not the backward's ``stage_weights_t``)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from cindm_tpu_torch.core import make_schedule
+    from cindm_tpu_torch.models import TemporalUnet1D
+    from cindm_tpu_torch.sampling import Diffusion1DConfig
+    from cindm_tpu_torch.train import TrainConfig, init_train_state, make_train_step
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).train()
+    data = {"x": 0.5 * torch.randn((batch, 24, 8), generator=g, device=dev),
+            "t": torch.randint(0, 1000, (batch,), generator=g, device=dev),
+            "noise": torch.randn((batch, 24, 8), generator=g, device=dev)}
+    cfg, tcfg = Diffusion1DConfig(rollout_steps=24), TrainConfig(ema_update_every=1)
+    state = init_train_state(model, tcfg)
+    fn = make_train_step(cfg, make_schedule(1000, device=dev), tcfg, use_kernels=True)
+    step_ms = events_ms(torch, lambda: fn(state, data), reps)
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(state, data)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    layout = [e for e in ev if "stage_weights" in e.name and "stage_weights_t" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    return {"batch": batch, "step_ms": step_ms, "busy_ms": busy if ev else "not measured (no device events)",
+            "busy_share": busy / step_ms if ev else None, "stage_weights_launches": len(layout),
+            "stage_weights_device_ms": sum(e.time_range.elapsed_us() for e in layout) / 1e3}
+
+
 def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
-            saving_batch: int | None = None) -> dict:
+            saving_batch: int | None = None, train_batch: int | None = None) -> dict:
     from cindm_tpu_torch.models import TemporalUnet1D
     from cindm_tpu_torch.ops import _build, fused_conv1d_gn_mish, fused_rtb
 
@@ -215,7 +265,8 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
             ms = events_ms(torch, call, reps)
             restaged = None
             if cache is not None:
-                staged0 = cache.launches - staged0 - len(weights)  # past the warm-up's first call
+                # past the warm-up's first call: one launch, or one a tensor before the batched layout
+                staged0 = cache.launches - staged0 - (1 if hasattr(_build, "layout_args") else len(weights))
                 restaged = events_ms(torch, lambda: (cache.clear(), call()), reps)
             rows.append({"C": C, "O": O, "T": T, "kernel": "fused_conv1d_gn_mish" if head else "fused_rtb",
                          "ms": ms, "ms_restaged": restaged,
@@ -226,7 +277,8 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
                          "split": [[p.items, getattr(p, "tail", 0), getattr(p, "max_parts", 1)]
                                    for p in ([plan] if head else
                                              [plan, _build.plan_stage(batch, T, O, O, 8, num_sms=sms)])],
-                         "stage_weights_ms": stage_weights_ms(torch, _build, lib, plan, weights, O, dev, reps),
+                         **dict(zip(("stage_weights_ms", "stage_weights_device_ms"),
+                                    stage_weights_ms(torch, _build, lib, plan, weights, dev, reps))),
                          "stage_device_ms": stage_device_ms(torch, call)})
             del x, p
         model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
@@ -241,10 +293,16 @@ def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
            "device": torch.cuda.get_device_name(dev)}
     sw = [r["stage_weights_ms"] for r in rtb]
     out["fused_rtb_stage_weights_ms"] = None if None in sw else sum(sw)
+    # the 16 blocks' and the head's layouts: one launch a call
+    out["stage_weights_ms"] = None if None in sw else sum(sw) + rows[-1]["stage_weights_ms"]
+    dw = [r["stage_weights_device_ms"] for r in rows]
+    out["stage_weights_device_ms"] = sum(dw) if all(isinstance(v, float) for v in dw) else "not measured"
     if design:
         out.update(design_rate(torch, dev, model))
     if saving_batch:
         out["saving_forward"] = saving_forward(torch, dev, saving_batch, reps)
+    if train_batch:
+        out["train_step"] = train_step(torch, dev, train_batch, max(3, reps // 2))
     return out
 
 
@@ -255,6 +313,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--design", action="store_true", help="also time one flagship design run")
     ap.add_argument("--saving-batch", type=int, default=None,
                     help="also time the saving forward of the 16 blocks and the head at this batch")
+    ap.add_argument("--train-step-batch", type=int, default=None,
+                    help="also time one training step of the denoiser at this batch")
     args = ap.parse_args(argv)
     import torch
 
@@ -264,7 +324,8 @@ def main(argv: list[str] | None = None) -> int:
     from cindm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")  # TF32 off, as every entry point of the port sets it
-    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch)), flush=True)
+    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch,
+                             args.train_step_batch)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0

@@ -177,7 +177,7 @@ def main(argv: list[str]) -> int:
             for n, lib in fns.items():
                 vplan = _build.plan_stage(BATCH, T, C, O, 8, num_sms=_build.num_sms(dev), **PLAN.get(n, {}))
                 ws = _build.scratch(plan.weight_bytes(C), dev)  # w as this copy lays it out
-                err = lib.cindm_stage_weights(w.data_ptr(), 5, C, O, plan.n_tile, ws.data_ptr(), stream)
+                err = lib.cindm_stage_weights(*_build.layout_args([(w, plan.n_tile)], [ws]), stream)
                 if err:
                     raise RuntimeError(f"{n}: stage_weights: cudaError_t {err}")
                 work = _build.scratch(max(vplan.work_bytes, 16), dev)

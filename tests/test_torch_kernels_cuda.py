@@ -6,6 +6,8 @@ JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -181,38 +183,82 @@ def test_split_tail_matches_plain_in_both_instances(dev, C, O, T, B):
     assert all(int(c.abs().sum()) == 0 for c in _build.stage_work.counters())
 
 
-@pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (64, 128, 12), (64, 64, 24), (48, 96, 12)],
-                         ids=lambda v: str(v))
-def test_stage_weights_kernel_is_its_plain_version(dev, C, O, T):
-    """cindm_stage_weights against stage_weights_reference bit for bit, at
-    the plan's N tile, for a conv's weights and a projection's (K = 1)."""
-    a = _args(C, O, 5, T, dev, seed=C + O)
-    nt = _build.plan_stage(5376, T, C, O, 8, num_sms=_build.num_sms(dev)).n_tile
+def _odd_weights(shapes, dev, seed):
+    """Weights of the given shapes with inf, -inf and NaN among their entries."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        w = rng.standard_normal(shape).astype(np.float32)
+        w.reshape(-1)[rng.choice(w.size, 3, replace=False)] = [np.inf, -np.inf, np.nan]
+        out.append(torch.from_numpy(w).to(dev))
+    return out
+
+
+# a block's weights (w1, w2 and wres: one launch of three jobs) at the plan's
+# N tile at 5,376, and odd shapes (C 8, 12, 40 and 520, O 136, K = 1, ragged
+# block counts) with inf and NaN at both N tiles
+STAGE_CASES = ([((C, O, T), None) for C, O, T in [(1024, 512, 3), (64, 128, 12), (64, 64, 24), (48, 96, 12)]]
+               + [(shapes, nt) for nt in (64, 128)
+                  for shapes in ([(K, 12, 136), (1, 40, 136), (K, 8, 64)], [(K, 136, 12), (K, 8, 200), (1, 520, 16)])])
+
+
+@pytest.mark.parametrize("shapes,nt", STAGE_CASES, ids=lambda v: str(v))
+def test_stage_weights_kernel_is_its_plain_version(dev, shapes, nt):
+    """cindm_stage_weights against stage_weights_reference bit for bit: a
+    call's weights in one launch, every layout the plain version's."""
+    if nt is None:
+        C, O, T = shapes
+        a = _args(C, O, 5, T, dev, seed=C + O)
+        nt = _build.plan_stage(5376, T, C, O, 8, num_sms=_build.num_sms(dev)).n_tile
+        ws = [w for w in (a["w1"], a["w2"], a.get("wres")) if w is not None]
+    else:
+        ws = _odd_weights(shapes, dev, seed=len(shapes) + nt)
     stage = _build.WeightStage()
-    for w in (a["w1"], a.get("wres")):
-        if w is not None:
-            got = stage(w, nt)
-            assert torch.equal(got.cpu(), _build.stage_weights_reference(w.cpu(), nt))
-    assert stage.launches == (2 if C != O else 1)
+    got = stage.many([(w, nt) for w in ws])
+    assert stage.launches == 1 and stage.layouts == len(ws)
+    for have, w in zip(got, ws):
+        assert torch.equal(have.cpu(), _build.stage_weights_reference(w.cpu(), nt))
+
+
+@pytest.mark.parametrize("nt", [64, 128])
+@pytest.mark.parametrize("C,O", [(1024, 512), (64, 64), (12, 136), (520, 16)], ids=lambda v: str(v))
+def test_stage_weights_t_is_the_flipped_plain_version(dev, C, O, nt):
+    """The backward's layout (cindm_stage_weights_t, the kernel the backward
+    launches first) bit for bit: a block's w2 [K, O, O], w1 [K, C, O] and
+    wres [C, O] as the dgrads read them, staged[k][c][o] = w[K - 1 - k][o][c],
+    i.e. stage_weights_reference of w flipped in time and transposed."""
+    w1, w2, wres = _odd_weights([(K, C, O), (K, O, O), (1, C, O)], dev, seed=C + O + nt)
+    ws = [w2, w1, wres]
+    outs = [torch.empty(_build.staged_weight_bytes(nt, w.shape[2], w.shape[1], w.shape[0]) // 4,
+                        dtype=torch.int32, device=dev) for w in ws]
+    n = len(ws)
+    args = ((ctypes.c_void_p * n)(*(w.data_ptr() for w in ws)),
+            (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
+            (ctypes.c_int * (4 * n))(*(d for w in ws for d in (w.shape[0], w.shape[2], w.shape[1], nt))), n)
+    _build.raise_on_error("stage_weights_t", _build.call_on(dev, _build.load().cindm_stage_weights_t, *args))
+    for have, w in zip(outs, ws):
+        want = _build.stage_weights_reference(w.cpu().flip(0).transpose(1, 2).contiguous(), nt)
+        assert torch.equal(have.cpu(), want)
 
 
 @pytest.mark.parametrize("C,O,T", [(1024, 512, 3), (128, 256, 6), (64, 64, 24)], ids=lambda v: str(v))
 def test_forward_kernels_stage_each_weight_once_per_version(dev, C, O, T):
-    """A block's weights are laid out on their first call and kept: a second
-    call stages nothing; an in-place update (an optimizer step) restages
-    only what changed, and the kernel then equals the plain version on the
-    new weights (a stale layout would not)."""
+    """A block's weights are laid out on their first call, all in one launch,
+    and kept: a second call stages nothing; an in-place update (an optimizer
+    step) restages only what changed, again in one launch, and the kernel
+    then equals the plain version on the new weights (a stale layout would
+    not)."""
     a = _args(C, O, 37, T, dev, seed=C + 2 * O + T)
-    n = _build.staged.launches
+    n, m = _build.staged.launches, _build.staged.layouts
     fused_rtb(**a)
-    assert _build.staged.launches == n + (3 if C != O else 2)
+    assert (_build.staged.launches, _build.staged.layouts) == (n + 1, m + (3 if C != O else 2))
     first = fused_rtb(**a)
-    assert _build.staged.launches == n + (3 if C != O else 2)
+    assert (_build.staged.launches, _build.staged.layouts) == (n + 1, m + (3 if C != O else 2))
     with torch.no_grad():
         torch._foreach_add_([a["w1"]], [0.01 * torch.ones_like(a["w1"])])
     got = fused_rtb(**a)
     torch.cuda.synchronize()
-    assert _build.staged.launches == n + (4 if C != O else 3)
+    assert (_build.staged.launches, _build.staged.layouts) == (n + 2, m + (4 if C != O else 3))
     assert not torch.equal(got, first)
     torch.testing.assert_close(got, fused_rtb_reference(**a), **TOL)
 

@@ -539,15 +539,19 @@ def test_emulated_split_head_matches_jax_fused_conv1d_gn_mish(C, O, T, B, sms):
 
 
 class _Stager:
-    """A stand-in for the layout launch: records its calls and returns w's
+    """A stand-in for the layout launch: records each call (``launches``,
+    its jobs' (shape, N tile)) and each layout (``calls``), and returns w's
     values with the N tile appended, so that a stale entry shows."""
 
     def __init__(self):
         self.calls = []
+        self.launches = []
 
-    def __call__(self, w, nt):
-        self.calls.append((tuple(w.shape), nt))
-        return torch.cat([w.detach().reshape(-1).clone(), torch.tensor([float(nt)])])
+    def __call__(self, jobs):
+        made = [(tuple(w.shape), nt) for w, nt in jobs]
+        self.calls += made
+        self.launches.append(made)
+        return [torch.cat([w.detach().reshape(-1).clone(), torch.tensor([float(nt)])]) for w, nt in jobs]
 
 
 def _weight(seed, shape=(K, 8, 16)):
