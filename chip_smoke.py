@@ -27,7 +27,9 @@ after a ``torch.cuda.synchronize()``:
              must issue wgmma, no mma.sync, and spill nothing; its
              GroupNorm + Mish backward ``gn_mish_bwd`` (its three instances:
              1, 2 or 4 channels a lane's load) and its in-order sum of
-             partials ``grad_reduce`` must spill nothing.
+             partials ``grad_reduce`` must spill nothing; the linear
+             attention kernel ``linear_attention`` (48- and 96-row tiles)
+             must spill nothing and issue mma.sync.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4; also at 5,000 and at
@@ -56,16 +58,24 @@ after a ``torch.cuda.synchronize()``:
              plain autograd at batch 32 and x-only at batch 4 (every
              gradient within 1e-4 of the plain one's largest entry), and
              the fused-RTB kernel at the 1-body prior's C=4 block and the
-             horizon-70 direct model's T=70 and T=35 blocks.
+             horizon-70 direct model's T=70 and T=35 blocks. Last the
+             linear attention kernel (PreNormResidual(LinearAttentionTemporal))
+             at the flagship's 8 blocks at 5,376, timed beside its 3xTF32 and
+             fp32 bounds, run twice (the same bits), and within 1e-4 of its
+             plain version at 5,376, 5,000 and 512.
 4. denoiser: the full-width TemporalUnet1D (dim 64, horizon 24) with seeded
-             random weights, kernel path against plain path at batch 5,376;
-             its ms per sample at folded batches 1,344 to 10,752 (the
-             measurement behind ``sampling/compose.FOLD_TARGET``).
+             random weights, kernel path against plain path at batch 5,376
+             (16 + 1 + 8 launches); its ms per sample at folded batches 1,344
+             to 10,752 (the measurement behind ``sampling/compose.FOLD_TARGET``);
+             a line ``forward_ops``: one forward at 5,376 op by op under
+             torch.profiler (``tools/forward_profile.forward_ops``: device ms
+             and launches by module and aten op, host issue ms).
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot;
              each weight laid out once per N tile, a kernel call's in one
-             launch (``staging``: 17 launches for 43 layouts an N tile).
+             launch (``staging``: 17 launches for 43 layouts an N tile);
+             160 + 10 + 80 launches a reverse step.
 6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
              saving forward, the backward kernel on what it saved) and the
              head's against plain autograd at batch 512 (entries beyond
@@ -80,7 +90,9 @@ after a ``torch.cuda.synchronize()``:
              included); then one ``p_losses`` gradient of the full-width
              denoiser at batch 512, kernel path against plain path
              (every parameter's max |dg| / max |g_plain| <= 1e-3), its launch
-             counts, and one whole optimizer step timed on each path; then
+             counts (the 8 attention blocks on their plain path under
+             autograd: no attention launch), and one whole optimizer step
+             timed on each path; then
              one backward pass of the 16 blocks and the head at batch 512
              through ``cindm_tpu_torch.tools.backward_profile``: each of the
              six backward kernels' device ms from torch.profiler beside its
@@ -101,7 +113,8 @@ after a ``torch.cuda.synchronize()``:
              trained the in-tree prior (batch 512, dim 64, 6,000 simulations
              generated on the card, 30% collision windows), cut only in its
              step count: 40 steps with milestones at 20 and 40, then a resume
-             to step 50 with one 25-step DDIM eval; the launch counters,
+             to step 50 with one 25-step DDIM eval; the launch counters (no
+             attention launch in a training step, 8 in each eval step),
              ``grad_reduce``'s inside the backwards among them (17 a step,
              ``_build.launch_backward.reduce_launches``); after each run's
              last optimizer step every block of the trained model, kernel
@@ -206,7 +219,9 @@ after a ``torch.cuda.synchronize()``:
              train phase's backwards, its standalone check's numbers) and
              one for ``stage_weights`` (its launches and layouts per path,
              the layout's ms, plain ms and bytes bound at both batches' N
-             tiles), the
+             tiles) and one for ``prenorm_linear_attention`` (its launches
+             per path, its autograd-path calls in training, ms, plain ms and
+             bounds over the flagship's 8 blocks, its rows), the
              nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
@@ -364,6 +379,9 @@ RTB_SHAPES = [
     (256, 128, 12), (128, 64, 12),
 ]
 HEAD_SHAPE = (64, 64, 24)
+# (C, T) of the flagship denoiser's 8 linear attentions (PreNormResidual), in call order
+ATTN_SHAPES = [(64, 24), (128, 12), (256, 6), (512, 3), (512, 3), (256, 3), (128, 6), (64, 12)]
+ATTN_HIDDEN = 128  # heads x dim_head
 
 
 def emit(obj) -> None:
@@ -677,6 +695,66 @@ def saving_and_function_errors(torch, g, dev, C: int, O: int, T: int, batch: int
                 and all(bool(torch.equal(u, v)) for u, v in zip(grads, grads_again)))
 
 
+def attention_inputs(torch, g, dev, C: int, T: int, batch: int) -> tuple:
+    """x [batch, T, C] and the block's g, wqkv, wout, bout, seeded (uniform
+    weights in +-1/sqrt(fan_in), the gain near 1)."""
+    u = lambda shape, fan_in: (torch.rand(shape, generator=g, device=dev) * 2 - 1) / math.sqrt(fan_in)
+    return (torch.randn((batch, T, C), generator=g, device=dev),
+            1 + 0.1 * torch.randn((C,), generator=g, device=dev), u((C, 3 * ATTN_HIDDEN), C),
+            u((ATTN_HIDDEN, C), ATTN_HIDDEN), 0.1 * torch.randn((C,), generator=g, device=dev))
+
+
+def attention_row(torch, g, dev, C: int, T: int, batch: int, cuda: bool,
+                  more: tuple[int, ...] = ()) -> dict:
+    """One linear attention block (PreNormResidual(LinearAttentionTemporal)):
+    the kernel against its plain version at ``batch``, run twice (the same
+    bits), timed beside its bounds (the qkv and out products and both
+    context contractions: 3xTF32 and fp32), and untimed at each of ``more``
+    (``at_<batch>``: its errors)."""
+    from cindm_tpu_torch.ops import _build, prenorm_linear_attention, prenorm_linear_attention_reference
+
+    a = attention_inputs(torch, g, dev, C, T, batch)
+    got = prenorm_linear_attention(*a)
+    repeats = bool(torch.equal(got, prenorm_linear_attention(*a)))
+    abs_err, rel_err = errors(torch, got, prenorm_linear_attention_reference(*a))
+    plain_ms, kernel_ms = time_pair(
+        torch, lambda: prenorm_linear_attention_reference(*a), lambda: prenorm_linear_attention(*a),
+    ) if cuda else (None, None)
+    rows = batch * T
+    flops = rows * (2 * C * 4 * ATTN_HIDDEN + 4 * ATTN_HIDDEN * 32)
+    nbytes = 4 * (2 * rows * C + C * 4 * ATTN_HIDDEN + 2 * C)
+    b = bounds(flops, nbytes)
+    row = dict(C=C, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err, repeats_bit_for_bit=repeats,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b["bound_tc_ms"], bound_by=b["bound_tc_by"],
+               bound_fp32_ms=b["bound_ms"], library_ms=None, flop=flops, bytes=nbytes,
+               tiles=-(-batch // (_build.attention_rows(T) // T)),
+               smem_bytes=_build.attention_smem_bytes(C, T))
+    for other in more:
+        x = attention_inputs(torch, g, dev, C, T, other)
+        e = errors(torch, prenorm_linear_attention(*x), prenorm_linear_attention_reference(*x))
+        row[f"at_{other}"] = dict(zip(("max_abs_err", "max_rel_err"), e))
+    return row
+
+
+def attention_errors(row: dict) -> list[dict]:
+    """An attention row's errors: at its own batch, then at each other."""
+    return [row] + [v for k, v in row.items() if k.startswith("at_")]
+
+
+def check_attention(torch, dev, batch: int, cuda: bool, more: tuple[int, ...] = (ODD_BATCH, TRAIN_BATCH)) -> list:
+    """Phase 3, the linear attention kernel at the flagship's 8 blocks: each
+    within TOL of its plain version at ``batch`` and at each of ``more``
+    (max abs and max error / max |plain|), the same bits twice, timed."""
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rows = [attention_row(torch, g, dev, C, T, batch, cuda, more if cuda else ()) for C, T in ATTN_SHAPES]
+    bad = [r for r in rows if not r["repeats_bit_for_bit"]
+           or not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL for e in attention_errors(r))]
+    if bad:
+        raise AssertionError(f"attention kernel disagrees with its plain version beyond {TOL}, "
+                             f"or a second run differs: {bad}")
+    return rows
+
+
 def counters_at_zero() -> bool:
     """The split tiles' arrival counters that the wrappers keep are all 0
     (each launch leaves them so)."""
@@ -816,7 +894,8 @@ def check_slice5_kernels(torch, dev, cuda: bool) -> dict:
 
 def reset_counts():
     from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, _build, fused_conv1d_gn_mish,
-                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
+                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
+                                     prenorm_linear_attention, prenorm_linear_attention_differentiable)
 
     _build.launch_backward.reduce_launches = 0
     _build.staged.launches = 0
@@ -829,20 +908,28 @@ def reset_counts():
     FusedRTB.backwards = 0
     FusedConv1dGNMish.launches = 0
     FusedConv1dGNMish.backwards = 0
+    prenorm_linear_attention.launches = 0
+    prenorm_linear_attention_differentiable.autograd_calls = 0
 
 
 def read_counts(backwards: bool = False) -> dict:
+    """The kernels' launch counters since the last reset_counts; with
+    ``backwards`` also the autograd Functions' and backward kernels', and
+    the attention blocks that took their plain path under autograd (on CUDA)."""
     from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
-                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
+                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
+                                     prenorm_linear_attention, prenorm_linear_attention_differentiable)
 
-    counts = {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches}
+    counts = {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches,
+              "prenorm_linear_attention": prenorm_linear_attention.launches}
     if backwards:
         counts.update(FusedRTB_launches=FusedRTB.launches,
                       FusedRTB_backward_passes=FusedRTB.backwards,
                       FusedConv1dGNMish_launches=FusedConv1dGNMish.launches,
                       FusedConv1dGNMish_backward_passes=FusedConv1dGNMish.backwards,
                       fused_rtb_backward=fused_rtb_backward.launches,
-                      fused_conv1d_gn_mish_backward=fused_conv1d_gn_mish_backward.launches)
+                      fused_conv1d_gn_mish_backward=fused_conv1d_gn_mish_backward.launches,
+                      prenorm_linear_attention_autograd=prenorm_linear_attention_differentiable.autograd_calls)
     return counts
 
 
@@ -876,8 +963,8 @@ def check_denoiser(torch, dev, batch: int, model, cuda: bool) -> dict:
         rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
         if rel > DENOISER_TOL:
             raise AssertionError(f"denoiser kernel path vs plain: {rel} > {DENOISER_TOL}")
-        if cuda and counts != {"fused_rtb": 16, "fused_conv1d_gn_mish": 1}:
-            raise AssertionError(f"one forward should launch 16 + 1 kernels, counted {counts}")
+        if cuda and counts != {"fused_rtb": 16, "fused_conv1d_gn_mish": 1, "prenorm_linear_attention": 8}:
+            raise AssertionError(f"one forward should launch 16 + 1 + 8 kernels, counted {counts}")
         rec = {"max_err_over_max_abs": rel, "launches": counts, "batch": batch}
         if cuda:
             plain_ms, kernel_ms = time_pair(
@@ -972,11 +1059,12 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["multibody"]["launches"]}
     if cuda:
         checks["launches"] = all(r["launches"]["fused_rtb"] > 0 and r["launches"]["fused_conv1d_gn_mish"] > 0
-                                 for r in runs.values())
+                                 and r["launches"]["prenorm_linear_attention"] > 0 for r in runs.values())
     # the samplers take no gradient through the priors: no autograd Function
-    # forward and no backward kernel runs in this phase
+    # forward, no backward kernel and no attention on its plain path under
+    # autograd runs in this phase
     checks["no_gradient"] = all(v == 0 for k, v in launches.items()
-                                if k not in ("fused_rtb", "fused_conv1d_gn_mish"))
+                                if k not in ("fused_rtb", "fused_conv1d_gn_mish", "prenorm_linear_attention"))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"analysis phase checks failed: {failed}; runs {runs}")
@@ -1133,8 +1221,9 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"design record is not finite: {record}")
     per_step = {k: v / timesteps for k, v in counts.items()}
-    if cuda and per_step != {"fused_rtb": 16.0 * RECURRENCE, "fused_conv1d_gn_mish": 1.0 * RECURRENCE}:
-        raise AssertionError(f"expected 160 and 10 launches per reverse step, got {per_step}")
+    if cuda and per_step != {"fused_rtb": 16.0 * RECURRENCE, "fused_conv1d_gn_mish": 1.0 * RECURRENCE,
+                             "prenorm_linear_attention": 8.0 * RECURRENCE}:
+        raise AssertionError(f"expected 160, 10 and 80 launches per reverse step, got {per_step}")
     # at most one layout per weight tensor and N tile: none made twice; a
     # kernel call's weights in one launch: at most one a call per N tile
     if cuda and not (staging["layouts"] == staging["logged"] == staging["distinct"]
@@ -1379,7 +1468,9 @@ def check_grad(torch, dev, batch: int, model, cuda: bool) -> dict:
     want = {"fused_rtb": 16, "fused_conv1d_gn_mish": 1, "FusedRTB_launches": 16,
             "FusedRTB_backward_passes": 16, "FusedConv1dGNMish_launches": 1,
             "FusedConv1dGNMish_backward_passes": 1,
-            "fused_rtb_backward": 16, "fused_conv1d_gn_mish_backward": 1}
+            "fused_rtb_backward": 16, "fused_conv1d_gn_mish_backward": 1,
+            # the attention kernel has no backward: its 8 blocks take the plain path under autograd
+            "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8}
     if cuda and counts != want:
         raise AssertionError(f"one training micro-step should count {want}, counted {counts}")
     rec = {"batch": batch, "loss_kernel": loss_k, "loss_plain": loss_p,
@@ -1509,7 +1600,9 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                   "FusedConv1dGNMish_launches": n_steps,
                                   "FusedConv1dGNMish_backward_passes": n_steps,
                                   "fused_rtb_backward": 16 * n_steps,
-                                  "fused_conv1d_gn_mish_backward": n_steps}
+                                  "fused_conv1d_gn_mish_backward": n_steps,
+                                  "prenorm_linear_attention": 0,
+                                  "prenorm_linear_attention_autograd": 8 * n_steps}
             and second["launches"] == {"fused_rtb": 16 * (n2 + eval_steps),
                                        "fused_conv1d_gn_mish": n2 + eval_steps,
                                        "FusedRTB_launches": 16 * n2,
@@ -1517,7 +1610,10 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                        "FusedConv1dGNMish_launches": n2,
                                        "FusedConv1dGNMish_backward_passes": n2,
                                        "fused_rtb_backward": 16 * n2,
-                                       "fused_conv1d_gn_mish_backward": n2}
+                                       "fused_conv1d_gn_mish_backward": n2,
+                                       # the eval samples without a gradient: the kernel
+                                       "prenorm_linear_attention": 8 * eval_steps,
+                                       "prenorm_linear_attention_autograd": 8 * n2}
             # every backward of a training step wants the weights: one grad_reduce each
             and first["grad_reduce_launches"] == 17 * n_steps and second["grad_reduce_launches"] == 17 * n2)
         # the kernels on the weights of the last optimizer step, each laid out
@@ -2364,9 +2460,11 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                                  "FusedRTB_launches": 16 * n, "FusedRTB_backward_passes": 16 * n,
                                  "FusedConv1dGNMish_launches": n,
                                  "FusedConv1dGNMish_backward_passes": n,
-                                 "fused_rtb_backward": 16 * n, "fused_conv1d_gn_mish_backward": n}
+                                 "fused_rtb_backward": 16 * n, "fused_conv1d_gn_mish_backward": n,
+                                 "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8 * n}
                 and design_counts["fused_rtb"] == 16 * RECURRENCE * n
-                and design_counts["fused_conv1d_gn_mish"] == RECURRENCE * n)
+                and design_counts["fused_conv1d_gn_mish"] == RECURRENCE * n
+                and design_counts["prenorm_linear_attention"] == 8 * RECURRENCE * n)
         rec["launches"] = {k: train_counts[k] + design_counts[k] for k in train_counts}
 
         t0 = time.perf_counter()
@@ -2394,6 +2492,8 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
             and r["launches"]["train_step"]["fused_conv1d_gn_mish_backward"] == 1
             and r["launches"]["sampler_1d"]["fused_rtb"] == 16 * RECURRENCE * steps
             and r["launches"]["sampler_1d"]["fused_conv1d_gn_mish"] == RECURRENCE * steps
+            and r["launches"]["train_step"]["prenorm_linear_attention"] == 0
+            and r["launches"]["sampler_1d"]["prenorm_linear_attention"] == 8 * RECURRENCE * steps
             and not any(r["launches"]["sampler_2d"].values()) for r in ranks)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2624,6 +2724,41 @@ def stage_weights_entry(checks: dict, des: dict, train: dict, ana: dict, base: d
             "design_staging": des["staging"]}
 
 
+def attention_entry(rows: list[dict], des: dict, train: dict, grad: dict, ana: dict, base: dict,
+                    d2d: dict, path2d: dict, multi: dict) -> dict:
+    """The attention kernel's entry: its launches on the design path and per
+    path as the other entries count them; the training paths' blocks take
+    their plain version under autograd (``autograd_calls_*``: 0 kernel
+    launches there, checked). ms, plain ms and bounds summed over the
+    flagship's 8 blocks (one forward's worth) at the folded batch."""
+    first, second = train["runs"]
+    by = {r["bound_by"] for r in rows}
+    per_rank = [c["train_step"]["prenorm_linear_attention"] + c["sampler_1d"]["prenorm_linear_attention"]
+                for c in multi["b"]["launches_per_rank"]]
+    key = "prenorm_linear_attention"
+    return {
+        "name": key, "route": "cuda", "source": "cindm_tpu_torch/ops/csrc/linear_attention.cu",
+        "replaces": "none of its own: what XLA compiles for cindm_tpu/models/blocks.py:251 (PreNormResidual) "
+                    "over :167 (LinearAttentionTemporal); no Pallas kernel computes it",
+        "launches": des["launches"][key],
+        "max_abs_err": max(e["max_abs_err"] for r in rows for e in attention_errors(r)),
+        "max_rel_err": max(e["max_rel_err"] for r in rows for e in attention_errors(r)),
+        "ms": sum(r["kernel_ms"] or 0.0 for r in rows), "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": by.pop() if len(by) == 1 else "operations",
+        "bound_fp32_ms": sum(r["bound_fp32_ms"] for r in rows), "library_ms": None,
+        "shapes": rows,
+        "launches_train": first["launches"][key] + second["launches"][key],
+        "autograd_calls_train": (first["launches"][key + "_autograd"]
+                                 + second["launches"][key + "_autograd"]),
+        "launches_grad": grad["launches"][key], "autograd_calls_grad": grad["launches"][key + "_autograd"],
+        "launches_analysis": ana["launches"][key], "launches_baselines": base["launches"][key],
+        "autograd_calls_baselines": base["launches"][key + "_autograd"],
+        "launches_design2d": d2d["launches"][key],
+        **{f"launches_{phase}": counts[key] for phase, counts in path2d.items()},
+        "launches_multigpu": multi["launches"][key], "launches_multigpu_ranks": per_rank,
+    }
+
+
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
@@ -2642,7 +2777,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
 
     from cindm_tpu_torch.models import TemporalUnet1D
     from cindm_tpu_torch.ops import _build
-    from cindm_tpu_torch.tools import backward_profile
+    from cindm_tpu_torch.tools import backward_profile, forward_profile
     from cindm_tpu_torch.utils.device import resolve_device
 
     t0 = time.perf_counter()
@@ -2678,6 +2813,11 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
                              ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
                              ("grad_reduce", "11grad_reduce", 1, False))}
+    if cuda:  # the attention kernel (48- and 96-row tiles) on mma.sync: no spill, tensor-core instructions
+        tc["linear_attention"] = check_kernel_build(_build, sass, "16linear_attentionI", 2, wgmma=False)
+        if isinstance(sass, dict) and not all(
+                c["HMMA"] > 0 for k, c in sass.items() if "16linear_attentionI" in k):
+            raise AssertionError(f"linear_attention should issue mma.sync: {tc['linear_attention']}")
     if cuda:  # per stage instance: its template arguments and the cluster sizes of its launches
         tc["conv_gn_mish_stage"]["instances"] = stage_instances(
             _build, tc["conv_gn_mish_stage"], (fold_batch, ODD_BATCH, train_batch))
@@ -2692,14 +2832,20 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     # each stage launch's plan at the three batches: items, whole, split, parts
     emit({"stage_split": checks.pop("stage_split")})
     slice5 = check_slice5_kernels(torch, dev, cuda)
+    attn = check_attention(torch, dev, fold_batch, cuda)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],
-          "power_limit_line": info["smi"], "tolerance": TOL, **checks, **slice5})
+          "power_limit_line": info["smi"], "tolerance": TOL, **checks, **slice5,
+          "prenorm_linear_attention": attn})
 
     t0 = time.perf_counter()
     model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     den = check_denoiser(torch, dev, fold_batch, model, cuda)
     den["fold_ms_per_sample"] = time_folds(torch, dev, model, cuda)
+    # one flagship forward op by op: device ms and launches by module and aten op
+    if cuda:
+        emit({"forward_ops": forward_profile.forward_ops(torch, dev, model, fold_batch),
+              "power_limit_line": info["smi"]})
     sync()
     emit({"phase": "denoiser", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "tolerance": DENOISER_TOL, **den})
@@ -2818,6 +2964,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         if bwd:
             entry["backward_launches_multigpu"] = multi["launches"][bwd]
             entry["backward_launches_multigpu_ranks"] = [c[bwd] for c in per_rank]
+    line["kernels"].append(attention_entry(attn, des, train, grad, ana, base, d2d, path2d, multi))
     line["kernels"].append(reduce_entry(reduce_alone, train, bprof))
     line["kernels"].append(stage_weights_entry(checks, des, train, ana, base, d2d, path2d, multi))
     info["kernels"] = line

@@ -8,8 +8,10 @@ trajectory. The "Unet" and "Unet_single_step" design baselines roll it out.
 Every Conv1dBlock (33 at dim_mults (1, 2, 4, 8)) is the port's
 ``models.blocks.Conv1dBlock``: on CUDA tensors it launches the Conv1d +
 GroupNorm + Mish kernel, through ``ops.FusedConv1dGNMish`` and its backward
-kernel when autograd wants a gradient. The 1x1 residuals, the down- and
-upsampling and the skip concatenations are plain PyTorch.
+kernel when autograd wants a gradient. With ``attention`` each linear
+attention goes through ``models.blocks.PreNormResidual``'s route (the
+attention kernel when no gradient is wanted). The 1x1 residuals, the down-
+and upsampling and the skip concatenations are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -109,20 +111,20 @@ class Unet1DForwardModel(nn.Module):
             x = next(blk)(x, use_kernels)
             x = next(blk)(x, use_kernels)
             if self.attention:
-                x = next(attn)(x)
+                x = next(attn)(x, use_kernels)
             hs.append(x)
             if self.down_flags[ind]:
                 x = next(down)(x)
         x = next(blk)(x, use_kernels)
         if self.attention:
-            x = next(attn)(x)
+            x = next(attn)(x, use_kernels)
         x = next(blk)(x, use_kernels)
         for ind in range(self.num_res - 1):
             x = torch.cat([x, hs.pop()], dim=-1)
             x = next(blk)(x, use_kernels)
             x = next(blk)(x, use_kernels)
             if self.attention:
-                x = next(attn)(x)
+                x = next(attn)(x, use_kernels)
             if self.up_flags[ind]:
                 x = next(up)(x)
         return self.final_conv(self.final_block(x, use_kernels))

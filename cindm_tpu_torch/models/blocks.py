@@ -26,6 +26,12 @@ from ..ops import (
     mish,
 )
 from ..ops.fused_conv_gn import group_norm
+from ..ops.linear_attention import (
+    channel_layer_norm,
+    linear_attention_temporal_reference,
+    prenorm_linear_attention_differentiable,
+    prenorm_linear_attention_reference,
+)
 
 __all__ = [
     "ChannelLayerNorm",
@@ -127,9 +133,7 @@ class ChannelLayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.g
+        return channel_layer_norm(x, self.g, self.eps)
 
 
 class GroupNorm(nn.Module):
@@ -220,14 +224,8 @@ class LinearAttentionTemporal(nn.Module):
         self.out = Dense(hidden, dim, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, T, _ = x.shape
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        k = torch.softmax(k, dim=1)
-        q = q * (self.dim_head ** -0.5)
-        split = lambda a: a.reshape(B, T, self.heads, self.dim_head)
-        context = torch.einsum("bthd,bthe->bhde", split(k), split(v))
-        out = torch.einsum("bthd,bhde->bthe", split(q), context)
-        return self.out(out.reshape(B, T, self.heads * self.dim_head))
+        return linear_attention_temporal_reference(x, self.qkv.weight, self.out.weight, self.out.bias,
+                                                   self.heads, self.dim_head)
 
 
 class LinearAttention(nn.Module):
@@ -277,15 +275,27 @@ class FullAttention(nn.Module):
 
 
 class PreNormResidual(nn.Module):
-    """fn(ChannelLayerNorm(x)) + x."""
+    """fn(ChannelLayerNorm(x)) + x.
+
+    Around a ``LinearAttentionTemporal`` the whole block is one call of
+    ``ops.prenorm_linear_attention_reference``, or with ``use_kernels`` of
+    ``ops.prenorm_linear_attention_differentiable``: the kernel on CUDA
+    tensors when no gradient is wanted, the plain version under autograd
+    when one is. Other wrapped modules ignore ``use_kernels``.
+    """
 
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
         self.norm = ChannelLayerNorm(dim)
         self.fn = fn
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(self.norm(x)) + x
+    def forward(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+        fn = self.fn
+        if not isinstance(fn, LinearAttentionTemporal):
+            return fn(self.norm(x)) + x
+        block = prenorm_linear_attention_differentiable if use_kernels else prenorm_linear_attention_reference
+        return block(x, self.norm.g, fn.qkv.weight, fn.out.weight, fn.out.bias, fn.heads, fn.dim_head,
+                     self.norm.eps)
 
 
 class Downsample1d(nn.Module):

@@ -61,8 +61,11 @@ class TemporalUnet1D(nn.Module):
 
     On CUDA tensors its 16 ResidualTemporalBlocks run through the fused-RTB
     kernel and the head Conv1dBlock through the Conv1d+GN+Mish kernel, with a
-    recompute backward when autograd needs their gradient;
-    ``forward(..., use_kernels=False)`` runs their plain versions instead.
+    recompute backward when autograd needs their gradient, and its 8 linear
+    attentions (with their pre-norm and residual) through the attention
+    kernel when no gradient is wanted (their plain version under autograd
+    when one is); ``forward(..., use_kernels=False)`` runs the plain
+    versions instead.
     Weights are drawn from ``generator`` (a seed-0 CPU generator if None).
     """
 
@@ -123,20 +126,20 @@ class TemporalUnet1D(nn.Module):
             x = next(rtb)(x, t, use_kernels)
             x = next(rtb)(x, t, use_kernels)
             if self.attention:
-                x = next(attn)(x)
+                x = next(attn)(x, use_kernels)
             hs.append(x)
             if self.down_flags[ind]:
                 x = next(down)(x)
         x = next(rtb)(x, t, use_kernels)
         if self.attention:
-            x = next(attn)(x)
+            x = next(attn)(x, use_kernels)
         x = next(rtb)(x, t, use_kernels)
         for ind in range(self.num_res - 1):
             x = torch.cat([x, hs.pop()], dim=-1)
             x = next(rtb)(x, t, use_kernels)
             x = next(rtb)(x, t, use_kernels)
             if self.attention:
-                x = next(attn)(x)
+                x = next(attn)(x, use_kernels)
             if self.up_flags[ind]:
                 x = next(up)(x)
         x = self.final_block(x, use_kernels)

@@ -14,6 +14,11 @@ forms on the CPU). They count their CUDA backward passes in
 ``FusedRTB.launches`` counts the forward calls made through ``FusedRTB``.
 ``grad_reduce`` (``grad_reduce.launches``) runs the backward's in-order sum
 of partials alone, beside its plain version ``grad_reduce_reference``.
+``prenorm_linear_attention`` (``prenorm_linear_attention.launches``) is the
+denoiser's linear attention with its pre-norm and residual in one kernel;
+``prenorm_linear_attention_differentiable`` takes its plain version
+``prenorm_linear_attention_reference`` under autograd when a gradient is
+wanted (the kernel has no backward).
 
 ``precision`` holds the bfloat16 helpers ``cast_floating`` and
 ``bf16_eps_model``; a bfloat16 model runs the plain versions.
@@ -39,6 +44,11 @@ from .fused_rtb import (
     fused_rtb_reference,
 )
 from .grad_reduce import grad_reduce, grad_reduce_reference
+from .linear_attention import (
+    prenorm_linear_attention,
+    prenorm_linear_attention_differentiable,
+    prenorm_linear_attention_reference,
+)
 from .precision import bf16_eps_model, cast_floating
 
 __all__ = [
@@ -61,4 +71,7 @@ __all__ = [
     "grad_reduce",
     "grad_reduce_reference",
     "mish",
+    "prenorm_linear_attention",
+    "prenorm_linear_attention_differentiable",
+    "prenorm_linear_attention_reference",
 ]

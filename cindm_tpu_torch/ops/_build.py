@@ -72,6 +72,8 @@ SIGNATURES = {
     # ReduceArgs*, grid, stream: grad_reduce alone
     "cindm_grad_reduce": [_P, _I, _P],
     "cindm_reduce_args_size": [],
+    # x, g, wqkv, wout, bout, out, B, T, C, eps, stream: PreNormResidual(LinearAttentionTemporal)
+    "cindm_linear_attention": [_P] * 6 + [_I] * 3 + [_F, _P],
 }
 
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
@@ -924,6 +926,39 @@ def check_aligned(kernel: str, **tensors: torch.Tensor | None) -> None:
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
+
+
+# The attention kernel's row tile (csrc/linear_attention.cu mirrors these)
+ATTN_ROWS = 48  # rows of a tile: three m16 blocks, whole samples of T <= 48
+ATTN_ROWS_LONG = 96  # and of 48 < T <= 96
+ATTN_C_MULTIPLE = 16  # C in multiples of this: the out product's column pairs
+ATTN_QKV_STRIDE = 392  # floats a row of the q | k | v tile of all heads (384 + 8)
+ATTN_HIDDEN_STRIDE = 132  # floats a row of the hidden tile (128 + 4)
+
+
+def attention_rows(T: int) -> int:
+    """Rows of the attention kernel's tile at T: whole samples, the rest padding."""
+    return ATTN_ROWS if T <= ATTN_ROWS else ATTN_ROWS_LONG
+
+
+def attention_smem_bytes(C: int, T: int) -> int:
+    """Dynamic shared memory of one attention tile: the normalised x tile
+    [M][C + 4], whose place the hidden tile [M][132] takes after the qkv
+    product, and q | k | v of every head [M][392]."""
+    M = attention_rows(T)
+    return 4 * M * (max(C + 4, ATTN_HIDDEN_STRIDE) + ATTN_QKV_STRIDE)
+
+
+def check_attention(C: int, T: int) -> None:
+    """Raise unless the attention kernel takes C channels over T steps."""
+    if C % ATTN_C_MULTIPLE or C <= 0:
+        raise ValueError(f"prenorm_linear_attention: C={C} must be a positive multiple of "
+                         f"{ATTN_C_MULTIPLE} on CUDA")
+    if not 0 < T <= ATTN_ROWS_LONG:
+        raise ValueError(f"prenorm_linear_attention: T={T} must lie in 1..{ATTN_ROWS_LONG} on CUDA")
+    if attention_smem_bytes(C, T) > SMEM_MAX:
+        raise ValueError(f"prenorm_linear_attention: a tile at C={C}, T={T} needs "
+                         f"{attention_smem_bytes(C, T)} bytes of shared memory, over {SMEM_MAX}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -45,14 +45,16 @@ RECURRENCE = 10
 def launches() -> dict:
     """The kernel counters of ``cindm_tpu_torch.ops``."""
     from ..ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
-                       fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward)
+                       fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
+                       prenorm_linear_attention)
 
     return {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches,
             "FusedRTB_launches": FusedRTB.launches, "FusedRTB_backward_passes": FusedRTB.backwards,
             "FusedConv1dGNMish_launches": FusedConv1dGNMish.launches,
             "FusedConv1dGNMish_backward_passes": FusedConv1dGNMish.backwards,
             "fused_rtb_backward": fused_rtb_backward.launches,
-            "fused_conv1d_gn_mish_backward": fused_conv1d_gn_mish_backward.launches}
+            "fused_conv1d_gn_mish_backward": fused_conv1d_gn_mish_backward.launches,
+            "prenorm_linear_attention": prenorm_linear_attention.launches}
 
 
 def cases(dev: torch.device, mesh, sizes: dict) -> dict:

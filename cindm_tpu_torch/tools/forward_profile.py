@@ -1,7 +1,7 @@
 """Where the time of the forward kernels goes, shape by shape.
 
     python3 -m cindm_tpu_torch.tools.forward_profile [--batch 5376] [--reps 20] [--design]
-        [--saving-batch 512] [--train-step-batch 512]
+        [--saving-batch 512] [--train-step-batch 512] [--ops]
 
 Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
 16 block shapes of the flagship denoiser (TemporalUnet1D(24, 8, dim 64)) and
@@ -31,6 +31,14 @@ second (reverse steps x 10 x 3 windows x 28 pairs x B over its seconds).
 With ``--train-step-batch`` it also times one training step of that
 denoiser at that batch (``train_step``: ms, the device's busy share, and
 the weight layout's launches and device ms in the step).
+
+With ``--ops`` it profiles one forward of that denoiser on the kernel path
+at that batch under torch.profiler instead (``forward_ops``): device ms and
+launches per aten op (or hand-written kernel), grouped by the denoiser
+module that issued it (each attention block, down- and upsampling, the
+time MLP, the RTBs' time projections, ``fused_rtb``, the head, the final
+conv, the rest: the skip concatenations and copies), with the forward's
+host issue ms beside its device ms.
 
 With ``--saving-batch`` it also times the autograd Functions' forward (the
 kernels' saving instance) of the 16 blocks and of the head at that batch
@@ -238,6 +246,160 @@ def train_step(torch, dev, batch: int = 512, reps: int = 10) -> dict:
             "stage_weights_device_ms": sum(e.time_range.elapsed_us() for e in layout) / 1e3}
 
 
+GROUPS = ("attention", "down", "up", "time_mlp", "rtb_time_projection", "fused_rtb", "head",
+          "final_conv", "other")
+STAGE_KERNELS = ("conv_gn_mish_stage", "stage_weights")  # fused_rtb's launches inside an RTB
+
+
+def module_ranges(model) -> tuple[list, dict, set]:
+    """Forward hooks that put one torch.profiler range around each part of
+    a TemporalUnet1D forward: ``denoiser`` (the whole), ``time_mlp`` (the
+    time embedding, from ``time_pos`` to ``time_mlp[1]``), ``rtb.<k>``,
+    ``attention.<k>``, ``down.<k>``, ``up.<k>``, ``head`` and
+    ``final_conv``. Returns (the hook handles, {label: (C, T) seen by the
+    module, filled during the forward}, the labels)."""
+    from torch.autograd.profiler import record_function
+
+    open_ranges, shapes, handles = {}, {}, []
+
+    def opener(label):
+        def pre(mod, args):
+            if args and hasattr(args[0], "shape") and args[0].dim() == 3:
+                shapes[label] = (int(args[0].shape[2]), int(args[0].shape[1]))
+            open_ranges[label] = record_function(label)
+            open_ranges[label].__enter__()
+        return pre
+
+    def closer(label):
+        def post(mod, args, out):
+            open_ranges.pop(label).__exit__(None, None, None)
+        return post
+
+    parts = [(model, model, "denoiser"), (model.time_pos, model.time_mlp[1], "time_mlp"),
+             (model.final_block, model.final_block, "head"), (model.final_conv, model.final_conv, "final_conv")]
+    for name, kind in (("rtbs", "rtb"), ("attns", "attention"), ("downs", "down"), ("ups", "up")):
+        parts += [(m, m, f"{kind}.{k}") for k, m in enumerate(getattr(model, name))]
+    for first, last, label in parts:
+        handles.append(first.register_forward_pre_hook(opener(label)))
+        handles.append(last.register_forward_hook(closer(label)))
+    return handles, shapes, {label for _, _, label in parts}
+
+
+def _group(label: str, op: str, cuda: bool) -> str:
+    """The kind of module a (module range, op) belongs to. Inside an RTB the
+    hand-written stage kernels are ``fused_rtb`` and the rest its time
+    projection; on the CPU, where the RTB runs plain, all of it is
+    ``fused_rtb``."""
+    kind = label.split(".")[0]
+    if kind == "rtb":
+        return "fused_rtb" if not cuda or any(k in op for k in STAGE_KERNELS) else "rtb_time_projection"
+    return "other" if kind == "denoiser" else kind
+
+
+def forward_ops(torch, dev, model, batch: int = 5376, seed: int = 5376) -> dict:
+    """One forward of ``model`` (a TemporalUnet1D) on the kernel path at
+    ``batch`` under torch.profiler, op by op: each device kernel's ms (or,
+    on the CPU, each top-level op's CPU ms), by the innermost module range
+    of ``module_ranges`` around the op that launched it and by op
+    (``aten::mm``, or the kernel's own name for a hand-written one);
+    ``groups`` sums them per kind of module, largest first. Beside it the
+    forward's ms by CUDA events (``forward_ms``), the host's time to issue
+    it (``host_issue_ms``: the clock stops when the forward returns) and
+    the traced device ms; ``unattributed_ms`` is device time the profiler
+    linked to no op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, model.horizon, model.transition_dim), generator=g, device=dev)
+    t = torch.randint(0, 20, (batch,), generator=g, device=dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"batch": batch, "device": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+    with torch.no_grad():
+        model(x, t)
+        model(x, t)
+        sync()
+        if cuda:
+            out["forward_ms"] = events_ms(torch, lambda: model(x, t), 3)
+        t0 = time.perf_counter()
+        model(x, t)
+        out["host_issue_ms"] = (time.perf_counter() - t0) * 1e3
+        sync()
+        handles, shapes, labels = module_ranges(model)
+        try:
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            with trace(activities=acts) as prof:
+                model(x, t)
+                sync()
+        finally:
+            for h in handles:
+                h.remove()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def owner(e):
+        while e is not None and e.name not in labels:
+            e = e.cpu_parent
+        return e.name if e is not None else None
+
+    per = {}  # (label, op) -> [ms, launches]
+
+    def add(label, op, ms):
+        cell = per.setdefault((label, op), [0.0, 0])
+        cell[0] += ms
+        cell[1] += 1
+
+    for e in events:  # device kernels the profiler linked to the op that launched them
+        label = owner(e)
+        if label is not None and e.name not in labels:
+            if cuda:
+                for k in e.kernels:
+                    add(label, e.name, k.duration / 1e3)
+            elif e.cpu_parent is not None and e.cpu_parent.name in labels:
+                add(label, e.name, e.cpu_time_total / 1e3)  # the CPU: each op directly in a range
+    if cuda:
+        # kernels launched outside any op (the hand-written ones, through
+        # ctypes): by the module range around their runtime launch call
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in labels]
+        device_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+        spans = [(e.time_range.start, e.time_range.end, e.name) for e in events if e.name in labels]
+        runtime = {e.id: e for e in events if e.name.startswith("cu")}
+        for d in dev_events:
+            r = runtime.get(d.id)
+            if r is None or (r.cpu_parent is not None and r.cpu_parent.name not in labels):
+                continue  # no launch call seen, or one inside an op (linked above)
+            inside = [sp for sp in spans if sp[0] <= r.time_range.start <= sp[1]]
+            if inside:  # the innermost range: the latest to start
+                add(max(inside)[2], d.name, d.time_range.elapsed_us() / 1e3)
+    modules, ops, groups = {}, {}, {k: {"ms": 0.0, "launches": 0, "modules": 0} for k in GROUPS}
+    for (label, op), (ms, n) in sorted(per.items()):
+        mod = modules.setdefault(label, {"ms": 0.0, "launches": 0, "shape_C_T": shapes.get(label), "ops": {}})
+        mod["ms"] += ms
+        mod["launches"] += n
+        mod["ops"][op] = {"ms": ms, "launches": n}
+        o = ops.setdefault(op, {"ms": 0.0, "launches": 0})
+        o["ms"] += ms
+        o["launches"] += n
+        grp = groups[_group(label, op, cuda)]
+        grp["ms"] += ms
+        grp["launches"] += n
+    for label in modules:
+        if not label.startswith("rtb."):
+            groups[_group(label, "", cuda)]["modules"] += 1
+    groups["fused_rtb"]["modules"] = groups["rtb_time_projection"]["modules"] = len(model.rtbs)
+    attributed = sum(m["ms"] for m in modules.values())
+    if cuda:
+        out["device_ms"] = device_ms
+        out["unattributed_ms"] = device_ms - attributed
+    else:
+        out["cpu_ms"] = attributed
+    out["groups"] = dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))
+    out["ops"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]["ms"]))
+    out["modules"] = modules
+    return out
+
+
 def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
             saving_batch: int | None = None, train_batch: int | None = None) -> dict:
     from cindm_tpu_torch.models import TemporalUnet1D
@@ -315,6 +477,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="also time the saving forward of the 16 blocks and the head at this batch")
     ap.add_argument("--train-step-batch", type=int, default=None,
                     help="also time one training step of the denoiser at this batch")
+    ap.add_argument("--ops", action="store_true",
+                    help="profile one denoiser forward op by op at --batch instead")
     args = ap.parse_args(argv)
     import torch
 
@@ -324,8 +488,14 @@ def main(argv: list[str] | None = None) -> int:
     from cindm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")  # TF32 off, as every entry point of the port sets it
-    print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch,
-                             args.train_step_batch)), flush=True)
+    if args.ops:
+        from cindm_tpu_torch.models import TemporalUnet1D
+
+        model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        print(json.dumps(forward_ops(torch, dev, model, args.batch)), flush=True)
+    else:
+        print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch,
+                                 args.train_step_batch)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0

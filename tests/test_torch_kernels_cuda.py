@@ -31,6 +31,9 @@ from cindm_tpu_torch.ops import (
     fused_rtb_reference,
     grad_reduce,
     grad_reduce_reference,
+    prenorm_linear_attention,
+    prenorm_linear_attention_differentiable,
+    prenorm_linear_attention_reference,
 )
 from cindm_tpu_torch.ops import _build
 from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
@@ -306,11 +309,12 @@ def test_denoiser_kernel_path_matches_plain_path(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((96, 24, 8), generator=g, device=dev)
     t = torch.randint(0, 1000, (96,), generator=g, device=dev)
-    n = (fused_rtb.launches, fused_conv1d_gn_mish.launches)
+    n = (fused_rtb.launches, fused_conv1d_gn_mish.launches, prenorm_linear_attention.launches)
     with torch.no_grad():
         got = m(x, t)
         want = m(x, t, use_kernels=False)
-    assert (fused_rtb.launches - n[0], fused_conv1d_gn_mish.launches - n[1]) == (16, 1)
+    assert (fused_rtb.launches - n[0], fused_conv1d_gn_mish.launches - n[1],
+            prenorm_linear_attention.launches - n[2]) == (16, 1, 8)
     err = float((got - want).abs().max()) / float(want.abs().max())
     assert np.isfinite(err) and err < 1e-3
 
@@ -405,8 +409,9 @@ def test_raw_wrappers_refuse_a_gradient_on_cuda(dev):
 def test_training_step_goes_through_the_functions(dev):
     """One p_losses gradient of the full-width denoiser: 16 fused-RTB
     launches, all through FusedRTB, 16 backwards, each one call of the
-    backward kernel, 1 + 1 + 1 for the head, and every parameter's gradient
-    within 1e-3 of the plain path's largest entry."""
+    backward kernel, 1 + 1 + 1 for the head, the 8 attentions on their plain
+    path under autograd (no attention launch), and every parameter's
+    gradient within 1e-3 of the plain path's largest entry."""
     m = TemporalUnet1D(24, 8, dim=64).to(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((96, 24, 8), generator=g, device=dev) * 0.5
@@ -417,13 +422,16 @@ def test_training_step_goes_through_the_functions(dev):
     for use_kernels in (True, False):
         n = (fused_rtb.launches, FusedRTB.launches, FusedRTB.backwards,
              fused_conv1d_gn_mish.launches, FusedConv1dGNMish.backwards,
-             fused_rtb_backward.launches, fused_conv1d_gn_mish_backward.launches)
+             fused_rtb_backward.launches, fused_conv1d_gn_mish_backward.launches,
+             prenorm_linear_attention.launches, prenorm_linear_attention_differentiable.autograd_calls)
         loss = p_losses(cfg, sched, lambda a, tt: m(a, tt, use_kernels), x, None, t=t, noise=noise)
         grads.append(torch.autograd.grad(loss, list(m.parameters())))
         counts = (fused_rtb.launches - n[0], FusedRTB.launches - n[1], FusedRTB.backwards - n[2],
                   fused_conv1d_gn_mish.launches - n[3], FusedConv1dGNMish.backwards - n[4],
-                  fused_rtb_backward.launches - n[5], fused_conv1d_gn_mish_backward.launches - n[6])
-        assert counts == ((16, 16, 16, 1, 1, 16, 1) if use_kernels else (0,) * 7)
+                  fused_rtb_backward.launches - n[5], fused_conv1d_gn_mish_backward.launches - n[6],
+                  prenorm_linear_attention.launches - n[7],
+                  prenorm_linear_attention_differentiable.autograd_calls - n[8])
+        assert counts == ((16, 16, 16, 1, 1, 16, 1, 0, 8) if use_kernels else (0,) * 9)
     for (name, _), gk, gp in zip(m.named_parameters(), *grads):
         err = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
         assert err <= 1e-3, (name, err)
@@ -701,3 +709,72 @@ def test_grad_reduce_refuses_what_the_kernel_cannot_take(dev):
         grad_reduce([(torch.ones(2 * 8 + 1, device=dev)[1:], 2)])
     with pytest.raises(ValueError, match="1 to 10 jobs"):
         grad_reduce([(torch.ones(8, device=dev), 2)] * 11)
+
+
+# -- the linear attention kernel (PreNormResidual(LinearAttentionTemporal))
+
+# (C, T) of the flagship's 8 attention blocks, and the horizon-70 direct model's
+ATTN_SHAPES = [(64, 24), (128, 12), (256, 6), (512, 3), (512, 3), (256, 3), (128, 6), (64, 12)]
+ATTN_LONG = [(64, 70), (128, 35), (512, 35)]
+
+
+def _attn_args(C, T, B, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s, fan: (torch.rand(s, generator=g, device=dev) * 2 - 1) * fan ** -0.5
+    return (torch.randn((B, T, C), generator=g, device=dev), 1 + 0.1 * torch.randn(C, generator=g, device=dev),
+            u(C, 384, fan=C), u(128, C, fan=128), 0.1 * torch.randn(C, generator=g, device=dev))
+
+
+def _attn_close(got, want):
+    """The kernels' limit: max abs error and max error / max |plain| within 1e-4."""
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 and err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("B", [5376, 5000, 1], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("C,T", ATTN_SHAPES + ATTN_LONG,
+                         ids=[f"blk{i}-C{c}-T{t}" for i, (c, t) in enumerate(ATTN_SHAPES + ATTN_LONG)])
+def test_linear_attention_kernel_matches_plain(dev, C, T, B):
+    a = _attn_args(C, T, B, dev, seed=C + T + B)
+    n = prenorm_linear_attention.launches
+    got = prenorm_linear_attention(*a)
+    torch.cuda.synchronize()
+    assert prenorm_linear_attention.launches == n + 1
+    _attn_close(got, prenorm_linear_attention_reference(*a))
+
+
+@pytest.mark.parametrize("C,T,B", [(64, 24, 5376), (512, 3, 5000), (64, 70, 33)], ids=lambda v: str(v))
+def test_linear_attention_repeats_bit_for_bit(dev, C, T, B):
+    a = _attn_args(C, T, B, dev, seed=7)
+    assert torch.equal(prenorm_linear_attention(*a), prenorm_linear_attention(*a))
+
+
+def test_linear_attention_refuses_what_it_does_not_take(dev):
+    x, g, wqkv, wout, bout = _attn_args(64, 24, 4, dev, seed=1)
+    with pytest.raises(TypeError, match="float32"):
+        prenorm_linear_attention(x.double(), g, wqkv, wout, bout)
+    with pytest.raises(ValueError, match="contiguous"):
+        prenorm_linear_attention(x.transpose(0, 1).contiguous().transpose(0, 1), g, wqkv, wout, bout)
+    for C, T, why in ((40, 24, "multiple of 16"), (64, 97, "T=97"), (1024, 3, "shared memory")):
+        with pytest.raises(ValueError, match=why):
+            prenorm_linear_attention(*_attn_args(C, T, 2, dev, seed=2))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        xs = torch.empty(4 * 24 * 64 + 1, device=dev)[1:].view(4, 24, 64)
+        prenorm_linear_attention(xs.copy_(x), g, wqkv, wout, bout)
+    with pytest.raises(RuntimeError, match="prenorm_linear_attention_differentiable"):
+        prenorm_linear_attention(x.requires_grad_(True), g, wqkv, wout, bout)
+
+
+def test_linear_attention_route_under_autograd_is_plain(dev):
+    """With a gradient wanted the block takes its plain version (no launch,
+    one autograd call), and its input gradient is plain autograd's."""
+    x, *w = _attn_args(64, 24, 8, dev, seed=3)
+    x.requires_grad_(True)
+    n = (prenorm_linear_attention.launches, prenorm_linear_attention_differentiable.autograd_calls)
+    out = prenorm_linear_attention_differentiable(x, *w)
+    assert (prenorm_linear_attention.launches - n[0],
+            prenorm_linear_attention_differentiable.autograd_calls - n[1]) == (0, 1)
+    (gx,) = torch.autograd.grad(out.square().sum(), x)
+    (want,) = torch.autograd.grad(prenorm_linear_attention_reference(x, *w).square().sum(), x)
+    assert torch.equal(gx, want)
