@@ -28,8 +28,8 @@ after a ``torch.cuda.synchronize()``:
              GroupNorm + Mish backward ``gn_mish_bwd`` (its three instances:
              1, 2 or 4 channels a lane's load) and its in-order sum of
              partials ``grad_reduce`` must spill nothing; the linear
-             attention kernel ``linear_attention`` (48- and 96-row tiles)
-             must spill nothing and issue mma.sync.
+             attention kernel ``linear_attention`` (one instance, 128-row
+             tiles) must issue wgmma, no mma.sync, and spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4; also at 5,000 and at
@@ -62,7 +62,10 @@ after a ``torch.cuda.synchronize()``:
              linear attention kernel (PreNormResidual(LinearAttentionTemporal))
              at the flagship's 8 blocks at 5,376, timed beside its 3xTF32 and
              fp32 bounds, run twice (the same bits), and within 1e-4 of its
-             plain version at 5,376, 5,000 and 512.
+             plain version at 5,376, 5,000 and 512, each row with its plan
+             (tiles, persistent CTAs, cluster, laid-out weight bytes read
+             from L2); untimed, the horizon-70 direct model's (64, 70),
+             (128, 35) and (512, 35) at 512.
 4. denoiser: the full-width TemporalUnet1D (dim 64, horizon 24) with seeded
              random weights, kernel path against plain path at batch 5,376
              (16 + 1 + 8 launches); its ms per sample at folded batches 1,344
@@ -73,8 +76,10 @@ after a ``torch.cuda.synchronize()``:
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot;
-             each weight laid out once per N tile, a kernel call's in one
-             launch (``staging``: 17 launches for 43 layouts an N tile);
+             each weight laid out once per N tile, a stage kernel call's in
+             one launch (``staging``: 17 launches for 43 layouts an N tile;
+             the attention's 8 blocks add a launch for each wqkv and wout:
+             16 launches and 16 layouts);
              160 + 10 + 80 launches a reverse step.
 6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
              saving forward, the backward kernel on what it saved) and the
@@ -119,7 +124,8 @@ after a ``torch.cuda.synchronize()``:
              ``_build.launch_backward.reduce_launches``); after each run's
              last optimizer step every block of the trained model, kernel
              against plain on the updated weights (each laid out anew); the
-             layouts, one launch a kernel call (17 a step, 43 layouts).
+             layouts, one launch a kernel call (17 a step, 43 layouts; the
+             resumed run's eval adds the attention's 16 and 16).
 8. analysis: ``cindm_tpu_torch.cli.analysis_1d`` twice, on snapshots of
              seeded random weights at full width: the multibody strategies
              (8 bodies, the 2-body prior and a 1-body prior, batch 16, 16
@@ -382,6 +388,8 @@ HEAD_SHAPE = (64, 64, 24)
 # (C, T) of the flagship denoiser's 8 linear attentions (PreNormResidual), in call order
 ATTN_SHAPES = [(64, 24), (128, 12), (256, 6), (512, 3), (512, 3), (256, 3), (128, 6), (64, 12)]
 ATTN_HIDDEN = 128  # heads x dim_head
+# (C, T) of the horizon-70 direct model's attention blocks (baselines/unet_forward.py)
+ATTN_LONG_SHAPES = [(64, 70), (128, 35), (512, 35)]
 
 
 def emit(obj) -> None:
@@ -727,13 +735,22 @@ def attention_row(torch, g, dev, C: int, T: int, batch: int, cuda: bool,
     row = dict(C=C, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err, repeats_bit_for_bit=repeats,
                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b["bound_tc_ms"], bound_by=b["bound_tc_by"],
                bound_fp32_ms=b["bound_ms"], library_ms=None, flop=flops, bytes=nbytes,
-               tiles=-(-batch // (_build.attention_rows(T) // T)),
-               smem_bytes=_build.attention_smem_bytes(C, T))
+               **attention_plan(_build, batch, T, C, dev, cuda))
     for other in more:
         x = attention_inputs(torch, g, dev, C, T, other)
         e = errors(torch, prenorm_linear_attention(*x), prenorm_linear_attention_reference(*x))
-        row[f"at_{other}"] = dict(zip(("max_abs_err", "max_rel_err"), e))
+        row[f"at_{other}"] = dict(zip(("max_abs_err", "max_rel_err"), e), **attention_plan(_build, other, T, C,
+                                                                                         dev, cuda))
     return row
+
+
+def attention_plan(_build, batch: int, T: int, C: int, dev, cuda: bool) -> dict:
+    """The attention launch's plan at ``batch`` on this card (the H100's 132
+    SMs on the CPU): its row tiles, persistent CTAs, cluster size, the
+    laid-out weight bytes it reads from L2 and its shared memory."""
+    p = _build.plan_attention(batch, T, C, _build.num_sms(dev) if cuda else _build.H100_SMS)
+    return dict(tiles=p.tiles, ctas=p.ctas, cluster=p.cluster, samples_a_tile=p.samples,
+                weight_bytes_l2=p.weight_bytes, smem_bytes=p.smem_bytes)
 
 
 def attention_errors(row: dict) -> list[dict]:
@@ -747,6 +764,9 @@ def check_attention(torch, dev, batch: int, cuda: bool, more: tuple[int, ...] = 
     (max abs and max error / max |plain|), the same bits twice, timed."""
     g = torch.Generator(device=dev).manual_seed(4321)
     rows = [attention_row(torch, g, dev, C, T, batch, cuda, more if cuda else ()) for C, T in ATTN_SHAPES]
+    if cuda:  # the direct model's blocks, untimed: one sample of 70 a tile, three of 35
+        rows += [attention_row(torch, g, dev, C, T, TRAIN_BATCH, False) | {"untimed": True}
+                 for C, T in ATTN_LONG_SHAPES]
     bad = [r for r in rows if not r["repeats_bit_for_bit"]
            or not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL for e in attention_errors(r))]
     if bad:
@@ -1176,6 +1196,15 @@ def kernel_weights(model) -> int:
                for m in model.modules())
 
 
+def attention_blocks(model) -> int:
+    """The linear attention blocks of ``model``: each lays out its wqkv and
+    wout for the attention kernel (N tiles of 128 and 64), one launch
+    each, once per weight version."""
+    from cindm_tpu_torch.models.blocks import LinearAttentionTemporal
+
+    return sum(isinstance(m, LinearAttentionTemporal) for m in model.modules())
+
+
 def kernel_calls(model) -> int:
     """The stage kernel calls of one forward of ``model``, each laying its
     stale weights out in one launch: one per ResidualTemporalBlock
@@ -1216,7 +1245,10 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
         counts = read_counts()
         staging = {"launches": _build.staged.launches, "layouts": _build.staged.layouts,
                    "logged": len(log), "distinct": len(set(log)), "n_tiles": len({k[-1] for k in log}),
-                   "weight_tensors": kernel_weights(model), "kernel_calls": kernel_calls(model)}
+                   "weight_tensors": kernel_weights(model), "kernel_calls": kernel_calls(model),
+                   "attention_blocks": attention_blocks(model),
+                   # wqkv [C, 384] laid out for N tiles of 128: the attention's alone have 384 outputs
+                   "attention_wqkv_layouts": sum(k[2][-1] == 384 and k[3] == 128 for k in log)}
     vals = [record[k] for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"design record is not finite: {record}")
@@ -1225,10 +1257,13 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
                              "prenorm_linear_attention": 8.0 * RECURRENCE}:
         raise AssertionError(f"expected 160, 10 and 80 launches per reverse step, got {per_step}")
     # at most one layout per weight tensor and N tile: none made twice; a
-    # kernel call's weights in one launch: at most one a call per N tile
+    # stage kernel call's weights in one launch: at most one a call per N
+    # tile; each attention block's wqkv and wout once, a launch each
+    n_attn = staging["attention_blocks"]
     if cuda and not (staging["layouts"] == staging["logged"] == staging["distinct"]
-                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"]
-                     and 0 < staging["launches"] <= staging["kernel_calls"] * staging["n_tiles"]):
+                     and staging["attention_wqkv_layouts"] == n_attn
+                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"] + 2 * n_attn
+                     and 0 < staging["launches"] <= staging["kernel_calls"] * staging["n_tiles"] + 2 * n_attn):
         raise AssertionError(f"design should lay each weight out once per N tile, a call's in one launch: "
                              f"{staging}")
     batch = int(design_args[design_args.index("--batch_size") + 1])
@@ -1572,6 +1607,7 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             fresh = check_trained_blocks(torch, dev, state.model, TRAIN_BATCH) if cuda else None
             runs.append({"seconds": seconds, "launches": counts, **staged,
                          "weight_tensors": kernel_weights(state.model), "kernel_calls": kernel_calls(state.model),
+                         "attention_blocks": attention_blocks(state.model),
                          "after_last_step": fresh,
                          "grad_reduce_launches": reduce,
                          "record": json.loads(lines[-1]), "step": state.step,
@@ -1624,12 +1660,16 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             and r["after_last_step"]["restaged_launches"] == r["after_last_step"]["kernel_calls"] for r in runs)
         # each step's first forward lays every weight out anew (the optimizer
         # changed it), one launch a kernel call: 17 launches and 43 layouts a
-        # step for the flagship
+        # step for the flagship; the steps' attention runs plain, and the
+        # resumed run's one eval lays each attention block's wqkv and wout
+        # out once, a launch each (16 launches and 16 layouts), beside the
+        # stage kernels' 17 and 43
         checks["staging"] = (
             first["staged_launches"] == first["kernel_calls"] * n_steps
             and first["staged_layouts"] == first["weight_tensors"] * n_steps
-            and all(r["staged_layouts"] * r["kernel_calls"] == r["staged_launches"] * r["weight_tensors"]
-                    for r in runs))
+            and all((r["staged_layouts"] - 2 * r["attention_blocks"] * e) * r["kernel_calls"]
+                    == (r["staged_launches"] - 2 * r["attention_blocks"] * e) * r["weight_tensors"]
+                    for r, e in zip(runs, (0, 1))))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train phase checks failed: {failed}; runs {runs}; "
@@ -2730,8 +2770,11 @@ def attention_entry(rows: list[dict], des: dict, train: dict, grad: dict, ana: d
     path as the other entries count them; the training paths' blocks take
     their plain version under autograd (``autograd_calls_*``: 0 kernel
     launches there, checked). ms, plain ms and bounds summed over the
-    flagship's 8 blocks (one forward's worth) at the folded batch."""
+    flagship's 8 blocks (one forward's worth) at the folded batch; the
+    errors over those and the direct model's untimed blocks."""
     first, second = train["runs"]
+    errs = [e for r in rows for e in attention_errors(r)]
+    rows = [r for r in rows if not r.get("untimed")]
     by = {r["bound_by"] for r in rows}
     per_rank = [c["train_step"]["prenorm_linear_attention"] + c["sampler_1d"]["prenorm_linear_attention"]
                 for c in multi["b"]["launches_per_rank"]]
@@ -2741,8 +2784,7 @@ def attention_entry(rows: list[dict], des: dict, train: dict, grad: dict, ana: d
         "replaces": "none of its own: what XLA compiles for cindm_tpu/models/blocks.py:251 (PreNormResidual) "
                     "over :167 (LinearAttentionTemporal); no Pallas kernel computes it",
         "launches": des["launches"][key],
-        "max_abs_err": max(e["max_abs_err"] for r in rows for e in attention_errors(r)),
-        "max_rel_err": max(e["max_rel_err"] for r in rows for e in attention_errors(r)),
+        "max_abs_err": max(e["max_abs_err"] for e in errs), "max_rel_err": max(e["max_rel_err"] for e in errs),
         "ms": sum(r["kernel_ms"] or 0.0 for r in rows), "plain_ms": sum(r["plain_ms"] or 0.0 for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": by.pop() if len(by) == 1 else "operations",
         "bound_fp32_ms": sum(r["bound_fp32_ms"] for r in rows), "library_ms": None,
@@ -2813,11 +2855,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
                              ("dgrad_x_stage", "13dgrad_x_stage", 2, True),
                              ("gn_mish_bwd", "11gn_mish_bwd", 3, False),
                              ("grad_reduce", "11grad_reduce", 1, False))}
-    if cuda:  # the attention kernel (48- and 96-row tiles) on mma.sync: no spill, tensor-core instructions
-        tc["linear_attention"] = check_kernel_build(_build, sass, "16linear_attentionI", 2, wgmma=False)
-        if isinstance(sass, dict) and not all(
-                c["HMMA"] > 0 for k, c in sass.items() if "16linear_attentionI" in k):
-            raise AssertionError(f"linear_attention should issue mma.sync: {tc['linear_attention']}")
+    if cuda:  # the attention kernel (one instance, 128-row tiles): wgmma and no mma.sync, no spill
+        tc["linear_attention"] = check_kernel_build(_build, sass, "16linear_attentionE", 1)
     if cuda:  # per stage instance: its template arguments and the cluster sizes of its launches
         tc["conv_gn_mish_stage"]["instances"] = stage_instances(
             _build, tc["conv_gn_mish_stage"], (fold_batch, ODD_BATCH, train_batch))

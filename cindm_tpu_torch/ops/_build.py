@@ -72,8 +72,9 @@ SIGNATURES = {
     # ReduceArgs*, grid, stream: grad_reduce alone
     "cindm_grad_reduce": [_P, _I, _P],
     "cindm_reduce_args_size": [],
-    # x, g, wqkv, wout, bout, out, B, T, C, eps, stream: PreNormResidual(LinearAttentionTemporal)
-    "cindm_linear_attention": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, g, wqkv staged, wout staged, bout, out, B, T, C, CTAs, eps, stream:
+    # PreNormResidual(LinearAttentionTemporal) (``plan_attention``)
+    "cindm_linear_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
 }
 
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
@@ -928,25 +929,63 @@ def check_aligned(kernel: str, **tensors: torch.Tensor | None) -> None:
             raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
-# The attention kernel's row tile (csrc/linear_attention.cu mirrors these)
-ATTN_ROWS = 48  # rows of a tile: three m16 blocks, whole samples of T <= 48
-ATTN_ROWS_LONG = 96  # and of 48 < T <= 96
+# The attention kernel's plan (csrc/linear_attention.cu mirrors these)
+ATTN_ROWS = 128  # rows of a row tile (two consumer warpgroups x 64): ATTN_ROWS // T whole samples
+ATTN_MAX_T = 96  # the longest sample the kernel takes
 ATTN_C_MULTIPLE = 16  # C in multiples of this: the out product's column pairs
-ATTN_QKV_STRIDE = 392  # floats a row of the q | k | v tile of all heads (384 + 8)
-ATTN_HIDDEN_STRIDE = 132  # floats a row of the hidden tile (128 + 4)
+ATTN_HIDDEN = 128  # heads x dim_head
+ATTN_QKV_NT = 128  # the N tile of wqkv's layout (stage_weights, K = 1): q, k, v one each
+ATTN_OUT_NT = 64  # and of wout's
+ATTN_STAGES = 6  # the weight ring's slots
+ATTN_SLOT_BYTES = 32768  # a slot: both warpgroups' xn planes and wqkv's chunk, or 6 wout chunks
+ATTN_HEAD_COLS = 36  # columns of a head's q, k or v in the q | k | v tile (32 + 4: distinct banks)
+ATTN_QKV_STRIDE = 3 * 4 * ATTN_HEAD_COLS + 4  # floats a row of that tile (436), in the ring's bytes
+ATTN_BARRIERS = 2 * ATTN_STAGES + 5  # full and empty a slot, two each for the statistics, rfree
 
 
-def attention_rows(T: int) -> int:
-    """Rows of the attention kernel's tile at T: whole samples, the rest padding."""
-    return ATTN_ROWS if T <= ATTN_ROWS else ATTN_ROWS_LONG
+def attention_smem_bytes() -> int:
+    """Dynamic shared memory of the attention kernel, the same at every C and
+    T: the weight ring (ATTN_STAGES slots), whose bytes the q | k | v tile
+    [128][436] takes between the products, two buffers of LayerNorm
+    statistics [128] (mean, rstd) and the mbarriers."""
+    region = max(ATTN_STAGES * ATTN_SLOT_BYTES, 4 * ATTN_ROWS * ATTN_QKV_STRIDE)
+    return region + 2 * ATTN_ROWS * 8 + 8 * ATTN_BARRIERS
 
 
-def attention_smem_bytes(C: int, T: int) -> int:
-    """Dynamic shared memory of one attention tile: the normalised x tile
-    [M][C + 4], whose place the hidden tile [M][132] takes after the qkv
-    product, and q | k | v of every head [M][392]."""
-    M = attention_rows(T)
-    return 4 * M * (max(C + 4, ATTN_HIDDEN_STRIDE) + ATTN_QKV_STRIDE)
+def attention_weight_bytes(C: int) -> int:
+    """Bytes of one block's laid-out weights, wqkv [C, 384] and wout [128,
+    C] (both planes): what a row tile reads from L2."""
+    return (staged_weight_bytes(ATTN_QKV_NT, C, 3 * ATTN_HIDDEN, K=1)
+            + staged_weight_bytes(ATTN_OUT_NT, ATTN_HIDDEN, C, K=1))
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """One attention launch: row tiles of ``samples`` whole samples
+    (``rows`` of ATTN_ROWS used), walked by ``ctas`` persistent CTAs (one an
+    SM at most) in clusters of ``cluster`` (1: every CTA loads its own
+    weights); ``weight_bytes``: the laid-out weights read from L2 over the
+    launch, once a tile."""
+
+    samples: int
+    rows: int
+    tiles: int
+    ctas: int
+    cluster: int
+    smem_bytes: int
+    weight_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_attention(B: int, T: int, C: int, num_sms: int = H100_SMS) -> AttentionPlan:
+    """The attention kernel's launch at batch B (the C entry recomputes the
+    tiles and checks the CTAs)."""
+    check_attention(C, T)
+    samples = ATTN_ROWS // T
+    tiles = -(-B // samples)
+    return AttentionPlan(samples=samples, rows=samples * T, tiles=tiles, ctas=max(1, min(tiles, num_sms)),
+                         cluster=1, smem_bytes=attention_smem_bytes(),
+                         weight_bytes=tiles * attention_weight_bytes(C))
 
 
 def check_attention(C: int, T: int) -> None:
@@ -954,11 +993,11 @@ def check_attention(C: int, T: int) -> None:
     if C % ATTN_C_MULTIPLE or C <= 0:
         raise ValueError(f"prenorm_linear_attention: C={C} must be a positive multiple of "
                          f"{ATTN_C_MULTIPLE} on CUDA")
-    if not 0 < T <= ATTN_ROWS_LONG:
-        raise ValueError(f"prenorm_linear_attention: T={T} must lie in 1..{ATTN_ROWS_LONG} on CUDA")
-    if attention_smem_bytes(C, T) > SMEM_MAX:
-        raise ValueError(f"prenorm_linear_attention: a tile at C={C}, T={T} needs "
-                         f"{attention_smem_bytes(C, T)} bytes of shared memory, over {SMEM_MAX}")
+    if not 0 < T <= ATTN_MAX_T:
+        raise ValueError(f"prenorm_linear_attention: T={T} must lie in 1..{ATTN_MAX_T} on CUDA")
+    if attention_smem_bytes() > SMEM_MAX:
+        raise ValueError(f"prenorm_linear_attention: the kernel needs {attention_smem_bytes()} bytes "
+                         f"of shared memory, over {SMEM_MAX}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1035,11 +1074,12 @@ class WeightStage:
     big and small planes, ``stage_weights_reference`` on the CPU), kept
     per weight version: ``many([(w, n_tile), ...])`` returns the planes of a
     kernel call's weights, laying out those it has not seen (on their first
-    use, or after they changed) together, in one ``stager`` call, and taking
-    the others from the cache; ``staged(w, n_tile)`` is its one-weight form.
-    Sampling never changes the weights, so a design run stages each once per
-    N tile; training restages once a step, after the optimizer's in-place
-    update: one launch a block (w1, w2 and wres) and one for the head.
+    use, or after they changed) together, in one ``stager`` call for each N
+    tile among them, and taking the others from the cache; ``staged(w,
+    n_tile)`` is its one-weight form. Sampling never changes the weights,
+    so a design run stages each once per N tile; training restages once a
+    step, after the optimizer's in-place update: one launch a block (w1, w2
+    and wres) and one for the head.
 
     An entry is keyed by the tensor that owns w's view chain (its identity),
     w's storage pointer, offset, version counter (``_version``, which every
@@ -1065,17 +1105,18 @@ class WeightStage:
 
     def many(self, pairs: list[tuple[torch.Tensor, int]]) -> list[torch.Tensor]:
         """The planes of each (w, n_tile) of ``pairs`` (a kernel call's
-        weights): the kept ones, and the others laid out together in one
-        ``stager`` call (a weight asked for twice, once)."""
+        weights): the kept ones, and the others laid out together, one
+        ``stager`` call for those of each N tile (a weight asked for twice,
+        once)."""
         keys, stale = [], {}
         for w, nt in pairs:
             entries, key = self._entry(w, nt)
             keys.append((entries, key))
             if key not in entries:
                 stale[id(entries), key] = (entries, key, w.reshape(1, *w.shape) if w.dim() == 2 else w, nt)
-        if stale:
-            jobs = list(stale.values())
-            for (entries, key, _, _), planes in zip(jobs, self.stager([(w, nt) for *_, w, nt in jobs])):
+        for nt in dict.fromkeys(nt for *_, nt in stale.values()):  # one stager call an N tile
+            jobs = [j for j in stale.values() if j[3] == nt]
+            for (entries, key, _, _), planes in zip(jobs, self.stager([(w, t) for *_, w, t in jobs])):
                 entries[key] = planes
         return [entries[key] for entries, key in keys]
 

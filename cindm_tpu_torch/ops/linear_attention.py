@@ -11,11 +11,14 @@
 The JAX package leaves it to XLA inside the jitted forward
 (``cindm_tpu/models/blocks.py:251`` over ``:167`` and ``:107``); no Pallas
 kernel computes it. ``prenorm_linear_attention`` launches the hand-written
-CUDA kernel ``csrc/linear_attention.cu`` for CUDA tensors (3xTF32 on the
-tensor cores, one launch a block, ``prenorm_linear_attention.launches``
-counts them) and uses the plain version
-``prenorm_linear_attention_reference`` for CPU tensors. Weights keep the
-JAX ``Dense`` layouts: wqkv [C, 384] (no bias), wout [128, C], bout [C].
+CUDA kernel ``csrc/linear_attention.cu`` for CUDA tensors (3xTF32 on
+wgmma, one launch a block, ``prenorm_linear_attention.launches`` counts
+them; its tiles and CTAs from ``_build.plan_attention``) and uses the plain
+version ``prenorm_linear_attention_reference`` for CPU tensors. Weights
+keep the JAX ``Dense`` layouts: wqkv [C, 384] (no bias), wout [128, C],
+bout [C]; the kernel reads wqkv and wout as ``_build.staged`` keeps them
+laid out (tf32 planes; N tiles of 128 and 64), once per weight version: a
+stale one costs one ``stage_weights`` launch.
 
 The kernel has no backward: ``prenorm_linear_attention`` raises when a
 gradient is wanted, and ``prenorm_linear_attention_differentiable`` routes
@@ -84,9 +87,8 @@ def prenorm_linear_attention(
     """The block: the CUDA kernel on CUDA tensors, plain on CPU tensors.
 
     On CUDA the kernel takes heads x dim_head = 4 x 32, C a multiple of 16,
-    T up to 96 and a row tile that fits in shared memory
-    (``_build.attention_smem_bytes``), float32 contiguous tensors on 16-byte
-    boundaries; it raises otherwise."""
+    T up to 96 (``_build.check_attention``), float32 contiguous tensors on
+    16-byte boundaries; it raises otherwise."""
     refuse_grad("prenorm_linear_attention", "prenorm_linear_attention_differentiable",
                 x, g, wqkv, wout, bout)
     B, T, C = x.shape
@@ -104,8 +106,11 @@ def prenorm_linear_attention(
     _build.check_aligned("prenorm_linear_attention", x=x, g=g, wqkv=wqkv, wout=wout, bout=bout)
     out = torch.empty_like(x)
     if B:
+        plan = _build.plan_attention(B, T, C, _build.num_sms(x.device))
+        # laid out once per weight version: a launch for each stale one (their N tiles differ)
+        wq, wo = _build.staged.many([(wqkv, _build.ATTN_QKV_NT), (wout, _build.ATTN_OUT_NT)])
         err = _build.call_on(x.device, _build.load().cindm_linear_attention,
-                             *map(_build.ptr, (x, g, wqkv, wout, bout, out)), B, T, C, eps)
+                             *map(_build.ptr, (x, g, wq, wo, bout, out)), B, T, C, plan.ctas, eps)
         _build.raise_on_error("prenorm_linear_attention", err)
         prenorm_linear_attention.launches += 1
     return out

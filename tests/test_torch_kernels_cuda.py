@@ -756,7 +756,7 @@ def test_linear_attention_refuses_what_it_does_not_take(dev):
         prenorm_linear_attention(x.double(), g, wqkv, wout, bout)
     with pytest.raises(ValueError, match="contiguous"):
         prenorm_linear_attention(x.transpose(0, 1).contiguous().transpose(0, 1), g, wqkv, wout, bout)
-    for C, T, why in ((40, 24, "multiple of 16"), (64, 97, "T=97"), (1024, 3, "shared memory")):
+    for C, T, why in ((40, 24, "multiple of 16"), (64, 97, "T=97"), (1024, 0, "T=0")):
         with pytest.raises(ValueError, match=why):
             prenorm_linear_attention(*_attn_args(C, T, 2, dev, seed=2))
     with pytest.raises(ValueError, match="16-byte boundary"):
@@ -764,6 +764,14 @@ def test_linear_attention_refuses_what_it_does_not_take(dev):
         prenorm_linear_attention(xs.copy_(x), g, wqkv, wout, bout)
     with pytest.raises(RuntimeError, match="prenorm_linear_attention_differentiable"):
         prenorm_linear_attention(x.requires_grad_(True), g, wqkv, wout, bout)
+
+
+@pytest.mark.parametrize("C,T,B", [(1024, 3, 512), (800, 48, 64), (208, 96, 40)], ids=lambda v: str(v))
+def test_linear_attention_takes_the_widest_tiles(dev, C, T, B):
+    """Shared memory does not depend on C: the 48- and 96-row tiles' widest
+    C (800 at T <= 48, 208 above) and C = 1024, which they refused."""
+    a = _attn_args(C, T, B, dev, seed=11)
+    _attn_close(prenorm_linear_attention(*a), prenorm_linear_attention_reference(*a))
 
 
 def test_linear_attention_route_under_autograd_is_plain(dev):

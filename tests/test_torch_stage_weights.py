@@ -283,3 +283,22 @@ def test_a_weight_asked_for_twice_in_one_call_is_laid_out_once():
     w1, _, _ = _block(3, C=16)
     a, b = stage.many([(w1, 64), (w1, 64)])
     assert stage.stager.launches == [[((K, 16, 16), 64)]] and a is b
+
+
+def test_a_call_s_weights_of_two_n_tiles_go_in_one_stager_call_each():
+    """The attention kernel's wqkv (N tiles of 128) and wout (64) in one
+    ``many`` call: a stager call for each N tile, in the order first asked,
+    and both kept."""
+    stage = _build.WeightStage(_Stager())
+    rng = np.random.default_rng(5)
+    wqkv, wout = (torch.nn.Parameter(torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+                  for s in ((16, 384), (128, 16)))
+    got = stage.many([(wqkv, 128), (wout, 64)])
+    assert stage.stager.launches == [[((1, 16, 384), 128)], [((1, 128, 16), 64)]]
+    assert _holds(got[0], wqkv) and _holds(got[1], wout) and float(got[0][-1]) == 128.0
+    again = stage.many([(wqkv, 128), (wout, 64)])
+    assert len(stage.stager.launches) == 2 and all(a is b for a, b in zip(again, got))
+    with torch.no_grad():
+        wout.add_(1.0)
+    stage.many([(wqkv, 128), (wout, 64)])
+    assert stage.stager.launches[2:] == [[((1, 128, 16), 64)]]
