@@ -29,7 +29,9 @@ after a ``torch.cuda.synchronize()``:
              1, 2 or 4 channels a lane's load) and its in-order sum of
              partials ``grad_reduce`` must spill nothing; the linear
              attention kernel ``linear_attention`` (one instance, 128-row
-             tiles) must issue wgmma, no mma.sync, and spill nothing.
+             tiles) and the resampling kernel ``resample`` (four
+             instances: N tile 64 or 128, up or down) must issue wgmma, no
+             mma.sync, and spill nothing.
 3. kernels:  each kernel against its plain PyTorch version at the 17 block
              shapes of the flagship denoiser, folded batch 5,376 (fp32,
              max abs and max relative error <= 1e-4; also at 5,000 and at
@@ -65,22 +67,38 @@ after a ``torch.cuda.synchronize()``:
              plain version at 5,376, 5,000 and 512, each row with its plan
              (tiles, persistent CTAs, cluster, laid-out weight bytes read
              from L2); untimed, the horizon-70 direct model's (64, 70),
-             (128, 35) and (512, 35) at 512.
+             (128, 35) and (512, 35) at 512. Then the resampling kernel
+             (Upsample1d, Downsample1d) at the flagship's 3 + 3 convs at
+             5,376: within 1e-4 of its plain version (the cuDNN path it
+             replaces: torch's strided convolution on transposed copies)
+             at 5,376, 5,000 and 512, run twice (the same bits), timed
+             beside that path (each launch no slower than it), its phase
+             form, one cuDNN call on an input already in its layout
+             (``library_ms``), its bounds (3xTF32 and fp32) and the host's
+             time to issue it; each row with its plan (N tile, tiles, cluster
+             items, CTAs, weight bytes) and its instance's registers,
+             spills and HGMMA/HMMA; untimed at 512, the later paths' shapes
+             (the direct model's T = 70 and 35, the forward model's T = 2
+             and 1, a ragged N tile, 1,024 channels).
 4. denoiser: the full-width TemporalUnet1D (dim 64, horizon 24) with seeded
              random weights, kernel path against plain path at batch 5,376
-             (16 + 1 + 8 launches); its ms per sample at folded batches 1,344
+             (16 + 1 + 8 + 3 + 3 launches); its ms per sample at folded batches 1,344
              to 10,752 (the measurement behind ``sampling/compose.FOLD_TARGET``);
              a line ``forward_ops``: one forward at 5,376 op by op under
              torch.profiler (``tools/forward_profile.forward_ops``: device ms
-             and launches by module and aten op, host issue ms).
+             and launches by module and aten op, host issue ms), whose up
+             and down groups must run the resampling kernel alone (3
+             launches each, no library convolution) and its 16 blocks' time
+             projections at most 4 launches (``forward_groups``).
 5. design:   ``cindm_tpu_torch.cli.design_1d`` at the flagship geometry
              (B=64, 8 bodies, n_composed=2, standard-recurrence-10) on a
              20-step schedule, from those weights written as a snapshot;
              each weight laid out once per N tile, a stage kernel call's in
              one launch (``staging``: 17 launches for 43 layouts an N tile;
              the attention's 8 blocks add a launch for each wqkv and wout:
-             16 launches and 16 layouts);
-             160 + 10 + 80 launches a reverse step.
+             16 launches and 16 layouts; the 3 + 3 resampling convs a
+             launch each for their two phase weights' layouts);
+             160 + 10 + 80 + 30 + 30 launches a reverse step.
 6. grad:     the 16 blocks' autograd Function (``FusedRTB``: the kernel's
              saving forward, the backward kernel on what it saved) and the
              head's against plain autograd at batch 512 (entries beyond
@@ -95,8 +113,9 @@ after a ``torch.cuda.synchronize()``:
              included); then one ``p_losses`` gradient of the full-width
              denoiser at batch 512, kernel path against plain path
              (every parameter's max |dg| / max |g_plain| <= 1e-3), its launch
-             counts (the 8 attention blocks on their plain path under
-             autograd: no attention launch), and one whole optimizer step
+             counts (the 8 attention blocks and the 3 + 3 resampling
+             convs on their plain path under autograd: none of their
+             launches), and one whole optimizer step
              timed on each path; then
              one backward pass of the 16 blocks and the head at batch 512
              through ``cindm_tpu_torch.tools.backward_profile``: each of the
@@ -119,7 +138,8 @@ after a ``torch.cuda.synchronize()``:
              generated on the card, 30% collision windows), cut only in its
              step count: 40 steps with milestones at 20 and 40, then a resume
              to step 50 with one 25-step DDIM eval; the launch counters (no
-             attention launch in a training step, 8 in each eval step),
+             attention or resampling launch in a training step, 8 and 3 + 3
+             in each eval step),
              ``grad_reduce``'s inside the backwards among them (17 a step,
              ``_build.launch_backward.reduce_launches``); after each run's
              last optimizer step every block of the trained model, kernel
@@ -142,7 +162,9 @@ after a ``torch.cuda.synchronize()``:
              over Unet, Unet_single_step, GNS_autoregress and GNS_direct,
              10 design steps each: the forward model's loss falls, every
              design objective is finite; seconds per run, CEM's model
-             forwards per second.
+             forwards per second; the forward surrogate's resampling convs
+             launch the kernel in CEM's rollouts and take the plain path
+             under autograd in training and backprop.
 10. unet2d:  the full-width Unet2D (dim 64, (1, 2), 21 channels) and
              ForceUnet (dim 64, (1, 2, 4, 8)) with seeded weights on the card
              against the port's CPU run of the same weights and inputs
@@ -207,7 +229,7 @@ after a ``torch.cuda.synchronize()``:
              ``--n_devices`` (losses and final parameters within 1e-6,
              cuDNN deterministic), the design record with the JAX keys and
              finite, 16 + 1 Function forwards and backwards a training step
-             and 160 + 10 launches a design step. (b) two ranks of
+             and 160 + 10 + 80 + 30 + 30 launches a design step. (b) two ranks of
              ``cindm_tpu_torch.tools.data_parallel`` on the one card over
              gloo, started with torchrun's environment, each building the
              kernels at once into one new root, against one process: the
@@ -227,8 +249,11 @@ after a ``torch.cuda.synchronize()``:
              the layout's ms, plain ms and bytes bound at both batches' N
              tiles) and one for ``prenorm_linear_attention`` (its launches
              per path, its autograd-path calls in training, ms, plain ms and
-             bounds over the flagship's 8 blocks, its rows), the
-             nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+             bounds over the flagship's 8 blocks, its rows) and one each for
+             ``upsample1d`` and ``downsample1d`` (the same, over the
+             flagship's three convs of the kind, with the cuDNN call's
+             ``library_ms``), the nvidia-smi line, and last
+             ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no ``ok`` line.
 It exits non-zero at once when CUDA is unavailable or when it runs outside a
@@ -390,6 +415,13 @@ ATTN_SHAPES = [(64, 24), (128, 12), (256, 6), (512, 3), (512, 3), (256, 3), (128
 ATTN_HIDDEN = 128  # heads x dim_head
 # (C, T) of the horizon-70 direct model's attention blocks (baselines/unet_forward.py)
 ATTN_LONG_SHAPES = [(64, 70), (128, 35), (512, 35)]
+# (kind, C, T in) of the flagship's 3 Downsample1d and 3 Upsample1d, in call order
+RESAMPLE_SHAPES = [("down", 64, 24), ("down", 128, 12), ("down", 256, 6), ("up", 256, 3), ("up", 128, 6),
+                   ("up", 64, 12)]
+# untimed, at the training batch: the horizon-70 direct model's (T 70 -> 35 -> 70), the
+# forward model's at horizon 2 (T 2 -> 1 -> 2), a ragged N tile, a 1,024-channel one
+RESAMPLE_ODD_SHAPES = [("down", 64, 70), ("up", 64, 35), ("down", 64, 2), ("up", 64, 1), ("down", 40, 14),
+                       ("up", 40, 7), ("down", 1024, 6), ("up", 1024, 3)]
 
 
 def emit(obj) -> None:
@@ -775,6 +807,143 @@ def check_attention(torch, dev, batch: int, cuda: bool, more: tuple[int, ...] = 
     return rows
 
 
+def resample_inputs(torch, g, dev, kind: str, C: int, T: int, batch: int) -> tuple:
+    """x [batch, T, C] and an Upsample1d's (w [C, C, 4]) or a Downsample1d's
+    (w [3, C, C]) weight and bias, seeded (uniform in +-1/sqrt(fan_in))."""
+    fan = (4 if kind == "up" else 3) * C
+    u = lambda shape: (torch.rand(shape, generator=g, device=dev) * 2 - 1) / math.sqrt(fan)
+    return (torch.randn((batch, T, C), generator=g, device=dev), u((C, C, 4) if kind == "up" else (3, C, C)),
+            u((C,)))
+
+
+def resample_work(kind: str, C: int, T: int, batch: int) -> tuple[int, int]:
+    """FLOP of a resampling conv's valid taps (up: each output phase's two
+    taps but the one past its sample's end; down: three but the one before
+    its start) and its bytes: x read and y written once, the weights and
+    bias once."""
+    if kind == "up":
+        taps, t_out, wn = 2 * (2 * T - 1), 2 * T, 4 * C * C
+    else:
+        taps, t_out, wn = 3 * (T // 2) - 1, T // 2, 3 * C * C
+    return 2 * batch * taps * C * C, 4 * (batch * (T + t_out) * C + wn + C)
+
+
+def resample_row(torch, g, dev, kind: str, C: int, T: int, batch: int, cuda: bool,
+                 more: tuple[int, ...] = (), timed: bool = True) -> tuple[dict, object]:
+    """One resampling conv (Upsample1d or Downsample1d): the kernel against
+    its plain version (torch's strided convolution on transposed copies: the
+    cuDNN path it replaces) at ``batch``, run twice (the same bits), timed
+    beside the plain version, the phase form, one cuDNN call on an input
+    already in its layout (``library_ms``) and its bounds (3xTF32 and fp32),
+    the host's time to issue it; untimed at each of ``more``; each with
+    its plan. Returns the row and the kernel's call on its inputs (whose
+    device time ``check_resample`` traces)."""
+    import torch.nn.functional as F
+
+    from cindm_tpu_torch.ops import _build
+    from cindm_tpu_torch.ops import resample as rs
+
+    up = kind == "up"
+    kern, plain = (rs.upsample1d, rs.upsample1d_reference) if up else (rs.downsample1d, rs.downsample1d_reference)
+    phase_w, phase = ((rs.upsample_phase_weights, rs.upsample1d_phase) if up
+                      else (rs.downsample_phase_weights, rs.downsample1d_phase))
+    x, w, b = resample_inputs(torch, g, dev, kind, C, T, batch)
+    got = kern(x, w, b)
+    repeats = bool(torch.equal(got, kern(x, w, b)))
+    abs_err, rel_err = errors(torch, got, plain(x, w, b))
+    flops, nbytes = resample_work(kind, C, T, batch)
+    bd = bounds(flops, nbytes)
+    row = dict(kind=kind, C=C, T=T, B=batch, max_abs_err=abs_err, max_rel_err=rel_err,
+               repeats_bit_for_bit=repeats, bound_ms=bd["bound_tc_ms"], bound_by=bd["bound_tc_by"],
+               bound_fp32_ms=bd["bound_ms"], flop=flops, bytes=nbytes,
+               **resample_plan(_build, batch, kind, C, T, dev, cuda))
+    if cuda and timed:
+        xt = x.transpose(1, 2).contiguous()  # the library call's layout, made outside its time
+        wt = w if up else w.permute(2, 1, 0).contiguous()
+        lib = ((lambda: F.conv_transpose1d(xt, wt, b, stride=2, padding=1)) if up
+               else (lambda: F.conv1d(xt, wt, b, stride=2, padding=1)))
+        wa, wb = phase_w(w)
+        plain_ms, kernel_ms = time_pair(torch, lambda: plain(x, w, b), lambda: kern(x, w, b))
+        phase_ms, library_ms = time_pair(torch, lambda: phase(x, wa, wb, b), lib)
+        row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, phase_ms=phase_ms, library_ms=library_ms,
+                   host_ms=host_ms(torch, lambda: kern(x, w, b), reps=50),
+                   no_slower_than_cudnn_path=kernel_ms <= plain_ms)
+    call = lambda x=x, w=w, b=b: kern(x, w, b)
+    for other in more:
+        x, w, b = resample_inputs(torch, g, dev, kind, C, T, other)
+        e = errors(torch, kern(x, w, b), plain(x, w, b))
+        row[f"at_{other}"] = dict(zip(("max_abs_err", "max_rel_err"), e),
+                                  **resample_plan(_build, other, kind, C, T, dev, cuda))
+    return row, call
+
+
+def resample_plan(_build, batch: int, kind: str, C: int, T: int, dev, cuda: bool) -> dict:
+    """The resampling launch's plan at ``batch`` on this card (the H100's 132
+    SMs on the CPU): its N tile, tiles, cluster items, persistent CTAs,
+    cluster size, shared memory and laid-out weight bytes."""
+    p = _build.plan_resample(batch, T, C, kind == "up", _build.num_sms(dev) if cuda else _build.H100_SMS)
+    return dict(n_tile=p.n_tile, tiles=p.tiles, items=p.items, ctas=p.ctas, cluster=p.cluster,
+                samples_a_tile=p.samples, smem_bytes=p.smem_bytes, weight_bytes=p.weight_bytes(C))
+
+
+def check_resample(torch, dev, batch: int, cuda: bool, build: dict | None = None,
+                   more: tuple[int, ...] = (ODD_BATCH, TRAIN_BATCH)) -> list:
+    """Phase 3, the resampling kernel at the flagship's 3 Downsample1d and 3
+    Upsample1d: each within TOL of its plain version at ``batch`` and at each
+    of ``more`` (max abs and max error / max |plain|), the same bits twice,
+    timed and no slower than the cuDNN path it replaces, beside each
+    launch's own device time from torch.profiler (``device_ms``, the six in
+    one trace: where the host takes longer to issue a call than the card to
+    run it, back-to-back calls run at the host's pace and ``kernel_ms`` is
+    that pace); each row with its instance's registers, spills and
+    tensor-core instructions (``build``: the build phase's record of the
+    kernel). Untimed at the later paths' shapes (RESAMPLE_ODD_SHAPES) at the
+    training batch."""
+    from cindm_tpu_torch.tools.forward_profile import stage_device_ms
+
+    g = torch.Generator(device=dev).manual_seed(2323)
+    rows, calls = zip(*(resample_row(torch, g, dev, *shape, batch, cuda, more if cuda else ())
+                        for shape in RESAMPLE_SHAPES))
+    rows = list(rows)
+    if cuda:
+        device_ms = stage_device_ms(torch, lambda: [c() for c in calls], reps=1, name="resample")
+        for r, ms in zip(rows, device_ms if isinstance(device_ms, list) else [device_ms] * len(rows)):
+            r["device_ms"] = ms
+        rows += [resample_row(torch, g, dev, *shape, TRAIN_BATCH, cuda, timed=False)[0] | {"untimed": True}
+                 for shape in RESAMPLE_ODD_SHAPES]
+    instances = (build or {}).get("ptxas", {})
+    sass = (build or {}).get("sass", {})
+    for r in rows:  # its instance: resample<N tile, up>
+        name = next((k for k in instances if f"resampleILi{r['n_tile']}ELb{int(r['kind'] == 'up')}E" in k), None)
+        if name:
+            r["instance"] = {**instances[name], **(sass.get(name, {}) if isinstance(sass, dict) else {})}
+    bad = [r for r in rows if not r["repeats_bit_for_bit"] or r.get("no_slower_than_cudnn_path") is False
+           or not all(e["max_abs_err"] <= TOL and e["max_rel_err"] <= TOL for e in attention_errors(r))]
+    if bad:
+        raise AssertionError(f"resampling kernel disagrees with its plain version beyond {TOL}, a second run "
+                             f"differs, or it is slower than the cuDNN path it replaces: {bad}")
+    return rows
+
+
+def check_forward_groups(fo: dict) -> dict:
+    """The flagship forward op by op (``forward_ops``): the up and down
+    groups run the resampling kernel, 3 launches each, and no convolution of
+    a library (cuDNN's or aten's); the 16 blocks' time projections take at
+    most 4 launches."""
+    mods = fo["modules"]
+    ops = {kind: [op for k, m in mods.items() if k.split(".")[0] == kind for op in m["ops"]]
+           for kind in ("up", "down")}
+    out = {f"{kind}_ops": sorted(set(v)) for kind, v in ops.items()}
+    out.update(up_launches=fo["groups"]["up"]["launches"], down_launches=fo["groups"]["down"]["launches"],
+               rtb_time_projection_launches=fo["groups"]["rtb_time_projection"]["launches"])
+    ok = (all(v and all("resample" in op and "conv" not in op.lower() for op in v) for v in ops.values())
+          and out["up_launches"] == out["down_launches"] == 3 and out["rtb_time_projection_launches"] <= 4)
+    if not ok:
+        raise AssertionError(f"the forward's up and down groups should run the resampling kernel alone, and "
+                             f"its time projections at most 4 launches: {out}")
+    return out
+
+
 def counters_at_zero() -> bool:
     """The split tiles' arrival counters that the wrappers keep are all 0
     (each launch leaves them so)."""
@@ -913,9 +1082,11 @@ def check_slice5_kernels(torch, dev, cuda: bool) -> dict:
 
 
 def reset_counts():
-    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, _build, fused_conv1d_gn_mish,
+    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, _build, downsample1d,
+                                     downsample1d_differentiable, fused_conv1d_gn_mish,
                                      fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
-                                     prenorm_linear_attention, prenorm_linear_attention_differentiable)
+                                     prenorm_linear_attention, prenorm_linear_attention_differentiable,
+                                     upsample1d, upsample1d_differentiable)
 
     _build.launch_backward.reduce_launches = 0
     _build.staged.launches = 0
@@ -930,18 +1101,24 @@ def reset_counts():
     FusedConv1dGNMish.backwards = 0
     prenorm_linear_attention.launches = 0
     prenorm_linear_attention_differentiable.autograd_calls = 0
+    upsample1d.launches = downsample1d.launches = 0
+    upsample1d_differentiable.autograd_calls = downsample1d_differentiable.autograd_calls = 0
 
 
 def read_counts(backwards: bool = False) -> dict:
     """The kernels' launch counters since the last reset_counts; with
     ``backwards`` also the autograd Functions' and backward kernels', and
-    the attention blocks that took their plain path under autograd (on CUDA)."""
-    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
-                                     fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
-                                     prenorm_linear_attention, prenorm_linear_attention_differentiable)
+    the attention blocks and resampling convolutions that took their plain
+    path under autograd (on CUDA)."""
+    from cindm_tpu_torch.ops import (FusedConv1dGNMish, FusedRTB, downsample1d, downsample1d_differentiable,
+                                     fused_conv1d_gn_mish, fused_conv1d_gn_mish_backward, fused_rtb,
+                                     fused_rtb_backward, prenorm_linear_attention,
+                                     prenorm_linear_attention_differentiable, upsample1d,
+                                     upsample1d_differentiable)
 
     counts = {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches,
-              "prenorm_linear_attention": prenorm_linear_attention.launches}
+              "prenorm_linear_attention": prenorm_linear_attention.launches,
+              "upsample1d": upsample1d.launches, "downsample1d": downsample1d.launches}
     if backwards:
         counts.update(FusedRTB_launches=FusedRTB.launches,
                       FusedRTB_backward_passes=FusedRTB.backwards,
@@ -949,7 +1126,9 @@ def read_counts(backwards: bool = False) -> dict:
                       FusedConv1dGNMish_backward_passes=FusedConv1dGNMish.backwards,
                       fused_rtb_backward=fused_rtb_backward.launches,
                       fused_conv1d_gn_mish_backward=fused_conv1d_gn_mish_backward.launches,
-                      prenorm_linear_attention_autograd=prenorm_linear_attention_differentiable.autograd_calls)
+                      prenorm_linear_attention_autograd=prenorm_linear_attention_differentiable.autograd_calls,
+                      upsample1d_autograd=upsample1d_differentiable.autograd_calls,
+                      downsample1d_autograd=downsample1d_differentiable.autograd_calls)
     return counts
 
 
@@ -983,8 +1162,9 @@ def check_denoiser(torch, dev, batch: int, model, cuda: bool) -> dict:
         rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
         if rel > DENOISER_TOL:
             raise AssertionError(f"denoiser kernel path vs plain: {rel} > {DENOISER_TOL}")
-        if cuda and counts != {"fused_rtb": 16, "fused_conv1d_gn_mish": 1, "prenorm_linear_attention": 8}:
-            raise AssertionError(f"one forward should launch 16 + 1 + 8 kernels, counted {counts}")
+        if cuda and counts != {"fused_rtb": 16, "fused_conv1d_gn_mish": 1, "prenorm_linear_attention": 8,
+                               "upsample1d": 3, "downsample1d": 3}:
+            raise AssertionError(f"one forward should launch 16 + 1 + 8 + 3 + 3 kernels, counted {counts}")
         rec = {"max_err_over_max_abs": rel, "launches": counts, "batch": batch}
         if cuda:
             plain_ms, kernel_ms = time_pair(
@@ -1079,12 +1259,15 @@ def run_analysis(torch, dev, model, cuda: bool, cuts: list[str] = ANALYSIS_CUTS,
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["multibody"]["launches"]}
     if cuda:
         checks["launches"] = all(r["launches"]["fused_rtb"] > 0 and r["launches"]["fused_conv1d_gn_mish"] > 0
-                                 and r["launches"]["prenorm_linear_attention"] > 0 for r in runs.values())
+                                 and r["launches"]["prenorm_linear_attention"] > 0
+                                 and r["launches"]["upsample1d"] > 0 and r["launches"]["downsample1d"] > 0
+                                 for r in runs.values())
     # the samplers take no gradient through the priors: no autograd Function
     # forward, no backward kernel and no attention on its plain path under
-    # autograd runs in this phase
+    # autograd runs in this phase (nor a resampling conv on its plain path)
     checks["no_gradient"] = all(v == 0 for k, v in launches.items()
-                                if k not in ("fused_rtb", "fused_conv1d_gn_mish", "prenorm_linear_attention"))
+                                if k not in ("fused_rtb", "fused_conv1d_gn_mish", "prenorm_linear_attention",
+                                             "upsample1d", "downsample1d"))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"analysis phase checks failed: {failed}; runs {runs}")
@@ -1160,7 +1343,11 @@ def run_baselines(torch, dev, cuda: bool, train_args: list[str] = BASELINE_TRAIN
     }
     if cuda:
         checks["launches"] = (counts["fused_conv1d_gn_mish"] > 0 and counts["FusedConv1dGNMish_launches"] > 0
-                              and counts["fused_conv1d_gn_mish_backward"] > 0)
+                              and counts["fused_conv1d_gn_mish_backward"] > 0
+                              # the forward surrogate's resampling: CEM's rollouts on the kernel,
+                              # training and backprop on the plain path under autograd
+                              and counts["upsample1d"] > 0 and counts["downsample1d"] > 0
+                              and counts["upsample1d_autograd"] > 0 and counts["downsample1d_autograd"] > 0)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"baselines phase checks failed: {failed}; train {train}; design {design}")
@@ -1203,6 +1390,16 @@ def attention_blocks(model) -> int:
     from cindm_tpu_torch.models.blocks import LinearAttentionTemporal
 
     return sum(isinstance(m, LinearAttentionTemporal) for m in model.modules())
+
+
+def resample_modules(model) -> tuple[int, int]:
+    """The Upsample1d and the Downsample1d modules of ``model``: each lays
+    out its two phase weights for the resampling kernel in one launch, once
+    per weight version."""
+    from cindm_tpu_torch.models.blocks import Downsample1d, Upsample1d
+
+    mods = list(model.modules())
+    return sum(isinstance(m, Upsample1d) for m in mods), sum(isinstance(m, Downsample1d) for m in mods)
 
 
 def kernel_calls(model) -> int:
@@ -1248,22 +1445,31 @@ def run_design(torch, dev, model, timesteps: int, design_args: list[str], cuda: 
                    "weight_tensors": kernel_weights(model), "kernel_calls": kernel_calls(model),
                    "attention_blocks": attention_blocks(model),
                    # wqkv [C, 384] laid out for N tiles of 128: the attention's alone have 384 outputs
-                   "attention_wqkv_layouts": sum(k[2][-1] == 384 and k[3] == 128 for k in log)}
+                   "attention_wqkv_layouts": sum(k[2][-1] == 384 and k[3] == 128 for k in log),
+                   "resample_modules": resample_modules(model),
+                   # the resampling convs' 2-tap phase weights (up: both, down: one of its two);
+                   # no other weight has 2 taps
+                   "resample_two_tap_layouts": sum(k[2][0] == 2 for k in log)}
     vals = [record[k] for k in ("design_obj", "design_obj_ci95", "MAE", "RMSE")]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"design record is not finite: {record}")
     per_step = {k: v / timesteps for k, v in counts.items()}
     if cuda and per_step != {"fused_rtb": 16.0 * RECURRENCE, "fused_conv1d_gn_mish": 1.0 * RECURRENCE,
-                             "prenorm_linear_attention": 8.0 * RECURRENCE}:
-        raise AssertionError(f"expected 160, 10 and 80 launches per reverse step, got {per_step}")
+                             "prenorm_linear_attention": 8.0 * RECURRENCE,
+                             "upsample1d": 3.0 * RECURRENCE, "downsample1d": 3.0 * RECURRENCE}:
+        raise AssertionError(f"expected 160, 10, 80, 30 and 30 launches per reverse step, got {per_step}")
     # at most one layout per weight tensor and N tile: none made twice; a
     # stage kernel call's weights in one launch: at most one a call per N
-    # tile; each attention block's wqkv and wout once, a launch each
-    n_attn = staging["attention_blocks"]
+    # tile; each attention block's wqkv and wout once, a launch each; each
+    # resampling conv's two phase weights once, in one launch
+    n_attn, (n_up, n_down) = staging["attention_blocks"], staging["resample_modules"]
+    n_res = n_up + n_down
     if cuda and not (staging["layouts"] == staging["logged"] == staging["distinct"]
                      and staging["attention_wqkv_layouts"] == n_attn
-                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"] + 2 * n_attn
-                     and 0 < staging["launches"] <= staging["kernel_calls"] * staging["n_tiles"] + 2 * n_attn):
+                     and staging["resample_two_tap_layouts"] == 2 * n_up + n_down
+                     and 0 < staging["distinct"] <= 2 * staging["weight_tensors"] + 2 * n_attn + 2 * n_res
+                     and 0 < staging["launches"]
+                     <= staging["kernel_calls"] * staging["n_tiles"] + 2 * n_attn + n_res):
         raise AssertionError(f"design should lay each weight out once per N tile, a call's in one launch: "
                              f"{staging}")
     batch = int(design_args[design_args.index("--batch_size") + 1])
@@ -1504,8 +1710,9 @@ def check_grad(torch, dev, batch: int, model, cuda: bool) -> dict:
             "FusedRTB_backward_passes": 16, "FusedConv1dGNMish_launches": 1,
             "FusedConv1dGNMish_backward_passes": 1,
             "fused_rtb_backward": 16, "fused_conv1d_gn_mish_backward": 1,
-            # the attention kernel has no backward: its 8 blocks take the plain path under autograd
-            "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8}
+            # the attention and resampling kernels have no backward: the plain path under autograd
+            "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8,
+            "upsample1d": 0, "upsample1d_autograd": 3, "downsample1d": 0, "downsample1d_autograd": 3}
     if cuda and counts != want:
         raise AssertionError(f"one training micro-step should count {want}, counted {counts}")
     rec = {"batch": batch, "loss_kernel": loss_k, "loss_plain": loss_p,
@@ -1608,6 +1815,7 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             runs.append({"seconds": seconds, "launches": counts, **staged,
                          "weight_tensors": kernel_weights(state.model), "kernel_calls": kernel_calls(state.model),
                          "attention_blocks": attention_blocks(state.model),
+                         "resample_modules": sum(resample_modules(state.model)),
                          "after_last_step": fresh,
                          "grad_reduce_launches": reduce,
                          "record": json.loads(lines[-1]), "step": state.step,
@@ -1638,7 +1846,9 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                   "fused_rtb_backward": 16 * n_steps,
                                   "fused_conv1d_gn_mish_backward": n_steps,
                                   "prenorm_linear_attention": 0,
-                                  "prenorm_linear_attention_autograd": 8 * n_steps}
+                                  "prenorm_linear_attention_autograd": 8 * n_steps,
+                                  "upsample1d": 0, "upsample1d_autograd": 3 * n_steps,
+                                  "downsample1d": 0, "downsample1d_autograd": 3 * n_steps}
             and second["launches"] == {"fused_rtb": 16 * (n2 + eval_steps),
                                        "fused_conv1d_gn_mish": n2 + eval_steps,
                                        "FusedRTB_launches": 16 * n2,
@@ -1649,7 +1859,9 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
                                        "fused_conv1d_gn_mish_backward": n2,
                                        # the eval samples without a gradient: the kernel
                                        "prenorm_linear_attention": 8 * eval_steps,
-                                       "prenorm_linear_attention_autograd": 8 * n2}
+                                       "prenorm_linear_attention_autograd": 8 * n2,
+                                       "upsample1d": 3 * eval_steps, "upsample1d_autograd": 3 * n2,
+                                       "downsample1d": 3 * eval_steps, "downsample1d_autograd": 3 * n2}
             # every backward of a training step wants the weights: one grad_reduce each
             and first["grad_reduce_launches"] == 17 * n_steps and second["grad_reduce_launches"] == 17 * n2)
         # the kernels on the weights of the last optimizer step, each laid out
@@ -1660,15 +1872,18 @@ def run_train(torch, dev, train_args: list[str], steps: tuple[int, int, int, int
             and r["after_last_step"]["restaged_launches"] == r["after_last_step"]["kernel_calls"] for r in runs)
         # each step's first forward lays every weight out anew (the optimizer
         # changed it), one launch a kernel call: 17 launches and 43 layouts a
-        # step for the flagship; the steps' attention runs plain, and the
-        # resumed run's one eval lays each attention block's wqkv and wout
-        # out once, a launch each (16 launches and 16 layouts), beside the
-        # stage kernels' 17 and 43
+        # step for the flagship; the steps' attention and resampling run
+        # plain, and the resumed run's one eval lays each attention block's
+        # wqkv and wout out once, a launch each (16 launches and 16
+        # layouts), and each resampling conv's two phase weights in one
+        # launch (6 and 12), beside the stage kernels' 17 and 43
         checks["staging"] = (
             first["staged_launches"] == first["kernel_calls"] * n_steps
             and first["staged_layouts"] == first["weight_tensors"] * n_steps
-            and all((r["staged_layouts"] - 2 * r["attention_blocks"] * e) * r["kernel_calls"]
-                    == (r["staged_launches"] - 2 * r["attention_blocks"] * e) * r["weight_tensors"]
+            and all((r["staged_layouts"] - 2 * (r["attention_blocks"] + r["resample_modules"]) * e)
+                    * r["kernel_calls"]
+                    == (r["staged_launches"] - (2 * r["attention_blocks"] + r["resample_modules"]) * e)
+                    * r["weight_tensors"]
                     for r, e in zip(runs, (0, 1))))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2501,10 +2716,13 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
                                  "FusedConv1dGNMish_launches": n,
                                  "FusedConv1dGNMish_backward_passes": n,
                                  "fused_rtb_backward": 16 * n, "fused_conv1d_gn_mish_backward": n,
-                                 "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8 * n}
+                                 "prenorm_linear_attention": 0, "prenorm_linear_attention_autograd": 8 * n,
+                                 "upsample1d": 0, "upsample1d_autograd": 3 * n,
+                                 "downsample1d": 0, "downsample1d_autograd": 3 * n}
                 and design_counts["fused_rtb"] == 16 * RECURRENCE * n
                 and design_counts["fused_conv1d_gn_mish"] == RECURRENCE * n
-                and design_counts["prenorm_linear_attention"] == 8 * RECURRENCE * n)
+                and design_counts["prenorm_linear_attention"] == 8 * RECURRENCE * n
+                and design_counts["upsample1d"] == design_counts["downsample1d"] == 3 * RECURRENCE * n)
         rec["launches"] = {k: train_counts[k] + design_counts[k] for k in train_counts}
 
         t0 = time.perf_counter()
@@ -2534,6 +2752,9 @@ def run_multigpu(torch, dev, cuda: bool, model, train_args: list[str] = TRAIN_AR
             and r["launches"]["sampler_1d"]["fused_conv1d_gn_mish"] == RECURRENCE * steps
             and r["launches"]["train_step"]["prenorm_linear_attention"] == 0
             and r["launches"]["sampler_1d"]["prenorm_linear_attention"] == 8 * RECURRENCE * steps
+            and r["launches"]["train_step"]["upsample1d"] == r["launches"]["train_step"]["downsample1d"] == 0
+            and r["launches"]["sampler_1d"]["upsample1d"] == 3 * RECURRENCE * steps
+            and r["launches"]["sampler_1d"]["downsample1d"] == 3 * RECURRENCE * steps
             and not any(r["launches"]["sampler_2d"].values()) for r in ranks)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2801,6 +3022,50 @@ def attention_entry(rows: list[dict], des: dict, train: dict, grad: dict, ana: d
     }
 
 
+def resample_entries(rows: list[dict], des: dict, train: dict, grad: dict, ana: dict, base: dict,
+                     d2d: dict, path2d: dict, multi: dict) -> list[dict]:
+    """The resampling kernel's two entries, upsample1d and downsample1d: their
+    launches on the design path and per path as the other entries count
+    them (the training paths take the plain version under autograd:
+    ``autograd_calls_*``); ms, plain ms (the cuDNN path they replace), the
+    library call's ms (cuDNN alone) and bounds summed over the flagship's
+    three convs of the kind (one forward's worth) at the folded batch; the
+    errors over those and the untimed shapes."""
+    first, second = train["runs"]
+    out = []
+    for key, kind, line in (("upsample1d", "up", 272), ("downsample1d", "down", 262)):
+        mine = [r for r in rows if r["kind"] == kind]
+        errs = [e for r in mine for e in attention_errors(r)]
+        timed = [r for r in mine if not r.get("untimed")]
+        by = {r["bound_by"] for r in timed}
+        total = lambda k: sum(r.get(k) or 0.0 for r in timed)
+        per_rank = [c["train_step"][key] + c["sampler_1d"][key] for c in multi["b"]["launches_per_rank"]]
+        out.append({
+            "name": key, "route": "cuda", "source": "cindm_tpu_torch/ops/csrc/resample.cu",
+            "replaces": f"none of its own: what XLA compiles for cindm_tpu/models/blocks.py:{line} "
+                        f"({'Upsample1d, nn.ConvTranspose' if kind == 'up' else 'Downsample1d, a Conv of stride 2'}); "
+                        "no Pallas kernel computes it",
+            "launches": des["launches"][key],
+            "max_abs_err": max(e["max_abs_err"] for e in errs), "max_rel_err": max(e["max_rel_err"] for e in errs),
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "device_ms": (total("device_ms") if all(isinstance(r.get("device_ms"), float) for r in timed)
+                          else "not measured"),
+            "phase_ms": total("phase_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": by.pop() if len(by) == 1 else "operations",
+            "bound_fp32_ms": total("bound_fp32_ms"), "library_ms": total("library_ms"),
+            "host_ms": total("host_ms"), "shapes": mine,
+            "launches_train": first["launches"][key] + second["launches"][key],
+            "autograd_calls_train": first["launches"][key + "_autograd"] + second["launches"][key + "_autograd"],
+            "launches_grad": grad["launches"][key], "autograd_calls_grad": grad["launches"][key + "_autograd"],
+            "launches_analysis": ana["launches"][key], "launches_baselines": base["launches"][key],
+            "autograd_calls_baselines": base["launches"][key + "_autograd"],
+            "launches_design2d": d2d["launches"][key],
+            **{f"launches_{phase}": counts[key] for phase, counts in path2d.items()},
+            "launches_multigpu": multi["launches"][key], "launches_multigpu_ranks": per_rank,
+        })
+    return out
+
+
 def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
         train_batch: int = TRAIN_BATCH, train_args: list[str] = TRAIN_ARGS,
         train_steps: tuple[int, int, int, int] = (TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS,
@@ -2857,6 +3122,8 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
                              ("grad_reduce", "11grad_reduce", 1, False))}
     if cuda:  # the attention kernel (one instance, 128-row tiles): wgmma and no mma.sync, no spill
         tc["linear_attention"] = check_kernel_build(_build, sass, "16linear_attentionE", 1)
+        # the resampling kernel (N tile 64 or 128 x up or down): the same
+        tc["resample"] = check_kernel_build(_build, sass, "8resampleILi", 4)
     if cuda:  # per stage instance: its template arguments and the cluster sizes of its launches
         tc["conv_gn_mish_stage"]["instances"] = stage_instances(
             _build, tc["conv_gn_mish_stage"], (fold_batch, ODD_BATCH, train_batch))
@@ -2872,10 +3139,11 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     emit({"stage_split": checks.pop("stage_split")})
     slice5 = check_slice5_kernels(torch, dev, cuda)
     attn = check_attention(torch, dev, fold_batch, cuda)
+    res = check_resample(torch, dev, fold_batch, cuda, tc.get("resample") if cuda else None)
     sync()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "tolerance": TOL, **checks, **slice5,
-          "prenorm_linear_attention": attn})
+          "prenorm_linear_attention": attn, "resample": res})
 
     t0 = time.perf_counter()
     model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
@@ -2883,8 +3151,9 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
     den["fold_ms_per_sample"] = time_folds(torch, dev, model, cuda)
     # one flagship forward op by op: device ms and launches by module and aten op
     if cuda:
-        emit({"forward_ops": forward_profile.forward_ops(torch, dev, model, fold_batch),
-              "power_limit_line": info["smi"]})
+        fo = forward_profile.forward_ops(torch, dev, model, fold_batch)
+        den["forward_groups"] = check_forward_groups(fo)
+        emit({"forward_ops": fo, "power_limit_line": info["smi"]})
     sync()
     emit({"phase": "denoiser", "seconds": time.perf_counter() - t0, "device": info["name"],
           "power_limit_line": info["smi"], "tolerance": DENOISER_TOL, **den})
@@ -3004,6 +3273,7 @@ def run(device: str, fold_batch: int, timesteps: int, design_args: list[str],
             entry["backward_launches_multigpu"] = multi["launches"][bwd]
             entry["backward_launches_multigpu_ranks"] = [c[bwd] for c in per_rank]
     line["kernels"].append(attention_entry(attn, des, train, grad, ana, base, d2d, path2d, multi))
+    line["kernels"].extend(resample_entries(res, des, train, grad, ana, base, d2d, path2d, multi))
     line["kernels"].append(reduce_entry(reduce_alone, train, bprof))
     line["kernels"].append(stage_weights_entry(checks, des, train, ana, base, d2d, path2d, multi))
     info["kernels"] = line

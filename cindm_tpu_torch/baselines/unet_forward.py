@@ -10,8 +10,9 @@ Every Conv1dBlock (33 at dim_mults (1, 2, 4, 8)) is the port's
 GroupNorm + Mish kernel, through ``ops.FusedConv1dGNMish`` and its backward
 kernel when autograd wants a gradient. With ``attention`` each linear
 attention goes through ``models.blocks.PreNormResidual``'s route (the
-attention kernel when no gradient is wanted). The 1x1 residuals, the down-
-and upsampling and the skip concatenations are plain PyTorch.
+attention kernel when no gradient is wanted), and so do the Downsample1d
+and Upsample1d (the resampling kernel when no gradient is wanted: CEM's
+rollouts). The 1x1 residuals and the skip concatenations are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ class Unet1DForwardModel(nn.Module):
                 x = next(attn)(x, use_kernels)
             hs.append(x)
             if self.down_flags[ind]:
-                x = next(down)(x)
+                x = next(down)(x, use_kernels)
         x = next(blk)(x, use_kernels)
         if self.attention:
             x = next(attn)(x, use_kernels)
@@ -126,7 +127,7 @@ class Unet1DForwardModel(nn.Module):
             if self.attention:
                 x = next(attn)(x, use_kernels)
             if self.up_flags[ind]:
-                x = next(up)(x)
+                x = next(up)(x, use_kernels)
         return self.final_conv(self.final_block(x, use_kernels))
 
     def flax_mapping(self) -> Iterator[tuple[tuple[str, ...], str, Any]]:

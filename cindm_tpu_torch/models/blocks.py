@@ -32,6 +32,12 @@ from ..ops.linear_attention import (
     prenorm_linear_attention_differentiable,
     prenorm_linear_attention_reference,
 )
+from ..ops.resample import (
+    downsample1d_differentiable,
+    downsample1d_reference,
+    upsample1d_differentiable,
+    upsample1d_reference,
+)
 
 __all__ = [
     "ChannelLayerNorm",
@@ -174,7 +180,9 @@ class Conv1dBlock(nn.Module):
 class ResidualTemporalBlock(nn.Module):
     """Two Conv1dBlocks with an additive time embedding and a 1x1 residual.
 
-    The time projection Dense(mish(t_emb)) runs outside the kernel; the rest
+    The time projection Dense(mish(t_emb)) runs outside the kernel, here or,
+    given as ``temb`` ([B, O], its rows possibly a view of a wider matrix),
+    by the caller (TemporalUnet1D projects every block's at once); the rest
     of the block is one ``ops.fused_rtb_differentiable`` call with
     ``use_kernels``: the kernel alone under ``torch.no_grad()``, the
     ``FusedRTB`` autograd Function when a gradient is wanted. The 1x1
@@ -192,8 +200,10 @@ class ResidualTemporalBlock(nn.Module):
             Conv1d(in_ch, out_ch, 1, generator=generator) if in_ch != out_ch else None
         )
 
-    def forward(self, x: torch.Tensor, t_emb: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
-        temb = self.time(mish(t_emb))
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor | None, use_kernels: bool = True, *,
+                temb: torch.Tensor | None = None) -> torch.Tensor:
+        if temb is None:
+            temb = self.time(mish(t_emb))
         b0, b1 = self.block0, self.block1
         res = self.residual
         fn = fused_rtb_differentiable if use_kernels else fused_rtb_reference
@@ -299,14 +309,20 @@ class PreNormResidual(nn.Module):
 
 
 class Downsample1d(nn.Module):
-    """Conv k3 s2 p1: halves the time axis."""
+    """Conv k3 s2 p1: halves the time axis.
+
+    With ``use_kernels`` it goes through ``ops.downsample1d_differentiable``
+    (the CUDA kernel on CUDA tensors when no gradient is wanted, the plain
+    version under autograd when one is); otherwise through the plain version.
+    """
 
     def __init__(self, dim: int, *, generator: torch.Generator):
         super().__init__()
         self.conv = Conv1d(dim, dim, 3, stride=2, padding=1, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+        fn = downsample1d_differentiable if use_kernels else downsample1d_reference
+        return fn(x, self.conv.weight, self.conv.bias)
 
 
 class Upsample1d(nn.Module):
@@ -314,7 +330,9 @@ class Upsample1d(nn.Module):
 
     Flax's ConvTranspose(k4, s2, "SAME") equals torch's conv_transpose1d with
     stride 2, padding 1 and the kernel flipped along K; the weight is stored
-    in torch's layout [C_in, C_out, K], already flipped.
+    in torch's layout [C_in, C_out, K], already flipped. With
+    ``use_kernels`` it goes through ``ops.upsample1d_differentiable``, as
+    Downsample1d does.
     """
 
     def __init__(self, dim: int, *, generator: torch.Generator):
@@ -323,6 +341,6 @@ class Upsample1d(nn.Module):
         self.weight = _uniform((dim, dim, 4), fan_in, generator)
         self.bias = _uniform((dim,), fan_in, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias, stride=2, padding=1)
-        return y.transpose(1, 2).contiguous()
+    def forward(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+        fn = upsample1d_differentiable if use_kernels else upsample1d_reference
+        return fn(x, self.weight, self.bias)

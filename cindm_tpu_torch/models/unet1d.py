@@ -20,8 +20,10 @@ from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _build
 from ..utils.persist import parse_keypath
 from .blocks import (
     Conv1d,
@@ -56,6 +58,41 @@ def _stage_flags(horizon: int, num_resolutions: int) -> tuple[list[bool], list[b
     return downs, ups
 
 
+class TimeProjections(nn.Module):
+    """Every ResidualTemporalBlock's time projection Dense(mish(t)) of one
+    forward in one product: Mish once, then t @ [W_0 | .. | W_n] + [b_0 |
+    .. | b_n] (``addmm``), each block's [B, O_k] a column view of it (its
+    rows sum O_k floats apart, as the fused-RTB kernel reads them): 2
+    launches where each block's own took 10. The JAX package computes the
+    same products outside any kernel (``cindm_tpu/models/blocks.py:160``),
+    Mish by its softplus; this Mish is torch's one-kernel form, within
+    float32's rounding of it.
+
+    It holds no parameters: the blocks' Dense modules own them. Without a
+    gradient wanted the concatenated weights are kept, keyed on every
+    weight's storage and version and on ``_build.staged``'s generation
+    (its ``clear()`` marks a write that moved no version); under autograd
+    they are concatenated each call, so that the gradients reach each
+    block's Dense."""
+
+    def __init__(self):
+        super().__init__()
+        self._kept: tuple | None = None
+
+    def forward(self, t: torch.Tensor, denses) -> tuple[torch.Tensor, ...]:
+        params = [p for d in denses for p in (d.weight, d.bias)]
+        weights, biases = params[0::2], params[1::2]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            w, b = torch.cat(weights, dim=1), torch.cat(biases)
+        else:
+            key = (_build.staged.generation, *((p.untyped_storage().data_ptr(), p._version) for p in params))
+            if self._kept is None or self._kept[0] != key:
+                self._kept = (key, torch.cat(weights, dim=1), torch.cat(biases))
+            _, w, b = self._kept
+        y = torch.addmm(b.to(t.dtype), F.mish(t), w.to(t.dtype))
+        return torch.split(y, [wk.shape[1] for wk in weights], dim=1)
+
+
 class TemporalUnet1D(nn.Module):
     """Temporal U-Net over [B, horizon, transition_dim].
 
@@ -64,8 +101,10 @@ class TemporalUnet1D(nn.Module):
     recompute backward when autograd needs their gradient, and its 8 linear
     attentions (with their pre-norm and residual) through the attention
     kernel when no gradient is wanted (their plain version under autograd
-    when one is); ``forward(..., use_kernels=False)`` runs the plain
-    versions instead.
+    when one is), and its 3 Downsample1d and 3 Upsample1d likewise through
+    the resampling kernel; ``forward(..., use_kernels=False)`` runs the
+    plain versions instead. The 16 blocks' time projections are one product
+    (``TimeProjections``) on either path.
     Weights are drawn from ``generator`` (a seed-0 CPU generator if None).
     """
 
@@ -110,6 +149,7 @@ class TemporalUnet1D(nn.Module):
         self.attns = nn.ModuleList(attns)
         self.downs = nn.ModuleList(downs)
         self.ups = nn.ModuleList(ups)
+        self.time_proj = TimeProjections()
         self.final_block = Conv1dBlock(dim, dim, kernel_size=5, generator=g)
         self.final_conv = Conv1d(dim, transition_dim, 1, generator=g)
 
@@ -118,30 +158,30 @@ class TemporalUnet1D(nn.Module):
         x = x.contiguous()
         t = self.time_pos(time).to(x.dtype)  # float32, or a bfloat16 copy's dtype
         t = self.time_mlp[1](mish(self.time_mlp[0](t)))
-        rtb, attn = iter(self.rtbs), iter(self.attns)
-        down, up = iter(self.downs), iter(self.ups)
+        rtbs = iter(self.rtbs)
+        tembs = iter(self.time_proj(t, [r.time for r in self.rtbs]))
+        rtb = lambda x: next(rtbs)(x, None, use_kernels, temb=next(tembs))
+        attn, down, up = iter(self.attns), iter(self.downs), iter(self.ups)
 
         hs = []
         for ind in range(self.num_res):
-            x = next(rtb)(x, t, use_kernels)
-            x = next(rtb)(x, t, use_kernels)
+            x = rtb(rtb(x))
             if self.attention:
                 x = next(attn)(x, use_kernels)
             hs.append(x)
             if self.down_flags[ind]:
-                x = next(down)(x)
-        x = next(rtb)(x, t, use_kernels)
+                x = next(down)(x, use_kernels)
+        x = rtb(x)
         if self.attention:
             x = next(attn)(x, use_kernels)
-        x = next(rtb)(x, t, use_kernels)
+        x = rtb(x)
         for ind in range(self.num_res - 1):
             x = torch.cat([x, hs.pop()], dim=-1)
-            x = next(rtb)(x, t, use_kernels)
-            x = next(rtb)(x, t, use_kernels)
+            x = rtb(rtb(x))
             if self.attention:
                 x = next(attn)(x, use_kernels)
             if self.up_flags[ind]:
-                x = next(up)(x)
+                x = next(up)(x, use_kernels)
         x = self.final_block(x, use_kernels)
         return self.final_conv(x)
 

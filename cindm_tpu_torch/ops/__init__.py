@@ -18,7 +18,10 @@ of partials alone, beside its plain version ``grad_reduce_reference``.
 denoiser's linear attention with its pre-norm and residual in one kernel;
 ``prenorm_linear_attention_differentiable`` takes its plain version
 ``prenorm_linear_attention_reference`` under autograd when a gradient is
-wanted (the kernel has no backward).
+wanted (the kernel has no backward). ``upsample1d`` and ``downsample1d``
+(``.launches``) are the denoiser's resampling convolutions in one kernel
+each; their ``*_differentiable`` forms take the plain versions
+``upsample1d_reference`` / ``downsample1d_reference`` under autograd.
 
 ``precision`` holds the bfloat16 helpers ``cast_floating`` and
 ``bf16_eps_model``; a bfloat16 model runs the plain versions.
@@ -50,11 +53,22 @@ from .linear_attention import (
     prenorm_linear_attention_reference,
 )
 from .precision import bf16_eps_model, cast_floating
+from .resample import (
+    downsample1d,
+    downsample1d_differentiable,
+    downsample1d_reference,
+    upsample1d,
+    upsample1d_differentiable,
+    upsample1d_reference,
+)
 
 __all__ = [
     "FusedConv1dGNMish",
     "bf16_eps_model",
     "cast_floating",
+    "downsample1d",
+    "downsample1d_differentiable",
+    "downsample1d_reference",
     "FusedRTB",
     "fused_conv1d_gn_mish",
     "fused_conv1d_gn_mish_backward",
@@ -74,4 +88,7 @@ __all__ = [
     "prenorm_linear_attention",
     "prenorm_linear_attention_differentiable",
     "prenorm_linear_attention_reference",
+    "upsample1d",
+    "upsample1d_differentiable",
+    "upsample1d_reference",
 ]

@@ -14,9 +14,10 @@ atomic rename: no lock file exists that a cut-off build could leave behind.
 Nothing here runs at import: ``load()`` is called by the wrappers on their
 first CUDA launch, so CPU-only hosts import every module. ``plan_stage``
 chooses the tile of each launch of the stage kernel in Python, where the
-CPU tests reach it, and ``plan_backward`` the tiles and scratch of the
+CPU tests reach it, ``plan_backward`` the tiles and scratch of the
 backward kernels (``csrc/conv_backward.cuh``), whose C entries take their
-arguments as one ``BackwardArgs`` structure.
+arguments as one ``BackwardArgs`` structure, and ``plan_attention`` and
+``plan_resample`` those of the attention and resampling kernels.
 """
 
 from __future__ import annotations
@@ -48,13 +49,13 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: (argtypes). Every entry returns the cudaError_t of its launch.
 SIGNATURES = {
     # x, temb, w1 staged, b1, gs1, gb1, w2 staged, b2, gs2, gb2, wres staged, bres, h, out,
-    # B, T, C, O, K, G, eps, StageLaunch* of the first stage, of the second, stream
-    "cindm_fused_rtb": [_P] * 14 + [_I] * 6 + [_F] + [_P] * 3,
+    # B, T, C, O, K, G, temb's row stride, eps, StageLaunch* of the first stage, of the second, stream
+    "cindm_fused_rtb": [_P] * 14 + [_I] * 7 + [_F] + [_P] * 3,
     # x, w staged, b, gs, gb, out, B, T, C, O, K, G, eps, StageLaunch*, stream
     "cindm_fused_conv1d_gn_mish": [_P] * 6 + [_I] * 6 + [_F] + [_P] * 2,
     # the saving instances: as above with z1, z2, mean1, rstd1, mean2, rstd2
     # (the head: z, mean, rstd) after out
-    "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 6 + [_F] + [_P] * 3,
+    "cindm_fused_rtb_saving": [_P] * 20 + [_I] * 7 + [_F] + [_P] * 3,
     "cindm_fused_conv1d_gn_mish_saving": [_P] * 9 + [_I] * 6 + [_F] + [_P] * 2,
     "cindm_stage_launch_size": [],
     # w[], out[], (K, C, O, n_tile)[], jobs, stream: the stage's weight layout
@@ -75,6 +76,9 @@ SIGNATURES = {
     # x, g, wqkv staged, wout staged, bout, out, B, T, C, CTAs, eps, stream:
     # PreNormResidual(LinearAttentionTemporal) (``plan_attention``)
     "cindm_linear_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # x, w0 staged, w1 staged, b, out, B, T, C, up, n_tile, CTAs, stream:
+    # Upsample1d (up = 1) or Downsample1d (``plan_resample``)
+    "cindm_resample": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
@@ -914,6 +918,25 @@ def check_inputs(kernel: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def check_rows(kernel: str, device: torch.device, name: str, t: torch.Tensor, shape: tuple) -> int:
+    """Raise unless ``t`` is a float32 [rows, n] matrix of ``shape`` on
+    ``device`` whose rows are contiguous and a multiple of 4 floats apart (a
+    view of columns of a wider matrix, read by 16-byte pieces); returns the
+    floats between its rows."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, x is on {device}")
+    if t.shape != shape:
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    ld = t.stride(0) if t.shape[0] > 1 else shape[1]
+    if t.stride(1) != 1 or ld < shape[1]:
+        raise ValueError(f"{kernel}: {name} must have contiguous rows, got strides {t.stride()}")
+    if device.type == "cuda" and ld % 4:
+        raise ValueError(f"{kernel}: {name}'s rows must lie a multiple of 4 floats apart, got {ld}")
+    return ld
+
+
 def check_channels(kernel: str, **channels: int) -> None:
     """Raise unless every channel count is a multiple of 4: the kernels read
     rows of their inputs and weights in 16-byte pieces."""
@@ -998,6 +1021,82 @@ def check_attention(C: int, T: int) -> None:
     if attention_smem_bytes() > SMEM_MAX:
         raise ValueError(f"prenorm_linear_attention: the kernel needs {attention_smem_bytes()} bytes "
                          f"of shared memory, over {SMEM_MAX}")
+
+
+# The resampling kernel's ring (csrc/resample.cu mirrors these): a slot of
+# one chunk's box in two tf32 planes and its weight blocks of RES_TAPS taps.
+RES_TAPS = 2
+RES_STAGES = {64: 11, 128: 8}
+
+
+def resample_smem_bytes(nt: int) -> int:
+    """Dynamic shared memory of a resampling launch at N tile ``nt``: 1,024
+    bytes to align the ring, its slots, a full, an empty and an A-box
+    barrier a slot."""
+    box = _align1024(TILE_ROWS * 4 * CHUNK)
+    slot = _align1024(2 * box + RES_TAPS * 2 * (nt // 8) * SBO_BYTES)
+    return 1024 + RES_STAGES[nt] * slot + 24 * RES_STAGES[nt]
+
+
+@dataclass(frozen=True)
+class ResamplePlan:
+    """One resampling launch: the GEMM's rows are ``rows`` a sample (up: x's
+    T; down: T / 2, x read as [B, T / 2, 2C]), tiles of ``samples`` whole
+    samples (``row_tiles`` of them) by ``n_tile`` output channels
+    (``n_tiles``: up's even then odd halves, 2 ceil(C / n_tile); down's
+    ceil(C / n_tile)); cluster items of ``cluster`` row tiles by an N tile,
+    walked by ``ctas`` persistent CTAs (one an SM at most)."""
+
+    up: bool
+    rows: int
+    samples: int
+    row_tiles: int
+    n_tile: int
+    n_tiles: int
+    cluster: int
+    items: int
+    ctas: int
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.n_tiles
+
+    def weight_bytes(self, C: int) -> int:
+        """Bytes of the laid-out weights: up two blocks of 2 taps, down one of
+        2 taps and one of 1, each C x C in N tiles of ``n_tile``."""
+        taps = 2 * RES_TAPS if self.up else RES_TAPS + 1
+        return -(-C // self.n_tile) * -(-C // CHUNK) * 2 * taps * (self.n_tile // 8) * SBO_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan_resample(B: int, T: int, C: int, up: bool, num_sms: int = H100_SMS) -> ResamplePlan:
+    """The resampling kernel's launch for x [B, T, C] (the C entry checks its
+    CTAs): row tiles pair into clusters of 2 that share an N tile's weight
+    blocks; the N tile is 64 or 128 channels, whichever takes the fewer
+    waves of cluster items over the clusters times the tile's width, 128 on
+    a tie (as ``plan_stage`` chooses). Raises on what the kernel does not
+    take: C not a multiple of 4, an odd T for down, more than 192 rows a
+    sample."""
+    kind = "upsample1d" if up else "downsample1d"
+    if B <= 0 or C <= 0 or C % 4:
+        raise ValueError(f"{kind}: the CUDA kernel takes B > 0 and C a positive multiple of 4, got B={B}, C={C}")
+    if not up and T % 2:
+        raise ValueError(f"downsample1d: the CUDA kernel takes an even T, got T={T}")
+    rows = T if up else T // 2
+    if not 0 < rows <= TILE_ROWS:
+        raise ValueError(f"{kind}: the CUDA kernel takes 1 to {TILE_ROWS} rows a sample, got T={T}")
+    if B * rows * 2 * C >= 2 ** 31:
+        raise ValueError(f"{kind}: the CUDA kernel takes fewer than 2^31 elements, got {B} x {rows} x {2 * C}")
+    samples = TILE_ROWS // rows
+    row_tiles = -(-B // samples)
+    cs = stage_cluster(row_tiles)
+    clusters = num_sms // cs
+    halves = 2 if up else 1
+    items = {nt: -(-row_tiles // cs) * halves * -(-C // nt) for nt in (128, 64)}
+    nt = min(items, key=lambda n: -(-items[n] // clusters) * n)  # 128 first: it wins a tie
+    return ResamplePlan(up, rows, samples, row_tiles, nt, halves * -(-C // nt), cs, items[nt],
+                        cs * min(items[nt], clusters), resample_smem_bytes(nt))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1097,6 +1196,7 @@ class WeightStage:
     def __init__(self, stager=None):
         self.launches = 0
         self.layouts = 0
+        self.generation = 0  # clear()s so far: what caches kept elsewhere key on
         self.stager = stager or self.stage
         self._owners: dict[int, dict] = {}
 
@@ -1120,7 +1220,17 @@ class WeightStage:
                 entries[key] = planes
         return [entries[key] for entries, key in keys]
 
-    def _entry(self, w: torch.Tensor, nt: int) -> tuple[dict, tuple]:
+    def derived(self, w: torch.Tensor, fn):
+        """``fn(w)``, tensors derived from w that a kernel's layouts are made
+        from (a rearrangement of its taps), kept as w's layouts are: per w's
+        version, dropped by ``clear()``. A derived tensor keeps its own
+        layouts (``many``) while it is kept."""
+        entries, key = self._entry(w, fn)
+        if key not in entries:
+            entries[key] = fn(w)
+        return entries[key]
+
+    def _entry(self, w: torch.Tensor, nt) -> tuple[dict, tuple]:
         """The entries of w's owner and w's key in them; where the key is new,
         the owner's planes of older versions go (never asked for again)."""
         owner = w if w._base is None else w._base
@@ -1158,12 +1268,15 @@ class WeightStage:
         return list(outs)
 
     def clear(self) -> None:
-        """Drop every kept layout (their weights then restage on next use)."""
-        for entries in self._owners.values():
+        """Drop every kept layout and derived tensor (their weights then
+        restage on next use), and count a generation."""
+        for entries in list(self._owners.values()):  # a derived tensor freed here drops its own entries
             entries.clear()
+        self.generation += 1
 
     def __len__(self) -> int:
-        return sum(len(e) for e in self._owners.values())
+        """The layouts kept (not the derived tensors)."""
+        return sum(isinstance(k[-1], int) for e in self._owners.values() for k in e)
 
 
 staged = WeightStage()  # the wrappers' cache; ``staged.clear()`` empties it

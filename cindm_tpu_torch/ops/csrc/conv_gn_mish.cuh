@@ -255,13 +255,14 @@ struct StageArgs {
   const float* b;     // [O]
   const float* gs;    // [O] GroupNorm scale
   const float* gb;    // [O] GroupNorm bias
-  const float* temb;  // [B, O] added after Mish, or null
+  const float* temb;  // [B, O] added after Mish (rows temb_ld floats apart), or null
   const float* xres;  // [B, T, O] identity residual, or [B, T, Cres] projection input, or null
   const float* bres;  // [O], with the projection
   float* out;         // [B, T, O]
   const uint32_t* ws;     // w [5, C, O] laid out by stage_weights (staged_weight_bytes(nt, C, O, 5))
   const uint32_t* wress;  // the 1x1 projection wres [Cres, O] laid out likewise (K = 1), or null
   int B, T, C, O, G, Cres;
+  int temb_ld;        // floats between temb's rows: O, or more for a view of every block's projections
   float eps;
   int samples;        // whole samples per tile (samples * T <= 192)
   int cs;             // CTAs of a cluster (1 or 2): row tiles 2q and 2q + 1 share an N tile's weights
@@ -467,19 +468,6 @@ __device__ __forceinline__ void pair_stats(const float* psum, int ns, int T, int
     if (out != nullptr) out[out0 + static_cast<size_t>(s) * G + g] = v;
   }
 }
-
-// The stores' exchange: lane q holds columns 8j + 2q, + 1 of n8 blocks j
-// (a) and j + 1 (b) of a row; one shuffle with lane q ^ 1 gives lanes 0, 2
-// columns 8j + 2q .. + 3 and lanes 1, 3 columns 8(j + 1) + 2(q - 1) .. + 3
-// (quad_col): whole float4s, so that a quad writes 64 contiguous bytes of
-// its row with one 16-byte store a lane.
-__device__ __forceinline__ float4 quad_pairs(float2 a, float2 b, int q) {
-  const bool odd = q & 1;
-  const float2 send = odd ? a : b;
-  const float rx = __shfl_xor_sync(0xffffffffu, send.x, 1), ry = __shfl_xor_sync(0xffffffffu, send.y, 1);
-  return odd ? make_float4(rx, ry, b.x, b.y) : make_float4(a.x, a.y, rx, ry);
-}
-__device__ __forceinline__ int quad_col(int j, int q) { return q & 1 ? 8 * (j + 1) + 2 * (q - 1) : 8 * j + 2 * q; }
 
 // One part of a cluster's walk: cluster item `item`, its chunks [c0, c1),
 // and `tag`: part | parts << 8 | slot << 16, part `part` of the item's
@@ -794,7 +782,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, StagePart p, int rt, i
         o = make_float4((o.x + pr.x) + bres.x, (o.y + pr.y) + bres.y, (o.z + pr.z) + bres.z, (o.w + pr.w) + bres.w);
       } else {
         if (a.temb != nullptr) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(a.temb + (b0 + smp[i]) * size_t(a.O) + n0 + c4));
+          const float4 t = __ldg(reinterpret_cast<const float4*>(a.temb + (b0 + smp[i]) * size_t(a.temb_ld) + n0 + c4));
           o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
         }
         if (a.xres != nullptr) {  // the identity residual

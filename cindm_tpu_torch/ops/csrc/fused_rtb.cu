@@ -43,20 +43,23 @@ namespace {
 
 // w1s, w2s: w1 [K, C, O] and w2 [K, O, O] laid out by stage_weights for N
 // tiles of the plans' n_tile; wress: wres [C, O] likewise (K = 1), or null
-// (identity). s1, s2: the plans of the two stage launches (a block's second
+// (identity). temb: [B, O] rows temb_ld floats apart (a multiple of 4, O or
+// more: a view of every block's projections in one [B, sum O] product),
+// on a 16-byte boundary. s1, s2: the plans of the two stage launches (a block's second
 // stage is C = O: its K, and so its split, is its own); they may share one
 // workspace and counters, since each launch leaves its counters at 0.
 int fused_rtb(const float* x, const float* temb, const void* w1s, const float* b1, const float* gs1,
               const float* gb1, const void* w2s, const float* b2, const float* gs2, const float* gb2,
               const void* wress, const float* bres, float* h, float* out, float* z1, float* z2,
               float* mean1, float* rstd1, float* mean2, float* rstd2, int B, int T, int C, int O, int K,
-              int G, float eps, const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
+              int G, int temb_ld, float eps, const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
               void* stream) {
   if ((wress == nullptr) != (bres == nullptr) || (wress == nullptr && C != O) || w1s == nullptr ||
-      w2s == nullptr || s1 == nullptr || s2 == nullptr || s1->n_tile != s2->n_tile)
+      w2s == nullptr || s1 == nullptr || s2 == nullptr || s1->n_tile != s2->n_tile || temb == nullptr ||
+      temb_ld < O || temb_ld % 4 != 0 || reinterpret_cast<uintptr_t>(temb) % 16 != 0)
     return cudaErrorInvalidValue;
   cindm::SaveArgs a{};
-  a.x = x; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.out = h;
+  a.x = x; a.b = b1; a.gs = gs1; a.gb = gb1; a.temb = temb; a.temb_ld = temb_ld; a.out = h;
   a.ws = static_cast<const uint32_t*>(w1s);
   a.B = B; a.T = T; a.C = C; a.O = O; a.G = G; a.eps = eps;
   a.z = z1; a.mean = mean1; a.rstd = rstd1;
@@ -80,11 +83,12 @@ extern "C" int cindm_fused_rtb(const float* x, const float* temb, const void* w1
                                const float* b1, const float* gs1, const float* gb1,
                                const void* w2s, const float* b2, const float* gs2,
                                const float* gb2, const void* wress, const float* bres, float* h,
-                               float* out, int B, int T, int C, int O, int K, int G, float eps,
-                               const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
+                               float* out, int B, int T, int C, int O, int K, int G, int temb_ld,
+                               float eps, const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
                                void* stream) {
   return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, B, T, C, O, K, G, eps, s1, s2, stream);
+                   nullptr, nullptr, nullptr, nullptr, nullptr, B, T, C, O, K, G, temb_ld, eps, s1, s2,
+                   stream);
 }
 
 extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const void* w1s,
@@ -93,14 +97,14 @@ extern "C" int cindm_fused_rtb_saving(const float* x, const float* temb, const v
                                       const float* gb2, const void* wress, const float* bres,
                                       float* h, float* out, float* z1, float* z2, float* mean1,
                                       float* rstd1, float* mean2, float* rstd2, int B, int T,
-                                      int C, int O, int K, int G, float eps,
+                                      int C, int O, int K, int G, int temb_ld, float eps,
                                       const cindm::StageLaunch* s1, const cindm::StageLaunch* s2,
                                       void* stream) {
   if (z1 == nullptr || z2 == nullptr || mean1 == nullptr || rstd1 == nullptr ||
       mean2 == nullptr || rstd2 == nullptr)
     return cudaErrorInvalidValue;
   return fused_rtb(x, temb, w1s, b1, gs1, gb1, w2s, b2, gs2, gb2, wress, bres, h, out, z1, z2,
-                   mean1, rstd1, mean2, rstd2, B, T, C, O, K, G, eps, s1, s2, stream);
+                   mean1, rstd1, mean2, rstd2, B, T, C, O, K, G, temb_ld, eps, s1, s2, stream);
 }
 
 // sizeof(StageLaunch), which load() holds the ctypes structure to.

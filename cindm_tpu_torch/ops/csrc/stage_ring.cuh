@@ -447,6 +447,19 @@ __device__ __forceinline__ TileRows tile_rows(int S, int ns, int T, unsigned tid
   return tr;
 }
 
+// The epilogues' stores: lane q holds columns 8j + 2q, + 1 of n8 blocks j
+// (a) and j + 1 (b) of a row; one shuffle with lane q ^ 1 gives lanes 0, 2
+// columns 8j + 2q .. + 3 and lanes 1, 3 columns 8(j + 1) + 2(q - 1) .. + 3
+// (quad_col): whole float4s, so that a quad writes 64 contiguous bytes of
+// its row with one 16-byte store a lane.
+__device__ __forceinline__ float4 quad_pairs(float2 a, float2 b, int q) {
+  const bool odd = q & 1;
+  const float2 send = odd ? a : b;
+  const float rx = __shfl_xor_sync(0xffffffffu, send.x, 1), ry = __shfl_xor_sync(0xffffffffu, send.y, 1);
+  return odd ? make_float4(rx, ry, b.x, b.y) : make_float4(a.x, a.y, rx, ry);
+}
+__device__ __forceinline__ int quad_col(int j, int q) { return q & 1 ? 8 * (j + 1) + 2 * (q - 1) : 8 * j + 2 * q; }
+
 // One part of K: chunks [c0, c1) of 8 input channels, a run of whole ring
 // stages, and the weight blocks of one N tile (one a chunk, of `taps` taps).
 struct RingPart {
@@ -527,8 +540,10 @@ __host__ __device__ constexpr int ring_set(int unit, int u) { return unit == 5 &
 // where a ring of Planes holds them). A stage's slot is released
 // (each warp arrives on its empty barrier, and with kPeer on its peer
 // CTA's unless peer is kNoPeer) once its last group is done. Ends with
-// every group done.
-template <class R, int K, int KW, Split kSplit, bool kPeer = false>
+// every group done. kRel: the stage's weight blocks hold the window's KW
+// taps only, tap u of the window at u (the resampling convs', whose N
+// tiles take different windows of K = 3 taps); else all K taps, tap k at k.
+template <class R, int K, int KW, Split kSplit, bool kPeer = false, bool kRel = false>
 __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart& p, const char* ring,
                                              uint32_t full, uint32_t empty, int& it,
                                              float (&acc)[R::kNT / 2], uint32_t peer = kNoPeer) {
@@ -539,7 +554,7 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
                 "consecutive groups need distinct register sets");
   static_assert(kSplit != Split::kPre || R::kWOff == 2 * R::kABytes, "kPre reads the split planes");
   constexpr uint32_t kPlane = (NT / 8) * kSboBytes;
-  constexpr uint32_t kBlock = weight_block_bytes(NT, K);
+  constexpr uint32_t kBlock = weight_block_bytes(NT, kRel ? KW : K);
   const int lane = threadIdx.x & 31;
   const int q4 = lane & 3;
   uint32_t abig[3][4], asmall[3][4];
@@ -562,7 +577,7 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
       }
     }
   };
-  // its 3 passes on the tap's weight planes, committed as one group
+  // its 3 passes on the weight planes of tap k of the stage's block, committed as one group
   auto issue = [&](const char* st, int ch, int k, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
     const uint32_t big = smem_u32(st + R::kWOff) + ch * kBlock + 2 * k * kPlane;
     wgmma_fence();
@@ -593,7 +608,7 @@ __device__ __forceinline__ void ring_consume(const TileRows& tr, const RingPart&
           const int set = ring_set(kUnit, u);
           const int k = tr.klo + (K == 1 ? 0 : u);
           load_a(st, ch, k, abig[set], asmall[set]);
-          issue(st, ch, k, abig[set], asmall[set]);
+          issue(st, ch, kRel ? k - tr.klo : k, abig[set], asmall[set]);
           wgmma_wait_1();
           if (ch0 == 0 && u == 0 && held >= 0) {  // the previous stage's last group is done
             release(held);

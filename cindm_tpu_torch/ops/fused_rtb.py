@@ -3,7 +3,8 @@
 Port of ``cindm_tpu/ops/fused_rtb.py``: the whole block
 
     h   = Mish(GN(conv5(x) + b1))
-    h  += temb[:, None, :]          # temb = Dense(mish(t_emb)), projected outside
+    h  += temb[:, None, :]          # temb = Dense(mish(t_emb)), projected outside: [B, O],
+                                    # its rows may lie further apart (a view of a wider matrix)
     h   = Mish(GN(conv5(h) + b2))
     out = h + (x @ wres + bres | x)
 
@@ -176,8 +177,9 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
     if wres is None and C != O:
         raise ValueError(f"fused_rtb: identity residual needs C == O, got {C} -> {O}")
     vec = (O,)
+    temb_ld = _build.check_rows("fused_rtb", x.device, "temb", temb, (B, O))
     shapes = dict(
-        x=(x, (B, T, C)), temb=(temb, (B, O)), w1=(w1, (K, C, O)), b1=(b1, vec),
+        x=(x, (B, T, C)), w1=(w1, (K, C, O)), b1=(b1, vec),
         gs1=(gs1, vec), gb1=(gb1, vec), w2=(w2, (K, O, O)), b2=(b2, vec),
         gs2=(gs2, vec), gb2=(gb2, vec),
     )
@@ -212,7 +214,7 @@ def _fused_rtb(x, temb, w1, b1, gs1, gb1, w2, b2, gs2, gb2, wres, bres, groups, 
         x.device, lib.cindm_fused_rtb_saving if save else lib.cindm_fused_rtb,
         *map(_build.ptr, (x, temb, staged[0], b1, gs1, gb1, staged[1], b2, gs2, gb2, wress, bres,
                           h, out, *saved)),
-        B, T, C, O, K, groups, eps, *(ctypes.byref(_build.stage_launch(p, *work)) for p in plans),
+        B, T, C, O, K, groups, temb_ld, eps, *(ctypes.byref(_build.stage_launch(p, *work)) for p in plans),
     )
     _build.raise_on_error("fused_rtb", err)
     fused_rtb.launches += 1

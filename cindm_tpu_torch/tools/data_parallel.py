@@ -44,9 +44,9 @@ RECURRENCE = 10
 
 def launches() -> dict:
     """The kernel counters of ``cindm_tpu_torch.ops``."""
-    from ..ops import (FusedConv1dGNMish, FusedRTB, fused_conv1d_gn_mish,
+    from ..ops import (FusedConv1dGNMish, FusedRTB, downsample1d, fused_conv1d_gn_mish,
                        fused_conv1d_gn_mish_backward, fused_rtb, fused_rtb_backward,
-                       prenorm_linear_attention)
+                       prenorm_linear_attention, upsample1d)
 
     return {"fused_rtb": fused_rtb.launches, "fused_conv1d_gn_mish": fused_conv1d_gn_mish.launches,
             "FusedRTB_launches": FusedRTB.launches, "FusedRTB_backward_passes": FusedRTB.backwards,
@@ -54,7 +54,8 @@ def launches() -> dict:
             "FusedConv1dGNMish_backward_passes": FusedConv1dGNMish.backwards,
             "fused_rtb_backward": fused_rtb_backward.launches,
             "fused_conv1d_gn_mish_backward": fused_conv1d_gn_mish_backward.launches,
-            "prenorm_linear_attention": prenorm_linear_attention.launches}
+            "prenorm_linear_attention": prenorm_linear_attention.launches,
+            "upsample1d": upsample1d.launches, "downsample1d": downsample1d.launches}
 
 
 def cases(dev: torch.device, mesh, sizes: dict) -> dict:

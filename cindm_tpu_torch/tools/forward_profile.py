@@ -1,7 +1,7 @@
 """Where the time of the forward kernels goes, shape by shape.
 
     python3 -m cindm_tpu_torch.tools.forward_profile [--batch 5376] [--reps 20] [--design]
-        [--saving-batch 512] [--train-step-batch 512] [--ops]
+        [--saving-batch 512] [--train-step-batch 512] [--ops] [--projections]
 
 Times, with CUDA events after a warm-up, the fused-RTB kernel at each of the
 16 block shapes of the flagship denoiser (TemporalUnet1D(24, 8, dim 64)) and
@@ -39,6 +39,11 @@ module that issued it (each attention block, down- and upsampling, the
 time MLP, the RTBs' time projections, ``fused_rtb``, the head, the final
 conv, the rest: the skip concatenations and copies), with the forward's
 host issue ms beside its device ms.
+
+With ``--projections`` it counts instead the launches of the 16 blocks'
+time projections at that batch (``projection_launches``): batched (one
+product) and per block, without a gradient and forward + backward under
+autograd.
 
 With ``--saving-batch`` it also times the autograd Functions' forward (the
 kernels' saving instance) of the 16 blocks and of the head at that batch
@@ -254,7 +259,9 @@ STAGE_KERNELS = ("conv_gn_mish_stage", "stage_weights")  # fused_rtb's launches 
 def module_ranges(model) -> tuple[list, dict, set]:
     """Forward hooks that put one torch.profiler range around each part of
     a TemporalUnet1D forward: ``denoiser`` (the whole), ``time_mlp`` (the
-    time embedding, from ``time_pos`` to ``time_mlp[1]``), ``rtb.<k>``,
+    time embedding, from ``time_pos`` to ``time_mlp[1]``),
+    ``rtb_time_projection`` (the 16 blocks' projections in one product,
+    ``time_proj``), ``rtb.<k>``,
     ``attention.<k>``, ``down.<k>``, ``up.<k>``, ``head`` and
     ``final_conv``. Returns (the hook handles, {label: (C, T) seen by the
     module, filled during the forward}, the labels)."""
@@ -276,6 +283,7 @@ def module_ranges(model) -> tuple[list, dict, set]:
         return post
 
     parts = [(model, model, "denoiser"), (model.time_pos, model.time_mlp[1], "time_mlp"),
+             (model.time_proj, model.time_proj, "rtb_time_projection"),
              (model.final_block, model.final_block, "head"), (model.final_conv, model.final_conv, "final_conv")]
     for name, kind in (("rtbs", "rtb"), ("attns", "attention"), ("downs", "down"), ("ups", "up")):
         parts += [(m, m, f"{kind}.{k}") for k, m in enumerate(getattr(model, name))]
@@ -286,10 +294,11 @@ def module_ranges(model) -> tuple[list, dict, set]:
 
 
 def _group(label: str, op: str, cuda: bool) -> str:
-    """The kind of module a (module range, op) belongs to. Inside an RTB the
-    hand-written stage kernels are ``fused_rtb`` and the rest its time
-    projection; on the CPU, where the RTB runs plain, all of it is
-    ``fused_rtb``."""
+    """The kind of module a (module range, op) belongs to. The blocks' time
+    projections are ``rtb_time_projection`` (their one product, and inside
+    an RTB what is not a stage kernel, as where a block projects its own);
+    inside an RTB the hand-written stage kernels are ``fused_rtb``, and on
+    the CPU, where the RTB runs plain, all of it is."""
     kind = label.split(".")[0]
     if kind == "rtb":
         return "fused_rtb" if not cuda or any(k in op for k in STAGE_KERNELS) else "rtb_time_projection"
@@ -400,6 +409,53 @@ def forward_ops(torch, dev, model, batch: int = 5376, seed: int = 5376) -> dict:
     return out
 
 
+def projection_launches(torch, dev, model, batch: int = 512, seed: int = 512) -> dict:
+    """The 16 blocks' time projections of ``model`` (a TemporalUnet1D) at
+    ``batch``, in the two forms, without a gradient (as sampling runs them)
+    and forward + backward under autograd (as training does): ``batched``
+    (``TimeProjections``: one product, each block's a column view) and
+    ``per_block`` (each block's Dense(mish(t)), as before). Each count is
+    the device kernels that torch.profiler sees (on the CPU: the aten ops
+    that ran), the gradients reaching every Dense weight and bias."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from cindm_tpu_torch.models.blocks import mish
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randn((batch, model.dim), generator=g, device=dev)
+    denses = [r.time for r in model.rtbs]
+    params = [p for d in denses for p in (d.weight, d.bias)]
+    forms = {"batched": lambda: model.time_proj(t, denses), "per_block": lambda: [d(mish(t)) for d in denses]}
+
+    def count(fn) -> int:
+        fn()  # warm-up: the kept concatenation, the libraries' handles
+        sync()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with trace(activities=acts) as prof:
+            fn()
+            sync()
+        if cuda:
+            return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        # the CPU: the ops that did the work (no op of theirs inside them)
+        return sum(1 for e in prof.events() if e.name.startswith("aten::") and not e.cpu_children)
+
+    out = {"batch": batch, "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "counts": "device kernels" if cuda else "CPU aten ops without an op inside"}
+    for name, form in forms.items():
+        with torch.no_grad():
+            sampling = count(form)
+
+        def train(form=form):
+            loss = sum(y.square().mean() for y in form())
+            return torch.autograd.grad(loss, params)
+
+        out[name] = {"sampling": sampling, "training": count(train)}
+    return out
+
+
 def profile(torch, dev, batch: int = 5376, reps: int = 20, design: bool = False,
             saving_batch: int | None = None, train_batch: int | None = None) -> dict:
     from cindm_tpu_torch.models import TemporalUnet1D
@@ -479,6 +535,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="also time one training step of the denoiser at this batch")
     ap.add_argument("--ops", action="store_true",
                     help="profile one denoiser forward op by op at --batch instead")
+    ap.add_argument("--projections", action="store_true",
+                    help="count the time projections' launches, batched and per block, at --batch instead")
     args = ap.parse_args(argv)
     import torch
 
@@ -488,11 +546,12 @@ def main(argv: list[str] | None = None) -> int:
     from cindm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")  # TF32 off, as every entry point of the port sets it
-    if args.ops:
+    if args.ops or args.projections:
         from cindm_tpu_torch.models import TemporalUnet1D
 
         model = TemporalUnet1D(24, 8, dim=64, generator=torch.Generator().manual_seed(0)).to(dev).eval()
-        print(json.dumps(forward_ops(torch, dev, model, args.batch)), flush=True)
+        fn = forward_ops if args.ops else projection_launches
+        print(json.dumps(fn(torch, dev, model, args.batch)), flush=True)
     else:
         print(json.dumps(profile(torch, dev, args.batch, args.reps, args.design, args.saving_batch,
                                  args.train_step_batch)), flush=True)

@@ -34,6 +34,12 @@ from cindm_tpu_torch.ops import (
     prenorm_linear_attention,
     prenorm_linear_attention_differentiable,
     prenorm_linear_attention_reference,
+    downsample1d,
+    downsample1d_differentiable,
+    downsample1d_reference,
+    upsample1d,
+    upsample1d_differentiable,
+    upsample1d_reference,
 )
 from cindm_tpu_torch.ops import _build
 from cindm_tpu_torch.ops.fused_conv_gn import _conv_gn_mish
@@ -309,12 +315,14 @@ def test_denoiser_kernel_path_matches_plain_path(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((96, 24, 8), generator=g, device=dev)
     t = torch.randint(0, 1000, (96,), generator=g, device=dev)
-    n = (fused_rtb.launches, fused_conv1d_gn_mish.launches, prenorm_linear_attention.launches)
+    n = (fused_rtb.launches, fused_conv1d_gn_mish.launches, prenorm_linear_attention.launches,
+         upsample1d.launches, downsample1d.launches)
     with torch.no_grad():
         got = m(x, t)
         want = m(x, t, use_kernels=False)
     assert (fused_rtb.launches - n[0], fused_conv1d_gn_mish.launches - n[1],
-            prenorm_linear_attention.launches - n[2]) == (16, 1, 8)
+            prenorm_linear_attention.launches - n[2], upsample1d.launches - n[3],
+            downsample1d.launches - n[4]) == (16, 1, 8, 3, 3)
     err = float((got - want).abs().max()) / float(want.abs().max())
     assert np.isfinite(err) and err < 1e-3
 
@@ -409,9 +417,10 @@ def test_raw_wrappers_refuse_a_gradient_on_cuda(dev):
 def test_training_step_goes_through_the_functions(dev):
     """One p_losses gradient of the full-width denoiser: 16 fused-RTB
     launches, all through FusedRTB, 16 backwards, each one call of the
-    backward kernel, 1 + 1 + 1 for the head, the 8 attentions on their plain
-    path under autograd (no attention launch), and every parameter's
-    gradient within 1e-3 of the plain path's largest entry."""
+    backward kernel, 1 + 1 + 1 for the head, the 8 attentions and the 3 + 3
+    resampling convs on their plain path under autograd (no launch of
+    theirs), and every parameter's gradient within 1e-3 of the plain path's
+    largest entry."""
     m = TemporalUnet1D(24, 8, dim=64).to(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((96, 24, 8), generator=g, device=dev) * 0.5
@@ -423,15 +432,19 @@ def test_training_step_goes_through_the_functions(dev):
         n = (fused_rtb.launches, FusedRTB.launches, FusedRTB.backwards,
              fused_conv1d_gn_mish.launches, FusedConv1dGNMish.backwards,
              fused_rtb_backward.launches, fused_conv1d_gn_mish_backward.launches,
-             prenorm_linear_attention.launches, prenorm_linear_attention_differentiable.autograd_calls)
+             prenorm_linear_attention.launches, prenorm_linear_attention_differentiable.autograd_calls,
+             upsample1d.launches + downsample1d.launches,
+             upsample1d_differentiable.autograd_calls + downsample1d_differentiable.autograd_calls)
         loss = p_losses(cfg, sched, lambda a, tt: m(a, tt, use_kernels), x, None, t=t, noise=noise)
         grads.append(torch.autograd.grad(loss, list(m.parameters())))
         counts = (fused_rtb.launches - n[0], FusedRTB.launches - n[1], FusedRTB.backwards - n[2],
                   fused_conv1d_gn_mish.launches - n[3], FusedConv1dGNMish.backwards - n[4],
                   fused_rtb_backward.launches - n[5], fused_conv1d_gn_mish_backward.launches - n[6],
                   prenorm_linear_attention.launches - n[7],
-                  prenorm_linear_attention_differentiable.autograd_calls - n[8])
-        assert counts == ((16, 16, 16, 1, 1, 16, 1, 0, 8) if use_kernels else (0,) * 9)
+                  prenorm_linear_attention_differentiable.autograd_calls - n[8],
+                  upsample1d.launches + downsample1d.launches - n[9],
+                  upsample1d_differentiable.autograd_calls + downsample1d_differentiable.autograd_calls - n[10])
+        assert counts == ((16, 16, 16, 1, 1, 16, 1, 0, 8, 0, 6) if use_kernels else (0,) * 11)
     for (name, _), gk, gp in zip(m.named_parameters(), *grads):
         err = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
         assert err <= 1e-3, (name, err)
@@ -786,3 +799,110 @@ def test_linear_attention_route_under_autograd_is_plain(dev):
     (gx,) = torch.autograd.grad(out.square().sum(), x)
     (want,) = torch.autograd.grad(prenorm_linear_attention_reference(x, *w).square().sum(), x)
     assert torch.equal(gx, want)
+
+
+# -- the resampling kernel (Upsample1d, Downsample1d) against its plain version
+
+# (kind, C, T in) of the flagship's 3 Downsample1d and 3 Upsample1d, and the later paths' odd ones
+RESAMPLE_SHAPES = [("down", 64, 24), ("down", 128, 12), ("down", 256, 6), ("up", 256, 3), ("up", 128, 6),
+                   ("up", 64, 12)]
+RESAMPLE_ODD = [("down", 64, 70), ("up", 64, 35), ("down", 64, 2), ("up", 64, 1), ("down", 40, 14),
+                ("up", 12, 5), ("down", 1024, 6), ("up", 1024, 3)]
+
+
+def _resample_args(kind, C, T, B, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fan = (4 if kind == "up" else 3) * C
+    u = lambda *s: (torch.rand(s, generator=g, device=dev) * 2 - 1) * fan ** -0.5
+    return (torch.randn((B, T, C), generator=g, device=dev), u(C, C, 4) if kind == "up" else u(3, C, C), u(C))
+
+
+def _resample_fns(kind):
+    return (upsample1d, upsample1d_reference) if kind == "up" else (downsample1d, downsample1d_reference)
+
+
+@pytest.mark.parametrize("B", [5376, 5000, 1], ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("kind,C,T", RESAMPLE_SHAPES + RESAMPLE_ODD, ids=lambda v: str(v))
+def test_resample_kernel_matches_plain(dev, kind, C, T, B):
+    a = _resample_args(kind, C, T, B, dev, seed=C + T + B)
+    kern, plain = _resample_fns(kind)
+    n = kern.launches
+    got = kern(*a)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1 and got.shape == plain(*a).shape
+    _attn_close(got, plain(*a))
+
+
+@pytest.mark.parametrize("kind,C,T,B", [("up", 256, 3, 5376), ("down", 64, 24, 5000), ("up", 40, 7, 33)],
+                         ids=lambda v: str(v))
+def test_resample_repeats_bit_for_bit(dev, kind, C, T, B):
+    a = _resample_args(kind, C, T, B, dev, seed=5)
+    kern, _ = _resample_fns(kind)
+    assert torch.equal(kern(*a), kern(*a))
+
+
+def test_resample_refuses_what_it_does_not_take(dev):
+    x, w, b = _resample_args("down", 64, 24, 4, dev, seed=1)
+    with pytest.raises(TypeError, match="float32"):
+        downsample1d(x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        downsample1d(x.transpose(0, 1).contiguous().transpose(0, 1), w, b)
+    with pytest.raises(ValueError, match="even T"):
+        downsample1d(*_resample_args("down", 64, 7, 2, dev, seed=2))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        upsample1d(*_resample_args("up", 30, 6, 2, dev, seed=2))
+    with pytest.raises(ValueError, match="rows a sample"):
+        upsample1d(*_resample_args("up", 8, 193, 2, dev, seed=2))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        xs = torch.empty(4 * 24 * 64 + 1, device=dev)[1:].view(4, 24, 64)
+        downsample1d(xs.copy_(x), w, b)
+    with pytest.raises(RuntimeError, match="downsample1d_differentiable"):
+        downsample1d(x.requires_grad_(True), w, b)
+
+
+@pytest.mark.parametrize("kind", ["up", "down"])
+def test_resample_route_under_autograd_is_plain(dev, kind):
+    """With a gradient wanted the conv takes its plain version (no launch, one
+    autograd call), and its input gradient is plain autograd's."""
+    x, w, b = _resample_args(kind, 64, 12, 8, dev, seed=3)
+    kern, plain = _resample_fns(kind)
+    route = upsample1d_differentiable if kind == "up" else downsample1d_differentiable
+    x.requires_grad_(True)
+    n = (kern.launches, route.autograd_calls)
+    out = route(x, w, b)
+    assert (kern.launches - n[0], route.autograd_calls - n[1]) == (0, 1)
+    (gx,) = torch.autograd.grad(out.square().sum(), x)
+    (want,) = torch.autograd.grad(plain(x, w, b).square().sum(), x)
+    assert torch.equal(gx, want)
+
+
+def test_resample_layouts_once_per_weight_version(dev):
+    """The phase weights' layouts: one stage_weights launch for a weight's
+    two, none on the next call, one again after an in-place update."""
+    x, w, b = _resample_args("up", 128, 6, 64, dev, seed=4)
+    n = _build.staged.launches
+    upsample1d(x, w, b)
+    upsample1d(x, w, b)
+    assert _build.staged.launches == n + 1
+    with torch.no_grad():
+        w.mul_(0.5)
+    _attn_close(upsample1d(x, w, b), upsample1d_reference(x, w, b))
+    assert _build.staged.launches == n + 2
+
+
+def test_fused_rtb_reads_a_row_strided_temb(dev):
+    """The time projection of every block in one product: each block's temb a
+    column view of it, the kernel's result the same bits as a copy's."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, T, C, O = 512, 12, 64, 128
+    f = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=dev)
+    wide = f(B, 3 * O)
+    temb = wide[:, O:2 * O]
+    ps = [f(5, C, O, sc=0.05), f(O), 1 + f(O, sc=0.1), f(O, sc=0.1), f(5, O, O, sc=0.05), f(O),
+          1 + f(O, sc=0.1), f(O, sc=0.1), f(C, O, sc=0.1), f(O)]
+    x = f(B, T, C)
+    assert torch.equal(fused_rtb(x, temb, *ps), fused_rtb(x, temb.contiguous(), *ps))
+    xr = x.clone().requires_grad_(True)
+    assert torch.equal(fused_rtb_differentiable(xr, temb, *ps), fused_rtb_differentiable(xr, temb.contiguous(), *ps))
+    with pytest.raises(ValueError, match="multiple of 4 floats"):
+        fused_rtb(x, f(B, O + 2)[:, :O], *ps)
