@@ -419,9 +419,10 @@ ATTN_LONG_SHAPES = [(64, 70), (128, 35), (512, 35)]
 RESAMPLE_SHAPES = [("down", 64, 24), ("down", 128, 12), ("down", 256, 6), ("up", 256, 3), ("up", 128, 6),
                    ("up", 64, 12)]
 # untimed, at the training batch: the horizon-70 direct model's (T 70 -> 35 -> 70), the
-# forward model's at horizon 2 (T 2 -> 1 -> 2), a ragged N tile, a 1,024-channel one
+# forward model's at horizon 2 (T 2 -> 1 -> 2), a ragged N tile, a 1,024-channel one, N
+# tiles of 128 at 35 rows a sample
 RESAMPLE_ODD_SHAPES = [("down", 64, 70), ("up", 64, 35), ("down", 64, 2), ("up", 64, 1), ("down", 40, 14),
-                       ("up", 40, 7), ("down", 1024, 6), ("up", 1024, 3)]
+                       ("up", 40, 7), ("down", 1024, 6), ("up", 1024, 3), ("up", 128, 35), ("down", 256, 70)]
 
 
 def emit(obj) -> None:
@@ -879,11 +880,13 @@ def resample_row(torch, g, dev, kind: str, C: int, T: int, batch: int, cuda: boo
 
 def resample_plan(_build, batch: int, kind: str, C: int, T: int, dev, cuda: bool) -> dict:
     """The resampling launch's plan at ``batch`` on this card (the H100's 132
-    SMs on the CPU): its N tile, tiles, cluster items, persistent CTAs,
-    cluster size, shared memory and laid-out weight bytes."""
+    SMs on the CPU): its N tile, tiles, cluster items, ring stages of an
+    item, split items (the last partial wave's) and the most parts of one,
+    persistent CTAs, cluster size, shared memory and laid-out weight bytes."""
     p = _build.plan_resample(batch, T, C, kind == "up", _build.num_sms(dev) if cuda else _build.H100_SMS)
-    return dict(n_tile=p.n_tile, tiles=p.tiles, items=p.items, ctas=p.ctas, cluster=p.cluster,
-                samples_a_tile=p.samples, smem_bytes=p.smem_bytes, weight_bytes=p.weight_bytes(C))
+    return dict(n_tile=p.n_tile, tiles=p.tiles, items=p.items, stages=p.stages, split_items=p.tail,
+                max_parts=p.max_parts, ctas=p.ctas, cluster=p.cluster, samples_a_tile=p.samples,
+                smem_bytes=p.smem_bytes, weight_bytes=p.weight_bytes(C))
 
 
 def check_resample(torch, dev, batch: int, cuda: bool, build: dict | None = None,
@@ -895,10 +898,12 @@ def check_resample(torch, dev, batch: int, cuda: bool, build: dict | None = None
     launch's own device time from torch.profiler (``device_ms``, the six in
     one trace: where the host takes longer to issue a call than the card to
     run it, back-to-back calls run at the host's pace and ``kernel_ms`` is
-    that pace); each row with its instance's registers, spills and
+    that pace), and at the training batch (``at_512``: device ms in one
+    trace beside the bound); each row with its instance's registers, spills and
     tensor-core instructions (``build``: the build phase's record of the
     kernel). Untimed at the later paths' shapes (RESAMPLE_ODD_SHAPES) at the
     training batch."""
+    from cindm_tpu_torch.ops import resample as rs
     from cindm_tpu_torch.tools.forward_profile import stage_device_ms
 
     g = torch.Generator(device=dev).manual_seed(2323)
@@ -909,6 +914,20 @@ def check_resample(torch, dev, batch: int, cuda: bool, build: dict | None = None
         device_ms = stage_device_ms(torch, lambda: [c() for c in calls], reps=1, name="resample")
         for r, ms in zip(rows, device_ms if isinstance(device_ms, list) else [device_ms] * len(rows)):
             r["device_ms"] = ms
+            r["device_x_bound"] = ms / r["bound_ms"] if isinstance(ms, float) else "not measured"
+        # the six at the training batch in one trace too (the plan's N tile and split differ there)
+        small = []
+        for kind, C, T in RESAMPLE_SHAPES:
+            kern = rs.upsample1d if kind == "up" else rs.downsample1d
+            x, w, b = resample_inputs(torch, g, dev, kind, C, T, TRAIN_BATCH)
+            kern(x, w, b)  # its layouts staged outside the trace
+            small.append(lambda kern=kern, x=x, w=w, b=b: kern(x, w, b))
+        device_ms = stage_device_ms(torch, lambda: [c() for c in small], reps=1, name="resample")
+        for r, ms, shape in zip(rows, device_ms if isinstance(device_ms, list) else [device_ms] * len(rows),
+                                RESAMPLE_SHAPES):
+            bd = bounds(*resample_work(*shape, TRAIN_BATCH))["bound_tc_ms"]
+            r.setdefault(f"at_{TRAIN_BATCH}", {}).update(
+                device_ms=ms, bound_ms=bd, device_x_bound=ms / bd if isinstance(ms, float) else "not measured")
         rows += [resample_row(torch, g, dev, *shape, TRAIN_BATCH, cuda, timed=False)[0] | {"untimed": True}
                  for shape in RESAMPLE_ODD_SHAPES]
     instances = (build or {}).get("ptxas", {})

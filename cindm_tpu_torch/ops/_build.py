@@ -76,9 +76,10 @@ SIGNATURES = {
     # x, g, wqkv staged, wout staged, bout, out, B, T, C, CTAs, eps, stream:
     # PreNormResidual(LinearAttentionTemporal) (``plan_attention``)
     "cindm_linear_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
-    # x, w0 staged, w1 staged, b, out, B, T, C, up, n_tile, CTAs, stream:
-    # Upsample1d (up = 1) or Downsample1d (``plan_resample``)
-    "cindm_resample": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w0 staged, w1 staged, b, out, ResampleLaunch*, stream: Upsample1d or
+    # Downsample1d (``plan_resample``, ``resample_launch``)
+    "cindm_resample": [_P] * 7,
+    "cindm_resample_launch_size": [],
 }
 
 # The tile and ring of the implicit-GEMM stage (csrc/conv_gn_mish.cuh on
@@ -119,7 +120,7 @@ NARROW_STAGES = 6  # and at nt = 64
 PROJ_CHUNKS = 2  # the projection's chunks a ring slot (ProjRing)
 STAGE_CLUSTER = 2  # CTAs of a cluster that share an N tile's weight blocks (multicast)
 # The split of a stage launch's last, partial wave of cluster items (its
-# tail) over all clusters by K chunks (stage_split in conv_gn_mish.cuh).
+# tail) over all clusters by K chunks (stage_split in stage_ring.cuh).
 # A part is at least SPLIT_MIN_CHUNKS chunks: one ring stage. The forward's
 # ring runs on across a cluster's parts, its producer filling the next
 # part's slots while the consumers store a part's partial sums, so a part
@@ -165,7 +166,7 @@ def stage_smem_bytes(nt: int, samples: int, groups: int) -> int:
 
 def stage_split(items: int, chunks: int, clusters: int, split: bool = True) -> tuple[int, int, int]:
     """How a stage launch of ``items`` cluster items of ``chunks`` K chunks
-    each goes over ``clusters`` clusters (stage_split in conv_gn_mish.cuh):
+    each goes over ``clusters`` clusters (stage_split in stage_ring.cuh):
     (tail, tail_clusters, max_parts). The first items - tail items run whole,
     round robin (as many full waves as there are); the last ``tail`` (the
     partial wave, or every item of a launch of fewer items than clusters)
@@ -849,6 +850,8 @@ def load() -> ctypes.CDLL:
             raise RuntimeError("ReduceArgs does not match the C structure cindm::ReduceArgs")
         if lib.cindm_stage_launch_size() != ctypes.sizeof(StageLaunch):
             raise RuntimeError("StageLaunch does not match the C structure cindm::StageLaunch")
+        if lib.cindm_resample_launch_size() != ctypes.sizeof(ResampleLaunch):
+            raise RuntimeError("ResampleLaunch does not match the C structure cindm::ResampleLaunch")
         _lib = lib
     return _lib
 
@@ -1025,27 +1028,43 @@ def check_attention(C: int, T: int) -> None:
 
 # The resampling kernel's ring (csrc/resample.cu mirrors these): a slot of
 # one chunk's box in two tf32 planes and its weight blocks of RES_TAPS taps.
+# The last partial wave is split where an item has RES_SPLIT_MIN_CHUNKS
+# chunks or more.
 RES_TAPS = 2
-RES_STAGES = {64: 11, 128: 8}
+RES_SPLIT_MIN_CHUNKS = 32
+
+
+def resample_ring(nt: int) -> tuple[int, int]:
+    """The resampling kernel's ring at N tile ``nt`` (ResRing): (slots,
+    bytes of a slot). A slot is the box's 192 rows of one chunk in two tf32
+    planes, then the chunk's weight blocks; as many slots as the shared
+    memory holds beside a full, an empty and an A-box barrier each and the
+    split's word."""
+    plane = _align1024(TILE_ROWS * 4 * CHUNK)
+    slot = _align1024(2 * plane + 2 * RES_TAPS * (nt // 8) * SBO_BYTES)
+    return (SMEM_MAX - 1024 - 16) // (slot + 24), slot
 
 
 def resample_smem_bytes(nt: int) -> int:
     """Dynamic shared memory of a resampling launch at N tile ``nt``: 1,024
     bytes to align the ring, its slots, a full, an empty and an A-box
-    barrier a slot."""
-    box = _align1024(TILE_ROWS * 4 * CHUNK)
-    slot = _align1024(2 * box + RES_TAPS * 2 * (nt // 8) * SBO_BYTES)
-    return 1024 + RES_STAGES[nt] * slot + 24 * RES_STAGES[nt]
+    barrier a slot, 16 bytes for the split tiles' word."""
+    stages, slot = resample_ring(nt)
+    return 1024 + stages * (slot + 24) + 16
 
 
 @dataclass(frozen=True)
 class ResamplePlan:
     """One resampling launch: the GEMM's rows are ``rows`` a sample (up: x's
     T; down: T / 2, x read as [B, T / 2, 2C]), tiles of ``samples`` whole
-    samples (``row_tiles`` of them) by ``n_tile`` output channels
-    (``n_tiles``: up's even then odd halves, 2 ceil(C / n_tile); down's
-    ceil(C / n_tile)); cluster items of ``cluster`` row tiles by an N tile,
-    walked by ``ctas`` persistent CTAs (one an SM at most)."""
+    samples (``row_tiles`` of them) by ``n_tile`` output channels (``n_tiles``:
+    up's even then odd halves, 2 ceil(C / n_tile); down's ceil(C /
+    n_tile)); cluster items of ``cluster`` row tiles by an N tile, each
+    ``stages`` ring stages of one chunk deep (up: C's; down: x2's first C,
+    then its last), walked by ``ctas`` persistent CTAs (one an SM at most)
+    of a device of ``num_sms`` SMs. The last ``tail`` items (the partial
+    wave) are split by K stages into ``tail_clusters`` ranges, one a cluster
+    (``stage_split``; ``max_parts`` the most parts of an item)."""
 
     up: bool
     rows: int
@@ -1057,10 +1076,40 @@ class ResamplePlan:
     items: int
     ctas: int
     smem_bytes: int
+    stages: int
+    num_sms: int
+    tail: int
+    tail_clusters: int
+    max_parts: int
 
     @property
     def tiles(self) -> int:
         return self.row_tiles * self.n_tiles
+
+    @property
+    def work_bytes(self) -> int:
+        """The split tiles' workspace: a slot of 192 x n_tile partial sums per
+        tail item, part and rank."""
+        return self.tail * self.max_parts * self.cluster * TILE_ROWS * self.n_tile * 4
+
+    @property
+    def counters(self) -> int:
+        """The split tiles' arrival counters: one per tail item and rank."""
+        return self.tail * self.cluster
+
+    def _walk(self) -> StagePlan:
+        """The walk as the stage's plan has it (K in ring stages)."""
+        return StagePlan(self.samples, self.n_tile, self.smem_bytes, (self.row_tiles, self.n_tiles), self.ctas,
+                         self.cluster, self.stages, self.tail, self.tail_clusters, self.max_parts)
+
+    def item_parts(self, item: int) -> list[tuple[int, int]]:
+        """The ring-stage ranges [k0, k1) of item ``item``'s parts, in part order."""
+        return self._walk().item_parts(item)
+
+    def walk(self, cta: int) -> list[tuple[int, int, int, int, int, int]]:
+        """The parts CTA ``cta`` runs, in order: (row tile, N tile, k0, k1,
+        part, parts); its range of the tail the last item first (walk_part)."""
+        return self._walk().walk(cta)
 
     def weight_bytes(self, C: int) -> int:
         """Bytes of the laid-out weights: up two blocks of 2 taps, down one of
@@ -1069,15 +1118,15 @@ class ResamplePlan:
         return -(-C // self.n_tile) * -(-C // CHUNK) * 2 * taps * (self.n_tile // 8) * SBO_BYTES
 
 
-@functools.lru_cache(maxsize=None)
-def plan_resample(B: int, T: int, C: int, up: bool, num_sms: int = H100_SMS) -> ResamplePlan:
-    """The resampling kernel's launch for x [B, T, C] (the C entry checks its
-    CTAs): row tiles pair into clusters of 2 that share an N tile's weight
-    blocks; the N tile is 64 or 128 channels, whichever takes the fewer
-    waves of cluster items over the clusters times the tile's width, 128 on
-    a tie (as ``plan_stage`` chooses). Raises on what the kernel does not
-    take: C not a multiple of 4, an odd T for down, more than 192 rows a
-    sample."""
+def resample_plan_at(B: int, T: int, C: int, up: bool, nt: int, num_sms: int = H100_SMS) -> ResamplePlan:
+    """The resampling kernel's launch for x [B, T, C] at N tile ``nt`` (64 or
+    128; the C entry recomputes the rest from B, T, C, up, the N tile and
+    ``num_sms`` and refuses a plan that differs): row tiles pair into
+    clusters of 2 that share an N tile's weight blocks; the last partial
+    wave is split by K (``stage_split``) where an item has
+    RES_SPLIT_MIN_CHUNKS chunks of 8 channels or more (kResSplitMinChunks).
+    Raises on what the kernel does not take: C not a multiple of 4, an odd
+    T for down, more than 192 rows a sample."""
     kind = "upsample1d" if up else "downsample1d"
     if B <= 0 or C <= 0 or C % 4:
         raise ValueError(f"{kind}: the CUDA kernel takes B > 0 and C a positive multiple of 4, got B={B}, C={C}")
@@ -1093,10 +1142,67 @@ def plan_resample(B: int, T: int, C: int, up: bool, num_sms: int = H100_SMS) -> 
     cs = stage_cluster(row_tiles)
     clusters = num_sms // cs
     halves = 2 if up else 1
-    items = {nt: -(-row_tiles // cs) * halves * -(-C // nt) for nt in (128, 64)}
-    nt = min(items, key=lambda n: -(-items[n] // clusters) * n)  # 128 first: it wins a tie
-    return ResamplePlan(up, rows, samples, row_tiles, nt, halves * -(-C // nt), cs, items[nt],
-                        cs * min(items[nt], clusters), resample_smem_bytes(nt))
+    items = -(-row_tiles // cs) * halves * -(-C // nt)
+    stages = -(-C // CHUNK) * (1 if up else 2)  # a chunk a ring stage; down: x2's first C, then its last
+    if not 0 < clusters <= 255 or clusters * clusters * stages >= 2 ** 31:  # the C side's int walk
+        raise ValueError(f"{kind}: the CUDA kernel takes 1 to 255 clusters and fewer than "
+                         f"{2 ** 31 // clusters ** 2} ring stages an item, got {stages}")
+    tail, qt, parts = stage_split(items, stages, clusters, stages >= RES_SPLIT_MIN_CHUNKS)
+    used = min(clusters, max(items - tail, qt))  # clusters with work
+    return ResamplePlan(up, rows, samples, row_tiles, nt, halves * -(-C // nt), cs, items, cs * used,
+                        resample_smem_bytes(nt), stages, num_sms, tail, qt, parts)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_resample(B: int, T: int, C: int, up: bool, num_sms: int = H100_SMS) -> ResamplePlan:
+    """The resampling kernel's launch for x [B, T, C] (``resample_plan_at``)
+    at an N tile of 64 or 128 channels. Where full waves of items run at N
+    tile 128 and the last wave is split (items of RES_SPLIT_MIN_CHUNKS
+    chunks or more), the one that pads C less: a wide tile reads and splits
+    A half as often (N tile 64 took the six flagship launches at batch
+    5,376 29% longer on an H100, PERF.md). Elsewhere the fewer waves of
+    cluster items over the clusters times the tile's width (as
+    ``plan_stage`` chooses): where every item is in the split tail, a
+    narrow tile's parts run twice the chunks for half a tile's fixup (at
+    batch 512, N tile 64 took 11% less); where items run whole, up 128 at
+    T 6 at batch 512 has 16 items of N tile 128 for 66 clusters, 32 of 64.
+    128 on a tie."""
+    plans = {nt: resample_plan_at(B, T, C, up, nt, num_sms) for nt in (128, 64)}
+    wide = plans[128]
+    clusters = num_sms // wide.cluster
+    if wide.stages >= RES_SPLIT_MIN_CHUNKS and wide.items >= clusters:
+        width = lambda nt: -(-C // nt) * nt
+    else:
+        width = lambda nt: -(-plans[nt].items // clusters) * nt
+    return plans[min(plans, key=width)]  # 128 first: it wins a tie
+
+
+class ResampleLaunch(ctypes.Structure):
+    """One resampling launch's plan as the C entry takes it; mirrors
+    ``cindm::ResampleLaunch`` in ``csrc/resample.cu`` field for field
+    (``load()`` checks its size): x's shape and the plan's fields, then the
+    split tiles' workspace and counters with their sizes."""
+
+    _fields_ = ([(n, _I) for n in ("B", "T", "C", "up", "n_tile", "num_sms", "samples", "cluster", "items",
+                                   "stages", "ctas", "smem_bytes", "tail", "tail_clusters", "max_parts")]
+                + [("work", _P), ("counters", _P), ("work_bytes", _L), ("n_counters", _I)])
+
+
+def resample_launch(plan: ResamplePlan, B: int, T: int, C: int, work: torch.Tensor | None = None,
+                    counters: torch.Tensor | None = None) -> ResampleLaunch:
+    """``plan`` for x [B, T, C] as the C entry takes it, with the workspace and
+    counters of its split (``stage_work``; None where it splits nothing):
+    made once per plan, shape and workspace, then kept."""
+    return _resample_launch(plan, B, T, C, ptr(work), 0 if work is None else 4 * work.numel(), ptr(counters),
+                            0 if counters is None else counters.numel())
+
+
+@functools.lru_cache(maxsize=256)
+def _resample_launch(plan: ResamplePlan, B: int, T: int, C: int, work: int | None, work_bytes: int,
+                     counters: int | None, n_counters: int) -> ResampleLaunch:
+    return ResampleLaunch(B, T, C, int(plan.up), plan.n_tile, plan.num_sms, plan.samples, plan.cluster,
+                          plan.items, plan.stages, plan.ctas, plan.smem_bytes, plan.tail, plan.tail_clusters,
+                          plan.max_parts, work, counters, work_bytes, n_counters)
 
 
 @functools.lru_cache(maxsize=None)

@@ -185,53 +185,8 @@ __host__ __device__ inline size_t stage_smem_bytes(int nt, int samples, int grou
          24 * stages + 16;
 }
 
-// The split of a launch's tail (mirrors ops/_build.stage_split and its
-// SPLIT_MIN_CHUNKS, SPLIT_PARTS): a part is one ring stage at least (the
-// ring runs on across a cluster's parts); the tail's chunks go into ranges
-// of at least a tile's chunks / kSplitParts, so a tile has about
-// kSplitParts parts at most, each of which its finisher reads.
-constexpr int kSplitMinChunks = 1;
-constexpr int kSplitParts = 8;
+// The split tail (stage_split in stage_ring.cuh) runs where kSplitTail.
 constexpr bool kSplitTail = true;
-struct StageSplit {
-  int tail;           // the last `tail` cluster items are split; 0: every item runs whole
-  int tail_clusters;  // the tail's chunks in this many contiguous ranges, one a cluster
-  int max_parts;      // the most parts of a tile
-};
-
-// The range of the tail's `total` chunks, cut into `ranges`, that holds
-// chunk j; the first chunk of range k (total x ranges < 2^31: the launch
-// refuses a plan past it).
-__host__ __device__ inline int range_of(int j, int total, int ranges) { return ((j + 1) * ranges - 1) / total; }
-__host__ __device__ inline int range_start(int k, int total, int ranges) { return k * total / ranges; }
-
-// How `items` cluster items of `chunks` K chunks go over `clusters`
-// clusters: those of full waves whole, the rest (items % clusters) cut into
-// ranges of their chunks, one a cluster, at most as many ranges as
-// tail x kSplitParts; no split where a tile has one chunk or every wave is
-// full.
-inline StageSplit stage_split(int items, int chunks, int clusters) {
-  StageSplit s{0, 0, 1};
-  const int tail = items % clusters;
-  if (!kSplitTail || chunks < 2 * kSplitMinChunks || tail == 0) return s;
-  const int total = tail * chunks;
-  int q = clusters;
-  if (q > tail * kSplitParts) q = tail * kSplitParts;
-  if (q > total / kSplitMinChunks) q = total / kSplitMinChunks;
-  s.tail = tail;
-  s.tail_clusters = q;
-  for (int i = 0; i < tail; ++i) {
-    const int parts = range_of((i + 1) * chunks - 1, total, q) - range_of(i * chunks, total, q) + 1;
-    if (parts > s.max_parts) s.max_parts = parts;
-  }
-  return s;
-}
-
-// Bytes of a launch's workspace: a slot of 192 x nt partial sums per tail
-// item, part and rank (mirrors StagePlan.work_bytes).
-inline size_t stage_work_bytes(const StageSplit& s, int cs, int nt) {
-  return size_t(s.tail) * s.max_parts * cs * kTileRows * nt * 4;
-}
 
 // One stage launch's plan as ops/_build.plan_stage makes it (the ctypes
 // structure _build.StageLaunch mirrors it field for field): the launch
@@ -469,60 +424,10 @@ __device__ __forceinline__ void pair_stats(const float* psum, int ns, int T, int
   }
 }
 
-// One part of a cluster's walk: cluster item `item`, its chunks [c0, c1),
-// and `tag`: part | parts << 8 | slot << 16, part `part` of the item's
-// `parts` (a whole item: all of K, part 0 of 1), `slot` the item's index in
-// the split tail (its workspace slots and counters). One register for the
-// three, which the consumers keep across the main loop (parts < 256: at
-// most one a cluster).
-struct StagePart {
-  int item, c0, c1, tag;
-};
-__device__ __forceinline__ int part_of(int tag) { return tag & 0xFF; }
-__device__ __forceinline__ int parts_of(int tag) { return (tag >> 8) & 0xFF; }
-__device__ __forceinline__ int slot_of(int tag) { return tag >> 16; }
-
-// Part n of the walk of this CTA's cluster, in order: whole items cluster,
-// + clusters, .. below items - tail, then its range of the tail's chunks,
-// a part of each tail item the range meets; false past its last. A range
-// ends in the first part of an item (part 0, which runs the projection)
-// and starts in the end of another. Without the projection the range's
-// last item goes first: an item's start then arrives early, and a cluster
-// finishes at most the tile of its last part. In range order, a cluster
-// that finished a tile with its first part (a tie with another part of
-// that tile) ran its epilogue before its second part, arrived last for
-// that one too and ran two epilogues in a row: the split was 10% slower
-// than whole tiles at 16 chunks a tile (128 -> 128, T = 12). With the
-// projection, range order: part 0, longer by the projection, goes last,
-// and run first it was the last of its tile and finished it before the
-// cluster's other part (2-8% slower at T = 3 to 12; PERF.md). From
-// the launch's parameters and the CTA's index alone, read anew for each
-// part (volatile), so that a walk keeps one counter across the main loop
-// and not the cluster's state: with it, the consumers of the N-tile-128
-// instances spilled.
+// Part n of the walk of this CTA's cluster (walk_part): with the
+// projection in range order, else the range's last item first.
 __device__ __forceinline__ bool cluster_part(const StageArgs& a, int n, StagePart& p) {
-  unsigned cta, ctas;
-  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(cta));
-  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(ctas));
-  const int shift = a.cs >> 1;  // clusters of 1 or 2 CTAs
-  const int cluster = static_cast<int>(cta) >> shift, clusters = static_cast<int>(ctas) >> shift;
-  const StageSplit& s = a.split;
-  const int chunks = a.chunks, whole = a.items - s.tail;
-  if (cluster + n * clusters < whole) {
-    p = StagePart{cluster + n * clusters, 0, chunks, 1 << 8};
-    return true;
-  }
-  if (cluster >= s.tail_clusters) return false;
-  const int nw = cluster < whole ? (whole - 1 - cluster) / clusters + 1 : 0;  // its whole items
-  const int total = s.tail * chunks;
-  const int lo = range_start(cluster, total, s.tail_clusters), hi = range_start(cluster + 1, total, s.tail_clusters);
-  const bool reverse = a.wress == nullptr;
-  const int i = reverse ? (hi - 1) / chunks - (n - nw) : lo / chunks + (n - nw), b = i * chunks;
-  if (reverse ? b + chunks <= lo : b >= hi) return false;
-  const int first = range_of(b, total, s.tail_clusters), last = range_of(b + chunks - 1, total, s.tail_clusters);
-  p = StagePart{whole + i, max(lo, b) - b, min(hi, b + chunks) - b,
-                (cluster - first) | (last - first + 1) << 8 | i << 16};
-  return true;
+  return walk_part(a.items, a.chunks, a.split, a.cs, a.wress == nullptr, n, p);
 }
 
 // Calls f(part) for each part of this CTA's cluster, in order. The
@@ -531,81 +436,6 @@ template <class F>
 __device__ __forceinline__ void walk_parts(const StageArgs& a, const F& f) {
   StagePart p;
   for (int n = 0; cluster_part(a, n, p); ++n) f(p);
-}
-
-// The consumers' word that tells them whether they finish a split tile, at
-// shared address `flag`.
-__device__ __forceinline__ void put_flag(uint32_t flag, int v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(flag), "r"(v) : "memory");
-}
-__device__ __forceinline__ int get_flag(uint32_t flag) {
-  int v;
-  asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(flag) : "memory");
-  return v;
-}
-
-// Adds 1 to a split tile's counter and returns its value before, with
-// acquire and release semantics at the device's scope: the CTA's stores
-// before it (ordered to this thread by the consumers' barrier) are seen by
-// whoever reads the count after, and this thread sees theirs.
-__device__ __forceinline__ int count_in(int* counter) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
-  return old;
-}
-
-// A split tile's part (tag: StagePart's), on the consumer warpgroups, after
-// its main loop: stores its partial sums `acc` to its workspace slot (each
-// thread its own float4s, fragment-major) and counts itself in. The part
-// that arrives last (flag: the shared address of the CTA's word that tells
-// its consumers so) sums every part's partial sums into acc in part order,
-// part 0's first (from acc where this is part 0, else from its slot),
-// resets the counter to 0 and returns true: it finishes the tile. The
-// others return false, as does the partner of an odd last row tile (live
-// false), whose parts store and count nothing.
-template <int NT>
-__device__ __forceinline__ bool finish_split(const StageArgs& a, int tag, uint32_t rank, bool live, uint32_t flag,
-                                             float (&acc)[NT / 2]) {
-  if (!live) return false;
-  constexpr int kUnits = NT / 8;  // float4s a thread
-  const unsigned tid = threadIdx.x;
-  const int part = part_of(tag), parts = parts_of(tag), item = slot_of(tag);
-  const size_t slot = size_t(kThreads) * kUnits;  // float4s a slot
-  float4* part0 =
-      reinterpret_cast<float4*>(a.work) + (size_t(item) * a.split.max_parts * a.cs + rank) * slot + tid;
-  const size_t stride = size_t(a.cs) * slot;  // from one part's slot to the next's
-  float4* mine = part0 + part * stride;
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u)
-    __stcg(mine + u * kThreads, make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2], acc[4 * u + 3]));
-  consumer_sync();  // every consumer's partial sums are stored
-  if (tid == 0) {
-    int* counter = a.counters + item * a.cs + rank;
-    const bool last = count_in(counter) == parts - 1;
-    if (last) atomicExch(counter, 0);  // every part is in: 0 again for the next launch
-    put_flag(flag, last);
-  }
-  consumer_sync();
-  if (get_flag(flag) == 0) return false;
-  for (int q = part == 0 ? 1 : 0; q < parts; ++q) {
-    const float4* src = part0 + q * stride;
-#pragma unroll
-    for (int u0 = 0; u0 < kUnits; u0 += 4) {  // four float4 loads in flight, then their adds
-      float4 v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = __ldcg(src + (u0 + u) * kThreads);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = 4 * (u0 + u);
-        if (q == 0) {
-          acc[e] = v[u].x, acc[e + 1] = v[u].y, acc[e + 2] = v[u].z, acc[e + 3] = v[u].w;
-        } else {
-          acc[e] += v[u].x, acc[e + 1] += v[u].y, acc[e + 2] += v[u].z, acc[e + 3] += v[u].w;
-        }
-      }
-    }
-  }
-  return true;
 }
 
 // One part of a tile of a persistent CTA's walk (all of it for a whole
@@ -672,7 +502,9 @@ __device__ __forceinline__ void stage_tile(const Args& a, StagePart p, int rt, i
   unsigned tid = threadIdx.x;
   asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid), "+r"(p.tag));
   const uint32_t flag = f.abox + 8 * CR::kStages;  // the word past the barriers
-  if (parts_of(p.tag) > 1 && !finish_split<NT>(a, p.tag, f.rank, a.B > rt * a.samples, flag, acc)) return;
+  if (parts_of(p.tag) > 1 &&
+      !finish_split<NT>(a.work, a.counters, a.split.max_parts, a.cs, p.tag, f.rank, a.B > rt * a.samples, flag, acc))
+    return;
   const int b0 = rt * a.samples;
   const int ns = max(0, min(a.samples, a.B - b0));
   const int row0 = b0 * a.T;
@@ -910,15 +742,7 @@ cudaError_t stage_ctas(int items, int chunks, int cs, StageSplit* split, int* ct
   int dev = 0, sms = 0;
   CINDM_TRY(cudaGetDevice(&dev));
   CINDM_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const int clusters = sms / cs;
-  // the walk's int arithmetic (range_of: tail x chunks x ranges) and
-  // StagePart's tag (parts and tail items < 256)
-  if (clusters > 255 || static_cast<long long>(clusters) * clusters * chunks >= (1ll << 31))
-    return cudaErrorInvalidValue;
-  *split = stage_split(items, chunks, clusters);
-  const int used = items - split->tail > split->tail_clusters ? items - split->tail : split->tail_clusters;
-  *ctas = cs * (used < clusters ? used : clusters);
-  return cudaSuccess;
+  return walk_plan(items, chunks, cs, sms, kSplitTail, split, ctas);
 }
 
 template <int NT, int KW, bool kProj, class Args>

@@ -34,25 +34,42 @@
 // What bounds it on an H100: at the flagship's widths, operations (3 x the
 // valid taps' FLOP at 495 TFLOP/s) except at 64 channels, where the bytes
 // of x and y are the larger (about 49.5 MB a launch at batch 5,376: 0.015
-// ms at 3.35 TB/s); the six launches of a forward together 0.164 ms.
+// ms at 3.35 TB/s); the six launches of a forward together 0.148 ms.
 //
 // Design: the forward's main loop of stage_ring.cuh, as the Conv1d stage
 // runs it, with an epilogue of its own. A tile is 192 rows of whole samples
 // (the GEMM's rows: x's for up, x2's for down) by an N tile of 64 or 128
-// output channels (ops/_build.plan_resample: the fewer waves of cluster
-// items times the tile's width, 128 on a tie); persistent CTAs of three
-// consumer warpgroups and a producer warpgroup walk items of a cluster of
-// two row tiles by an N tile, the two CTAs sharing the N tile's weight
-// blocks by multicast. A ring slot holds one chunk of 8 input channels: the
-// tile's rows by TMA (zero past the tensor), which the producer
-// warpgroup's other three warps split into tf32 planes, and the chunk's
-// weight blocks of two taps (ring_consume with kRel: the blocks hold a
-// window of the three taps, so no zero weights are copied or multiplied),
-// or of one tap for down's first part (A by descriptor, ring_consume_ss).
-// The shifted rows, zero outside their sample, come from the planes by the
-// taps' masks (tile_rows<3, 3>). No GroupNorm: a tile need not hold whole
-// groups, and the epilogue adds the bias in the consumers' registers and
-// stores float4s (quad_pairs) straight to y.
+// output channels (ops/_build.plan_resample chooses it, the launch takes
+// it); persistent CTAs of three consumer warpgroups and a producer
+// warpgroup walk parts of cluster items of two row tiles by an N tile, the
+// two CTAs sharing the N tile's weight blocks by multicast. A ring slot
+// holds one chunk of 8 input channels: the tile's rows by TMA (zero past
+// the tensor), which the producer warpgroup's other three warps split into
+// tf32 planes, and the chunk's weight blocks of two taps (ring_consume with
+// kRel: the blocks hold a window of the three taps, so no zero weights are
+// copied or multiplied), or of one tap for down's first part (A by
+// descriptor, ring_consume_ss). The shifted rows, zero outside their
+// sample, come from the planes by the taps' masks (tile_rows<3, 3>).
+//
+// The last partial wave is split by K where an item has kResSplitMinChunks
+// chunks or more: the forward stage's split tail (stage_split, walk_part
+// and finish_split of stage_ring.cuh, on the same rules): the items of full
+// waves run whole, the rest as one sequence of chunks cut into one
+// contiguous range a cluster; each part of a split tile stores its partial
+// sums to a workspace slot and counts itself in on the tile's counter; the
+// last to arrive sums the parts in part order and runs the epilogue, so two
+// runs give the same bits.
+//
+// Epilogue: no GroupNorm (a tile need not hold whole groups); the bias in
+// the consumers' registers and float4 stores (quad_pairs) straight to y,
+// with the streaming hint (st.global.cs): y is read by the next layer, not
+// by this launch, and up writes twice x's bytes (PERF.md: what the hint
+// gains here and what the next layer's reads of y give back).
+//
+// What was tried and dropped (PERF.md section 6, tools/resample_ablation):
+// two chunks a ring slot, position-major tiles with A by descriptor, a
+// tile's stores under the next tile's first wgmma group; each moved the
+// six flagship launches by less than 2%.
 #include "stage_ring.cuh"
 
 namespace cindm {
@@ -63,26 +80,52 @@ constexpr int kResConsumerRegs = 160;
 static_assert(3 * 128 * kResConsumerRegs + 128 * kResProducerRegs <= 65536, "the SM's register file");
 static_assert(kThreads + 32 * (1 + kSplitWarps) == kResThreads, "the producer warpgroup");
 constexpr int kResTaps = 2;  // taps of a weight block: a window of the three
+// The last partial wave is split by K where an item has this many chunks
+// or more: at 16 a split part's fixup cost more than the wave it evened
+// out (PERF.md).
+constexpr int kResSplitMinChunks = 32;
 
-// A slot: the box's two tf32 planes (rows of 32 bytes) and one chunk's
-// weight blocks of two taps: 20,480 bytes at NT = 64, 28,672 at 128; as
-// many slots as the shared memory holds beside the barriers.
+// A slot: the box's two tf32 planes and its chunk's weight blocks of two
+// taps: 20,480 bytes at NT = 64 (11 slots), 28,672 at 128 (8); as many
+// slots as the shared memory holds beside the barriers and the split's word.
 __host__ __device__ constexpr size_t resample_slot_bytes(int nt) {
   return align1024(2 * align1024(size_t(kTileRows) * 4 * kChunk) + weight_block_bytes(nt, kResTaps));
 }
-constexpr int kResNarrowStages = 11;
-constexpr int kResWideStages = 8;
+__host__ __device__ constexpr int resample_stages(int nt) {
+  return static_cast<int>((kSmemMax - 1024 - 16) / (resample_slot_bytes(nt) + 24));
+}
 template <int NT>
-using ResRing = StageRing<NT, NT == 64 ? kResNarrowStages : kResWideStages, 1, resample_slot_bytes(NT), true>;
+using ResRing = StageRing<NT, resample_stages(NT), 1, resample_slot_bytes(NT), true>;
 
 // Shared memory of a launch (mirrors ops/_build.resample_smem_bytes): 1,024
-// bytes to align the ring to the swizzle's period, the ring, and each
-// slot's full, empty and abox barriers.
+// bytes to align the ring to the swizzle's period, the ring, each slot's
+// full, empty and abox barriers, and 16 bytes for the word that tells a
+// split tile's consumers whether they finish it.
 __host__ __device__ constexpr size_t resample_smem_bytes(int nt) {
-  return 1024 + (nt == 64 ? ResRing<64>::kRingBytes : ResRing<128>::kRingBytes) +
-         24 * (nt == 64 ? kResNarrowStages : kResWideStages);
+  return 1024 + size_t(resample_stages(nt)) * (resample_slot_bytes(nt) + 24) + 16;
 }
 static_assert(resample_smem_bytes(64) <= kSmemMax && resample_smem_bytes(128) <= kSmemMax, "the ring fits");
+
+// One launch's plan as ops/_build.plan_resample makes it (the ctypes
+// structure _build.ResampleLaunch mirrors it field for field): the launch
+// recomputes every field but the pointers and byte counts from the first
+// six and refuses a plan that differs, or a workspace or counters too
+// small for its split.
+struct ResampleLaunch {
+  int B, T, C, up;     // x [B, T, C]; Upsample1d (1) or Downsample1d (0)
+  int n_tile;          // 64 or 128 output channels
+  int num_sms;         // the device's SMs
+  int samples;         // whole samples a tile
+  int cluster;         // CTAs of a cluster
+  int items, stages;   // cluster items, and ring stages of an item's K
+  int ctas;            // persistent CTAs
+  int smem_bytes;      // resample_smem_bytes
+  int tail, tail_clusters, max_parts;  // the split tail
+  float* work;         // the split tiles' workspace, work_bytes of it
+  int* counters;       // their arrival counters, n_counters of them, all 0
+  long long work_bytes;
+  int n_counters;
+};
 
 struct ResampleArgs {
   const float* x;      // [B, T_in, C]
@@ -95,51 +138,37 @@ struct ResampleArgs {
   int cs;              // CTAs of a cluster (1 or 2): row tiles 2q and 2q + 1 share an N tile's weights
   int nh;              // N tiles of C channels; up has 2 nh (even, then odd)
   int items;           // cluster items: row-tile pairs x N tiles
+  int nst;             // ring stages of one part of K: C's chunks, one a stage
+  int stages;          // ring stages of an item: up nst; down 2 nst (x2's first C, then its last)
+  StageSplit split;    // the split tail (stage_split)
+  float* work;         // its workspace: slot ((tail item * max_parts + part) * cs + rank), 192 x NT floats
+  int* counters;       // its arrival counters: tail item * cs + rank, 0 between launches
 };
 
 namespace {
 
-// This CTA's N tile nti's weight part (c0 = 0 .. all of C): up, the even or
-// odd tile's 2 taps; down, with `lo`, the 1-tap part on x2's first C, else
-// the 2-tap part on its last C.
+// The chunks of one part of K that an item's stages [k0, k1) cover, for N
+// tile nti: up, the even or odd tile's 2 taps; down, with `lo`, the 1-tap
+// part on x2's first C (the item's first nst stages), else the 2-tap part
+// on its last C.
 template <class R, bool kUp>
-__device__ __forceinline__ RingPart resample_part(const ResampleArgs& a, int nti, bool lo) {
-  const int nch = (a.C + kChunk - 1) / kChunk;
+__device__ __forceinline__ RingPart res_range(const ResampleArgs& a, int nti, bool lo, int k0, int k1) {
   if constexpr (kUp) {
     const bool odd = nti >= a.nh;
-    return ring_range<R>(odd ? a.w1 : a.w0, a.C, kResTaps, 0, nch, odd ? nti - a.nh : nti);
+    return ring_range<R>(odd ? a.w1 : a.w0, a.C, kResTaps, k0, k1, odd ? nti - a.nh : nti);
   } else {
-    return ring_range<R>(lo ? a.w1 : a.w0, a.C, lo ? 1 : kResTaps, 0, nch, nti);
+    const int o = lo ? 0 : a.nst;
+    return ring_range<R>(lo ? a.w1 : a.w0, a.C, lo ? 1 : kResTaps, max(k0 - o, 0), lo ? min(k1, a.nst) : k1 - o,
+                         nti);
   }
 }
 
-// One tile on the consumer warpgroups: row tile rt (samples [rt S, rt S +
-// ns); none where rt is past the last: a cluster's partner that only keeps
-// the ring going) x N tile nti. `it` counts the ring's stages as the
-// producer does.
+// A finished tile's epilogue, on the consumer warpgroups: row tile rt x N
+// tile nti of the sums acc, + the bias, 16-byte stores straight to y (a
+// quad writes 64 contiguous bytes of a row), with the streaming hint.
 template <int NT, bool kUp>
-__device__ __forceinline__ void resample_tile(const ResampleArgs& a, int rt, int nti, const char* ring,
-                                              const FwdRing& f, int& it) {
-  using R = ResRing<NT>;
-  float acc[NT / 2];
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-  {
-    const int ns = max(0, min(a.samples, a.B - rt * a.samples));
-    TileRows tr = tile_rows<3, 3>(a.samples, ns, a.T);  // bit k: shift k - 1 stays inside the sample
-    if constexpr (kUp) {
-      tr.klo = nti >= a.nh ? 1 : 0;  // odd tiles: shifts 0, +1; even: -1, 0
-    } else {  // x2's first C at shift 0, A's 64 rows by descriptor; then its last C at shifts -1, 0
-      ring_consume_ss<R, 1>(0, 64 * static_cast<int>(threadIdx.x >> 7), resample_part<R, kUp>(a, nti, true),
-                            ring, f, it, acc);
-    }
-    ring_consume<R, 3, kResTaps, Split::kPre, true, true>(tr, resample_part<R, kUp>(a, nti, false), ring, f.full,
-                                                           f.empty, it, acc, f.peer);
-  }
-  // the epilogue's indices from the tile's and the thread's, passed through
-  // an empty asm: not kept live across the main loop
-  unsigned tid = threadIdx.x;
-  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid));
+__device__ __forceinline__ void res_store(const ResampleArgs& a, const float (&acc)[NT / 2], int rt, int nti,
+                                          unsigned tid) {
   const int b0 = rt * a.samples;
   const int ns = max(0, min(a.samples, a.B - b0));
   const size_t row0 = static_cast<size_t>(b0) * a.T;
@@ -161,16 +190,52 @@ __device__ __forceinline__ void resample_tile(const ResampleArgs& a, int rt, int
                             make_float2(acc[4 * j + 4 + 2 * i], acc[4 * j + 5 + 2 * i]), q);
       if (!tr.live[i] || c4 >= ncols) continue;
       o.x += bias.x, o.y += bias.y, o.z += bias.z, o.w += bias.w;
-      *reinterpret_cast<float4*>(out + (row0 + tr.r[i]) * ld + c4) = o;
+      __stcs(reinterpret_cast<float4*>(out + (row0 + tr.r[i]) * ld + c4), o);
     }
   }
   __syncwarp();  // the warp converges before the next tile's wgmmas
 }
 
-// Launched in clusters of a.cs CTAs: cluster q walks items q, q + clusters,
-// .. (row-tile pair i / N tiles, N tile i % N tiles), rank r taking row
-// tile cs (i / N tiles) + r. mx: the GEMM's rows (x, or x2 for down) as
-// ring_map views them, boxes of 192 rows x 8 channels.
+// One part of a tile on the consumer warpgroups (all of it for a whole
+// tile): row tile rt (samples [rt S, rt S + ns); none where rt is past the
+// last: a cluster's partner that only keeps the ring going) x N tile nti,
+// the item's ring stages [p.c0, p.c1). `it` counts the ring's stages as the
+// producer does; `flag`: the split tiles' word past the barriers. The
+// epilogue runs where the tile is whole, or this part finishes it.
+template <int NT, bool kUp>
+__device__ __forceinline__ void resample_tile(const ResampleArgs& a, StagePart p, int rt, int nti, const char* ring,
+                                              const FwdRing& f, int& it, uint32_t flag) {
+  using R = ResRing<NT>;
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+  {
+    const int ns = max(0, min(a.samples, a.B - rt * a.samples));
+    TileRows tr = tile_rows<3, 3>(a.samples, ns, a.T);  // bit k: shift k - 1 stays inside the sample
+    if constexpr (kUp) {
+      tr.klo = nti >= a.nh ? 1 : 0;  // odd tiles: shifts 0, +1; even: -1, 0
+    } else {  // x2's first C at shift 0, A's 64 rows by descriptor; then its last C at shifts -1, 0
+      ring_consume_ss<R, 1>(0, 64 * static_cast<int>(threadIdx.x >> 7), res_range<R, kUp>(a, nti, true, p.c0, p.c1),
+                            ring, f, it, acc);
+    }
+    ring_consume<R, 3, kResTaps, Split::kPre, true, true>(tr, res_range<R, kUp>(a, nti, false, p.c0, p.c1), ring,
+                                                           f.full, f.empty, it, acc, f.peer);
+  }
+  // the epilogue's indices from the tile's and the thread's, passed through
+  // an empty asm: not kept live across the main loop
+  unsigned tid = threadIdx.x;
+  asm volatile("" : "+r"(rt), "+r"(nti), "+r"(tid), "+r"(p.tag));
+  if (parts_of(p.tag) > 1 &&
+      !finish_split<NT>(a.work, a.counters, a.split.max_parts, a.cs, p.tag, f.rank, a.B > rt * a.samples, flag, acc))
+    return;
+  res_store<NT, kUp>(a, acc, rt, nti, tid);
+}
+
+// Launched in clusters of a.cs CTAs: cluster q walks its parts (walk_part,
+// its range of the split tail's last item first) of items i (row-tile pair
+// i / N tiles, N tile i % N tiles), rank r taking row tile cs (i / N
+// tiles) + r. mx: the GEMM's rows (x, or x2 for
+// down) as ring_map views them, boxes of 192 rows x a slot's channels.
 template <int NT, bool kUp>
 __global__ void __launch_bounds__(kResThreads, 1)
     resample(const ResampleArgs a, const __grid_constant__ CUtensorMap mx) {
@@ -196,32 +261,33 @@ __global__ void __launch_bounds__(kResThreads, 1)
   // the role, warp-uniform as the compiler can see
   const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
   const int ntiles = kUp ? 2 * a.nh : a.nh;
-  const int cluster = static_cast<int>(blockIdx.x) / a.cs, clusters = static_cast<int>(gridDim.x) / a.cs;
   int it = 0;
+  StagePart p;
   if (warp >= kWarps) {
     regs_dec<kResProducerRegs>();
-    for (int i = cluster; i < a.items; i += clusters) {
-      const int rt = i / ntiles * a.cs + static_cast<int>(f.rank), nti = i % ntiles;
+    for (int n = 0; walk_part(a.items, a.stages, a.split, a.cs, true, n, p); ++n) {
+      const int rt = p.item / ntiles * a.cs + static_cast<int>(f.rank), nti = p.item % ntiles;
       const int row0 = rt * a.samples * a.T;
       if (warp == kWarps) {
         if constexpr (!kUp)
-          ring_feed<R>(resample_part<R, kUp>(a, nti, true), [&](char* st, int c, uint32_t bar) {
+          ring_feed<R>(res_range<R, kUp>(a, nti, true, p.c0, p.c1), [&](char* st, int c, uint32_t bar) {
             tma_load_2d(st, &mx, c, row0, bar);
           }, smem, f, it);
         const int c0 = kUp ? 0 : a.C;  // down's 2-tap part reads x2's last C
-        ring_feed<R>(resample_part<R, kUp>(a, nti, false), [&](char* st, int c, uint32_t bar) {
+        ring_feed<R>(res_range<R, kUp>(a, nti, false, p.c0, p.c1), [&](char* st, int c, uint32_t bar) {
           tma_load_2d(st, &mx, c0 + c, row0, bar);
         }, smem, f, it);
       } else {
         const int t = threadIdx.x - kThreads - 32;
-        if constexpr (!kUp) ring_split<R>(resample_part<R, kUp>(a, nti, true), smem, f, t, it);
-        ring_split<R>(resample_part<R, kUp>(a, nti, false), smem, f, t, it);
+        if constexpr (!kUp) ring_split<R>(res_range<R, kUp>(a, nti, true, p.c0, p.c1), smem, f, t, it);
+        ring_split<R>(res_range<R, kUp>(a, nti, false, p.c0, p.c1), smem, f, t, it);
       }
     }
   } else {
     regs_inc<kResConsumerRegs>();
-    for (int i = cluster; i < a.items; i += clusters)
-      resample_tile<NT, kUp>(a, i / ntiles * a.cs + static_cast<int>(f.rank), i % ntiles, smem, f, it);
+    for (int n = 0; walk_part(a.items, a.stages, a.split, a.cs, true, n, p); ++n)
+      resample_tile<NT, kUp>(a, p, p.item / ntiles * a.cs + static_cast<int>(f.rank), p.item % ntiles, smem, f, it,
+                             f.abox + 8 * R::kStages);
   }
   cluster_sync();  // no CTA leaves while its peer may still copy or arrive into it
 }
@@ -251,18 +317,22 @@ cudaError_t launch_resample(const ResampleArgs& a, int ctas, const CUtensorMap& 
 }  // namespace
 }  // namespace cindm
 
-// Upsample1d (up = 1) or Downsample1d (up = 0) of x [B, T, C] into out
+// Upsample1d (s.up = 1) or Downsample1d (s.up = 0) of x [B, T, C] into out
 // ([B, 2T, C], or [B, T/2, C]), on the weights that stage_weights laid out
-// for N tiles of n_tile (w0, w1: see ResampleArgs) and bias b [C], with the
-// plan's `ctas` persistent CTAs (ops/_build.plan_resample). Refuses
-// (cudaErrorInvalidValue) what the tiling does not take (C not a multiple
-// of 4, an odd T for down, a sample longer than a tile, a pointer off a
-// 16-byte boundary) and a plan whose CTAs differ from the count made here.
+// for N tiles of s.n_tile (w0, w1: see ResampleArgs) and bias b [C], with
+// the plan `s` (ops/_build.plan_resample). Refuses (cudaErrorInvalidValue)
+// what the tiling does not take (C not a multiple of 4, an odd T for down,
+// a sample longer than a tile, a pointer off a 16-byte boundary), a plan
+// whose samples, cluster, items, stages, CTAs, shared memory or split
+// differ from the count made here, and a workspace or counters too small.
 extern "C" int cindm_resample(const float* x, const void* w0, const void* w1, const float* b, float* out,
-                              int B, int T, int C, int up, int n_tile, int ctas, void* stream) {
+                              const cindm::ResampleLaunch* plan, void* stream) {
   using namespace cindm;
   const auto aligned = [](const void* p) { return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || (!up && T % 2 != 0) || (n_tile != 64 && n_tile != 128) ||
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  const ResampleLaunch& s = *plan;
+  const int B = s.B, T = s.T, C = s.C, up = s.up, nt = s.n_tile;
+  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || (!up && T % 2 != 0) || (nt != 64 && nt != 128) ||
       !aligned(x) || !aligned(w0) || !aligned(w1) || !aligned(b) || !aligned(out))
     return cudaErrorInvalidValue;
   ResampleArgs a{};
@@ -278,17 +348,29 @@ extern "C" int cindm_resample(const float* x, const void* w0, const void* w1, co
   a.samples = kTileRows / a.T;
   const int row_tiles = (B + a.samples - 1) / a.samples;
   a.cs = row_tiles > 1 ? 2 : 1;
-  a.nh = (C + n_tile - 1) / n_tile;
+  a.nh = (C + nt - 1) / nt;
   a.items = (row_tiles + a.cs - 1) / a.cs * (up ? 2 * a.nh : a.nh);
-  int dev = 0, sms = 0;
-  CINDM_TRY(cudaGetDevice(&dev));
-  CINDM_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const int clusters = sms / a.cs;
-  if (ctas != a.cs * (a.items < clusters ? a.items : clusters)) return cudaErrorInvalidValue;
+  a.nst = (C + kChunk - 1) / kChunk;
+  a.stages = up ? a.nst : 2 * a.nst;
+  int ctas = 0;
+  CINDM_TRY(walk_plan(a.items, a.stages, a.cs, s.num_sms, a.stages >= kResSplitMinChunks, &a.split, &ctas));
+  if (s.samples != a.samples || s.cluster != a.cs || s.items != a.items || s.stages != a.stages || s.ctas != ctas ||
+      static_cast<size_t>(s.smem_bytes) != resample_smem_bytes(nt) || s.tail != a.split.tail ||
+      s.tail_clusters != a.split.tail_clusters || s.max_parts != a.split.max_parts)
+    return cudaErrorInvalidValue;
+  if (a.split.tail > 0 &&
+      (s.work == nullptr || s.counters == nullptr || reinterpret_cast<uintptr_t>(s.work) % 16 != 0 ||
+       s.work_bytes < static_cast<long long>(stage_work_bytes(a.split, a.cs, nt)) ||
+       s.n_counters < a.split.tail * a.cs))
+    return cudaErrorInvalidValue;
+  a.work = s.work;
+  a.counters = s.counters;
   CUtensorMap mx;  // the GEMM's rows: x [B T, C], or x2 [B T / 2, 2 C]
   CINDM_TRY(ring_map(&mx, x, B * a.T, up ? C : 2 * C, ResRing<64>::kPitch));
-  static_assert(ResRing<64>::kPitch == 32 && ResRing<128>::kPitch == 32, "one chunk a slot");
+  static_assert(ResRing<128>::kPitch == ResRing<64>::kPitch, "one pitch at either N tile");
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (up) return n_tile == 64 ? launch_resample<64, true>(a, ctas, mx, st) : launch_resample<128, true>(a, ctas, mx, st);
-  return n_tile == 64 ? launch_resample<64, false>(a, ctas, mx, st) : launch_resample<128, false>(a, ctas, mx, st);
+  if (up) return nt == 64 ? launch_resample<64, true>(a, ctas, mx, st) : launch_resample<128, true>(a, ctas, mx, st);
+  return nt == 64 ? launch_resample<64, false>(a, ctas, mx, st) : launch_resample<128, false>(a, ctas, mx, st);
 }
+
+extern "C" int cindm_resample_launch_size() { return static_cast<int>(sizeof(cindm::ResampleLaunch)); }

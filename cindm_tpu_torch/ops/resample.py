@@ -24,8 +24,10 @@ Three forms of each, one function:
 
 - the kernel entry points ``upsample1d`` / ``downsample1d``: the
   hand-written CUDA kernel ``csrc/resample.cu`` for CUDA tensors (3xTF32 on
-  wgmma, no transposes, tiles from ``_build.plan_resample``; ``.launches``
-  counts launches), the plain version for CPU tensors. The phase weights
+  wgmma, no transposes, tiles and the split of the last partial wave from
+  ``_build.plan_resample``, its workspace and counters from
+  ``_build.stage_work``; ``.launches`` counts launches), the plain version
+  for CPU tensors. The phase weights
   are made and laid out (``stage_weights``) once per weight version, kept
   by ``_build.staged``.
 
@@ -37,6 +39,7 @@ ones in ``.autograd_calls``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -129,8 +132,9 @@ def _resample(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, up: 
     _build.check_aligned(kind, x=x, w=w, b=b)
     # the phase weights and their layouts, made once per weight version and N tile
     _, (pa, pb) = _build.staged.derived(w, _laid_out(up, plan.n_tile))
+    launch = _build.resample_launch(plan, B, T, C, *_build.stage_work(x.device, plan))
     err = _build.call_on(x.device, _build.load().cindm_resample, *map(_build.ptr, (x, pa, pb, b, out)),
-                         B, T, C, int(up), plan.n_tile, plan.ctas)
+                         ctypes.byref(launch))
     _build.raise_on_error(kind, err)
     return out
 

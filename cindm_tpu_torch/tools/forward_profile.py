@@ -38,7 +38,11 @@ launches per aten op (or hand-written kernel), grouped by the denoiser
 module that issued it (each attention block, down- and upsampling, the
 time MLP, the RTBs' time projections, ``fused_rtb``, the head, the final
 conv, the rest: the skip concatenations and copies), with the forward's
-host issue ms beside its device ms.
+host issue ms beside its device ms, and for each resampling launch in
+call order its device ms beside the next kernel's (``resample_readers``:
+the first to read its output, the next block's stage after a
+Downsample1d, the skip concatenation or the final conv after an
+Upsample1d).
 
 With ``--projections`` it counts instead the launches of the 16 blocks'
 time projections at that batch (``projection_launches``): batched (one
@@ -401,6 +405,10 @@ def forward_ops(torch, dev, model, batch: int = 5376, seed: int = 5376) -> dict:
     if cuda:
         out["device_ms"] = device_ms
         out["unattributed_ms"] = device_ms - attributed
+        seq = sorted(dev_events, key=lambda e: e.time_range.start)
+        out["resample_readers"] = [
+            {"resample_ms": e.time_range.elapsed_us() / 1e3, "reader": n.name,
+             "reader_ms": n.time_range.elapsed_us() / 1e3} for e, n in zip(seq, seq[1:]) if "resample" in e.name]
     else:
         out["cpu_ms"] = attributed
     out["groups"] = dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))

@@ -78,7 +78,10 @@ _STATS = """    row_group_sums<NT, false>(acc, tr, sb, og, gpt, stats, psum);
     pair_stats<true>(psum, ns, a.T, gpt, a.G, n, a.eps, stats, rstd_out, out0);
     consumer_sync();  // rstd is in
 """
-_FINISH = "  if (parts_of(p.tag) > 1 && !finish_split<NT>(a, p.tag, f.rank, a.B > rt * a.samples, flag, acc)) return;\n"
+_FINISH = """  if (parts_of(p.tag) > 1 &&
+      !finish_split<NT>(a.work, a.counters, a.split.max_parts, a.cs, p.tag, f.rank, a.B > rt * a.samples, flag, acc))
+    return;
+"""
 _STORED = "  consumer_sync();  // every consumer's partial sums are stored\n"
 RING, STAGE = "stage_ring.cuh", "conv_gn_mish.cuh"
 # variant: [(source, pattern, replacement)]
@@ -91,9 +94,9 @@ VARIANTS = {
                  "stage_cluster(int row_tiles) { return row_tiles > 0 ? 1 : 1; }")],
     "wholetiles": [(STAGE, "constexpr bool kSplitTail = true;", "constexpr bool kSplitTail = false;")],
     "noepi": [(STAGE, _FINISH, _FINISH + "  if (a.eps > 0.f) return;\n")],
-    "nofixup": [(STAGE, _STORED, "  if (a.eps > 0.f) return part == 0;\n" + _STORED),
-                (STAGE, "#pragma unroll\n  for (int u = 0; u < kUnits; ++u)\n    __stcg(",
-                 "#pragma unroll\n  for (int u = 0; u < kUnits && a.eps < 0.f; ++u)\n    __stcg(")],
+    "nofixup": [(RING, _STORED, "  if (max_parts > 0) return part == 0;\n" + _STORED),
+                (RING, "#pragma unroll\n  for (int u = 0; u < kUnits; ++u)\n    __stcg(",
+                 "#pragma unroll\n  for (int u = 0; u < kUnits && max_parts < 0; ++u)\n    __stcg(")],
     "nostats": [(STAGE, _STATS, "")],
     "nofinal": [(STAGE, "  for (int j = 0; j < NT / 8; j += 2) {\n    float2 v[2][2];",
                  "  for (int j = 0; j < NT / 8 && a.eps < 0.f; j += 2) {\n    float2 v[2][2];")],

@@ -808,6 +808,11 @@ RESAMPLE_SHAPES = [("down", 64, 24), ("down", 128, 12), ("down", 256, 6), ("up",
                    ("up", 64, 12)]
 RESAMPLE_ODD = [("down", 64, 70), ("up", 64, 35), ("down", 64, 2), ("up", 64, 1), ("down", 40, 14),
                 ("up", 12, 5), ("down", 1024, 6), ("up", 1024, 3)]
+# two shapes for each instance resample<N tile, up>, at a batch whose last partial wave is split
+RESAMPLE_INSTANCES = {(64, "up", 24): ("up", 320, 24), (128, "up", 8): ("up", 256, 8),
+                      (64, "down", 16): ("down", 320, 16), (128, "down", 48): ("down", 256, 48),
+                      (64, "up", 35): ("up", 320, 35), (128, "up", 35): ("up", 256, 35),
+                      (64, "down", 14): ("down", 192, 14), (128, "down", 70): ("down", 256, 70)}
 
 
 def _resample_args(kind, C, T, B, dev, seed):
@@ -831,6 +836,21 @@ def test_resample_kernel_matches_plain(dev, kind, C, T, B):
     torch.cuda.synchronize()
     assert kern.launches == n + 1 and got.shape == plain(*a).shape
     _attn_close(got, plain(*a))
+
+
+@pytest.mark.parametrize("key", list(RESAMPLE_INSTANCES), ids=str)
+def test_resample_instance_matches_plain(dev, key):
+    """Each instance of the kernel against the plain version, on a plan with
+    a split tail, twice (the same bits)."""
+    kind, C, T = RESAMPLE_INSTANCES[key]
+    B = 1111
+    plan = _build.plan_resample(B, T, C, kind == "up", _build.num_sms(dev))
+    assert (plan.n_tile, kind, T) == key and plan.tail > 0
+    a = _resample_args(kind, C, T, B, dev, seed=C + T)
+    kern, plain = _resample_fns(kind)
+    got = kern(*a)
+    _attn_close(got, plain(*a))
+    assert torch.equal(got, kern(*a))
 
 
 @pytest.mark.parametrize("kind,C,T,B", [("up", 256, 3, 5376), ("down", 64, 24, 5000), ("up", 40, 7, 33)],

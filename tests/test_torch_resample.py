@@ -42,6 +42,7 @@ from cindm_tpu_torch.ops.resample import (
     upsample1d_phase,
     upsample_phase_weights,
 )
+from cindm_tpu_torch.tools.resample_ablation import variant_plan
 
 TOL = 1e-5
 WIDTHS = [8, 16]
@@ -160,62 +161,113 @@ def _planes_to_weights(words, K, C, O, nt):
     return (w[:, 0] + w[:, 1])[:, :C, :O]
 
 
-def emulate(x, w, b, up, sms=_build.H100_SMS):
-    """The kernel's decomposition: per row tile of ``plan.samples`` whole
-    samples and N tile of the plan, the taps of its window (up: the even
-    tiles' shifts -1, 0, the odd tiles' 0, +1; down: shift 0 over x2's first
-    C, then -1, 0 over its last C) from the weights as stage_weights lays
-    them out for its N tile, each shifted row zero outside its sample."""
+def _tap_rows(rows, s0, ns, S, c0, c1, shift):
+    """A of one tap on a tile's 192 rows (row s Tg + t of samples [s0, s0 +
+    ns) of the GEMM's rows [B, Tg, W], channels [c0, c1)): each fragment
+    row's own row shifted, zero outside its sample or past the tile's
+    samples (ring_consume's masks; shift 0 is down's first part, which
+    ring_consume_ss reads whole: the same rows)."""
+    Tg = rows.shape[1]
+    j = torch.arange(192)
+    s, t = j // Tg, j % Tg
+    ok = (s < ns) & (t + shift >= 0) & (t + shift < Tg)
+    src = rows[(s0 + s.clamp(max=max(ns - 1, 0))), (t + shift).clamp(0, Tg - 1), c0:c1]
+    return torch.where(ok[:, None], src, torch.zeros((), dtype=rows.dtype))
+
+
+def emulate(x, w, b, up, sms=_build.H100_SMS, dtype=torch.float32, plan=None):
+    """The kernel's decomposition (csrc/resample.cu) on ``plan`` (the
+    kernel's own by default): per cluster item of the plan and row tile of
+    it, each part of the item's ring stages of a chunk (a split item's parts
+    summed in part order, part 0 first), per part of K (up: the even tiles'
+    shifts -1, 0, the odd tiles' 0, +1; down: shift 0 over x2's first C,
+    then -1, 0 over its last C) the taps' A rows as the consumers read them,
+    times the weights as stage_weights lays them out for the N tile (decoded
+    back), + the bias."""
     B, T, C = x.shape
-    plan = _build.plan_resample(B, T, C, up, sms)
-    nt = plan.n_tile
-    wa, wb = (upsample_phase_weights if up else downsample_phase_weights)(w)
-    la, lb = (_build.stage_weights_reference(v, nt) for v in (wa, wb))
-    wa = _planes_to_weights(la, wa.shape[0], C, C, nt)
-    wb = _planes_to_weights(lb, wb.shape[0], C, C, nt)
-    rows = x if up else x.reshape(B, T // 2, 2 * C)
-    Tg = plan.rows
-    xp = torch.nn.functional.pad(rows, (0, 0, 1, 1))  # shift s of row t: xp[:, t + 1 + s]
-    shifted = lambda s, c0: xp[:, 1 + s:1 + s + Tg, c0:c0 + C]
-    out = torch.zeros((B, Tg, 2 * C if up else C))
+    plan = plan or _build.plan_resample(B, T, C, up, sms)
+    nt, S, Tg = plan.n_tile, plan.samples, plan.rows
+    nch = nst = -(-C // 8)
     nh = -(-C // nt)
-    for rt in range(plan.row_tiles):
-        s0, s1 = rt * plan.samples, min(B, (rt + 1) * plan.samples)
-        for n in range(plan.n_tiles):
-            half = n // nh if up else 0
-            n0 = (n % nh) * nt
-            cols = slice(n0, min(C, n0 + nt))
-            acc = torch.zeros((s1 - s0, Tg, cols.stop - n0))
-            if up:
-                wt, shifts = (wb, (0, 1)) if half else (wa, (-1, 0))
-                for u, s in enumerate(shifts):
-                    acc += shifted(s, 0)[s0:s1] @ wt[u][:, cols]
-            else:
-                acc += shifted(0, 0)[s0:s1] @ wb[0][:, cols]
-                for u, s in enumerate((-1, 0)):
-                    acc += shifted(s, C)[s0:s1] @ wa[u][:, cols]
-            out[s0:s1, :, half * C + n0:half * C + cols.stop] = acc + b[cols]
+    wa, wb = (upsample_phase_weights if up else downsample_phase_weights)(w)
+    wa, wb = (_planes_to_weights(_build.stage_weights_reference(v, nt), v.shape[0], C, C, nt).to(dtype)
+              for v in (wa, wb))
+    rows = (x if up else x.reshape(B, T // 2, 2 * C)).to(dtype)
+    out = torch.zeros((B, Tg, 2 * C if up else C), dtype=dtype)
+
+    def part_sums(s0, ns, n, k0, k1):
+        half, n0 = (n // nh if up else 0), (n % nh) * nt
+        cols = slice(n0, min(C, n0 + nt))
+        if up:  # (weights, shifts, x2's channel offset, chunks)
+            parts = [(wb, (0, 1), 0, k0, k1) if half else (wa, (-1, 0), 0, k0, k1)]
+        else:
+            parts = [(wb, (0,), 0, k0, min(k1, nst)), (wa, (-1, 0), C, max(k0 - nst, 0), k1 - nst)]
+        acc = torch.zeros((192, cols.stop - n0), dtype=dtype)
+        for wt, shifts, off, c0, c1 in parts:
+            c0, c1 = min(c0, nch) * 8, min(max(c1, 0) * 8, C)
+            for u, sh in enumerate(shifts):
+                if c1 > c0:
+                    acc += _tap_rows(rows, s0, ns, S, off + c0, off + c1, sh) @ wt[u][c0:c1, cols]
+        return acc
+
+    for item in range(plan.items):
+        n = item % plan.n_tiles
+        half, n0 = (n // nh if up else 0), (n % nh) * nt
+        ncols = min(C, n0 + nt) - n0
+        for r in range(plan.cluster):
+            rt = item // plan.n_tiles * plan.cluster + r
+            if rt >= plan.row_tiles:  # an odd last row tile's partner: nothing to store
+                continue
+            s0 = rt * S
+            ns = min(S, B - s0)
+            sums = [part_sums(s0, ns, n, k0, k1) for k0, k1 in plan.item_parts(item)]
+            acc = sums[0]
+            for p in sums[1:]:
+                acc = acc + p
+            out[s0:s0 + ns, :, half * C + n0:half * C + n0 + ncols] = (
+                acc[:ns * Tg].reshape(ns, Tg, ncols) + b[n0:n0 + ncols].to(dtype))
     return out.reshape(B, 2 * T, C) if up else out
 
 
-@pytest.mark.parametrize("C, T", FLAGSHIP_UP + [(12, 5), (40, 7)])
+@pytest.mark.parametrize("C, T", FLAGSHIP_UP + [(12, 5), (40, 7), (16, 1), (8, 24), (16, 35)])
 def test_emulated_upsample_matches_plain(C, T):
     rng = np.random.default_rng(C * T)
     w = torch.from_numpy(rng.uniform(-1, 1, (C, C, 4)).astype(np.float32)) / (2 * C) ** 0.5
     b = torch.from_numpy(0.1 * rng.standard_normal(C).astype(np.float32))
-    for B in (3, 2 * 192 // T + 1):  # one partial row tile; a pair and a ragged third
-        x = torch.from_numpy(_x(B, T, C, seed=B))
-        _close(emulate(x, w, b, up=True), upsample1d_reference(x, w, b))
+    for B, sms in ((3, _build.H100_SMS), (2 * 192 // T + 1, _build.H100_SMS), (5 * 192 // T + 3, 8)):
+        x = torch.from_numpy(_x(B, T, C, seed=B))  # one partial row tile; a pair and a ragged third; a split tail
+        plan = variant_plan("splitall", B, T, C, True, sms)  # the tail split at items of 2 chunks or more
+        _close(emulate(x, w, b, up=True, plan=plan), upsample1d_reference(x, w, b))
 
 
-@pytest.mark.parametrize("C, T", FLAGSHIP_DOWN + [(12, 10), (40, 14)])
+@pytest.mark.parametrize("C, T", FLAGSHIP_DOWN + [(12, 10), (40, 14), (16, 2), (8, 48), (16, 70)])
 def test_emulated_downsample_matches_plain(C, T):
     rng = np.random.default_rng(C * T)
     w = torch.from_numpy(rng.uniform(-1, 1, (3, C, C)).astype(np.float32)) / (3 * C) ** 0.5
     b = torch.from_numpy(0.1 * rng.standard_normal(C).astype(np.float32))
-    for B in (3, 2 * 384 // T + 1):
+    for B, sms in ((3, _build.H100_SMS), (2 * 384 // T + 1, _build.H100_SMS), (5 * 384 // T + 3, 8)):
         x = torch.from_numpy(_x(B, T, C, seed=B))
-        _close(emulate(x, w, b, up=False), downsample1d_reference(x, w, b))
+        plan = variant_plan("splitall", B, T, C, False, sms)
+        _close(emulate(x, w, b, up=False, plan=plan), downsample1d_reference(x, w, b))
+
+
+@pytest.mark.parametrize("up", [True, False])
+@pytest.mark.parametrize("C, T", [(40, 6), (64, 12), (24, 14)])
+def test_split_items_sum_to_the_whole(up, C, T):
+    """A split item's parts, summed in part order, give the item run whole
+    (float64: no rounding between the two orders of one sum), on a small
+    card's split tail (at two chunks an item or more: the ablation's
+    ``splitall``; the kernel's own rule splits none at these widths)."""
+    B = 5 * (192 // (T if up else T // 2)) + 3
+    rng = np.random.default_rng(C + T)
+    w = torch.from_numpy(rng.standard_normal((C, C, 4) if up else (3, C, C)))
+    b = torch.from_numpy(rng.standard_normal(C))
+    x = torch.from_numpy(rng.standard_normal((B, T, C)))
+    plans = [variant_plan(v, B, T, C, up, 8) for v in ("splitall", "whole")]
+    assert plans[0].tail > 0 and plans[0].max_parts > 1 and plans[1].tail == 0
+    assert _build.plan_resample(B, T, C, up, 8).tail == 0
+    split, whole = (emulate(x, w, b, up, dtype=torch.float64, plan=p) for p in plans)
+    torch.testing.assert_close(split, whole, rtol=1e-12, atol=1e-12)
 
 
 # -- the plan, which the C source mirrors
@@ -229,13 +281,57 @@ def test_plan_at_the_flagship_shapes(B):
         assert p.row_tiles == -(-B // p.samples) and p.cluster == 2
         assert p.n_tiles == (2 if up else 1) * -(-C // p.n_tile)
         assert p.items == -(-p.row_tiles // 2) * p.n_tiles
-        assert p.ctas == 2 * min(p.items, _build.H100_SMS // 2) and p.smem_bytes <= _build.SMEM_MAX
-        # the fewer waves of items times the tile's width, 128 on a tie
-        waves = lambda nt: -(-(-(-p.row_tiles // 2) * (2 if up else 1) * -(-C // nt)) // 66) * nt
-        assert waves(p.n_tile) == min(waves(128), waves(64))
-        assert p.n_tile == 128 or waves(64) < waves(128)
+        assert p.stages == C // 8 * (1 if up else 2)  # a chunk of 8 channels a ring stage
+        # where full waves run at N tile 128 and the last wave is split, the N tile that pads C
+        # less; else the fewer waves of items times the tile's width; 128 on a tie
+        items = lambda nt: -(-p.row_tiles // 2) * (2 if up else 1) * -(-C // nt)
+        width = ((lambda nt: -(-C // nt) * nt) if p.stages >= _build.RES_SPLIT_MIN_CHUNKS and items(128) >= 66
+                 else (lambda nt: -(-items(nt) // 66) * nt))
+        assert width(p.n_tile) == min(width(128), width(64)) and (p.n_tile == 128 or width(64) < width(128))
+        assert p.smem_bytes <= _build.SMEM_MAX
+        # the split tail: the partial wave's items, or every item of a launch of fewer than 66,
+        # where an item has 32 chunks or more
+        assert p.tail == (p.items % 66 if p.stages >= _build.RES_SPLIT_MIN_CHUNKS else 0)
+        assert p.ctas == 2 * min(66, max(p.items - p.tail, p.tail_clusters))
     assert [_build.plan_resample(5376, T, C, True).n_tile for C, T in FLAGSHIP_UP] == [128, 128, 64]
+    assert [_build.plan_resample(5376, T, C, False).n_tile for C, T in FLAGSHIP_DOWN] == [64, 128, 128]
     assert _build.plan_resample(1, 3, 64, True).cluster == 1
+
+
+# (B, kind, C, T in) -> (N tile, items, split items, ranges, most parts of an item) on the H100's 132 SMs
+FLAGSHIP_SPLITS = {
+    (5376, "down", 64, 24): (64, 168, 0, 0, 1), (5376, "down", 128, 12): (128, 84, 18, 66, 5),
+    (5376, "down", 256, 6): (128, 84, 18, 66, 5), (5376, "up", 256, 3): (128, 168, 36, 66, 3),
+    (5376, "up", 128, 6): (128, 168, 0, 0, 1), (5376, "up", 64, 12): (64, 336, 0, 0, 1),
+    (5000, "down", 128, 12): (128, 79, 13, 66, 6), (5000, "up", 256, 3): (128, 160, 28, 66, 4),
+    (512, "down", 128, 12): (64, 16, 16, 66, 5), (512, "up", 256, 3): (64, 32, 32, 66, 3),
+    (512, "up", 64, 12): (64, 32, 0, 0, 1), (512, "up", 128, 6): (64, 32, 0, 0, 1),
+    (5000, "up", 128, 6): (64, 316, 0, 0, 1),
+}
+
+
+@pytest.mark.parametrize("key", list(FLAGSHIP_SPLITS), ids=str)
+def test_plan_split_walks_every_stage_once(key):
+    """The plan's N tile and split tail at 5,376, 5,000 and 512, and its walk:
+    every ring stage of every item run once, by parts in part order, the
+    busiest cluster within a stage of the mean where the last wave is split
+    (else within an item)."""
+    B, kind, C, T = key
+    p = _build.plan_resample(B, T, C, kind == "up")
+    assert (p.n_tile, p.items, p.tail, p.tail_clusters, p.max_parts) == FLAGSHIP_SPLITS[key]
+    seen, work = {}, []
+    for q in range(p.ctas // p.cluster):
+        parts = p.walk(q * p.cluster)
+        work.append(sum(k1 - k0 for *_, k0, k1, _, _ in parts))
+        for rt, n, k0, k1, part, nparts in parts:
+            item = rt // p.cluster * p.n_tiles + n
+            assert p.item_parts(item)[part] == (k0, k1) and len(p.item_parts(item)) == nparts
+            seen.setdefault(item, []).append((k0, k1))
+    assert sorted(seen) == list(range(p.items))
+    for item, ranges in seen.items():
+        assert sorted(ranges) == p.item_parts(item)
+        assert [k for k0, k1 in sorted(ranges) for k in range(k0, k1)] == list(range(p.stages))
+    assert max(work) - sum(work) / len(work) <= (1 if p.tail else p.stages)
 
 
 @pytest.mark.parametrize("C, T, up, why", [
@@ -250,17 +346,33 @@ def test_plan_refuses_what_the_kernel_does_not_take(C, T, up, why):
 def test_c_source_mirrors_the_plan():
     src = (Path(_build.CSRC) / "resample.cu").read_text()
     assert f"constexpr int kResTaps = {_build.RES_TAPS};" in src
-    assert f"constexpr int kResNarrowStages = {_build.RES_STAGES[64]};" in src
-    assert f"constexpr int kResWideStages = {_build.RES_STAGES[128]};" in src
+    assert f"constexpr int kResSplitMinChunks = {_build.RES_SPLIT_MIN_CHUNKS};" in src
     assert "a.cs = row_tiles > 1 ? 2 : 1;" in src and "a.samples = kTileRows / a.T;" in src
-    # the resampling kernel reads the forward's ring with weight blocks of its window's taps
-    assert "ring_consume<R, 3, kResTaps, Split::kPre, true, true>" in src
-    assert "ring_consume_ss<R, 1>" in src
+    # the ring's slot: the box's two planes and the chunk's weight blocks; as many slots as fit
+    assert "return align1024(2 * align1024(size_t(kTileRows) * 4 * kChunk) + weight_block_bytes(nt, kResTaps));" in src
+    assert "return static_cast<int>((kSmemMax - 1024 - 16) / (resample_slot_bytes(nt) + 24));" in src
+    assert "return 1024 + size_t(resample_stages(nt)) * (resample_slot_bytes(nt) + 24) + 16;" in src
+    assert "using ResRing = StageRing<NT, resample_stages(NT), 1, resample_slot_bytes(NT), true>;" in src
+    # the split and the CTAs: the stage's (walk_plan, stage_split, walk_part in stage_ring.cuh), one
+    # chunk a ring stage, split where an item has kResSplitMinChunks or more
+    assert "a.nst = (C + kChunk - 1) / kChunk;" in src and "a.stages = up ? a.nst : 2 * a.nst;" in src
+    assert ("CINDM_TRY(walk_plan(a.items, a.stages, a.cs, s.num_sms, a.stages >= kResSplitMinChunks, &a.split, "
+            "&ctas));") in src
+    assert "walk_part(a.items, a.stages, a.split, a.cs, true, n, p)" in src
+    for gone in ("res_split", "res_part", "kResChunks", "kResStreaming", "kResSplitParts", "range_of("):
+        assert gone not in src, gone
+    assert src.count("__stcs(") == 1 and "*dst = o" not in src  # one store path: the streaming hint
+    # row-major tiles read the forward's ring with weight blocks of their window's taps
+    assert "ring_consume<R, 3, kResTaps, Split::kPre, true, true>" in src and "ring_consume_ss<R, 1>" in src
     ring = (Path(_build.CSRC) / "stage_ring.cuh").read_text()
     assert "weight_block_bytes(NT, kRel ? KW : K)" in ring and "kRel ? k - tr.klo : k" in ring
-    assert _build.SIGNATURES["cindm_resample"] == [_build._P] * 5 + [_build._I] * 6 + [_build._P]
+    assert _build.SIGNATURES["cindm_resample"] == [_build._P] * 7
+    names = re.search(r"struct ResampleLaunch \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"(\w+)(?:,|;)", re.sub(r"//[^\n]*", "", names))
+    assert fields == [f for f, _ in _build.ResampleLaunch._fields_]
     for nt in (64, 128):
         assert _build.resample_smem_bytes(nt) <= _build.SMEM_MAX
+    assert [_build.resample_ring(nt) for nt in (64, 128)] == [(11, 20480), (8, 28672)]  # PR 23's ring
 
 
 def test_plan_weight_bytes_count_the_taps():
@@ -272,6 +384,33 @@ def test_plan_weight_bytes_count_the_taps():
     hi, lo = downsample_phase_weights(torch.zeros(3, 256, 256))
     assert p.weight_bytes(256) == sum(_build.staged_weight_bytes(p.n_tile, 256, 256, K=w.shape[0])
                                       for w in (hi, lo))
+
+
+ABLATION = ["base", "nomma", "nosplit", "noepi", "whole", "splitall", "trim", "trimnoepi", "nostream", "nt64"]
+
+
+@pytest.mark.parametrize("variant", ABLATION)
+def test_ablation_variants_patch_the_kernel_once(variant):
+    """``tools/resample_ablation``'s variants each find their places in the
+    kernel's sources, and change them unless the variant is the kernel
+    itself or differs by its plan alone; each variant's plan is one its
+    patched C side takes: the kernel's own but for the split (none, or at
+    two chunks an item or more) and the N tile of ``nt64``."""
+    from cindm_tpu_torch.tools.resample_ablation import VARIANTS, patched
+
+    src = {f: (Path(_build.CSRC) / f).read_text() for f in ("resample.cu", "stage_ring.cuh")}
+    assert list(VARIANTS) == ABLATION
+    assert (patched(variant, _build.CSRC, VARIANTS) == src) == (variant in ("base", "nt64"))
+    for kind, C, T in [("down", 64, 24), ("up", 256, 3), ("up", 128, 6)]:
+        own = _build.plan_resample(5376, T, C, kind == "up")
+        p = variant_plan(variant, 5376, T, C, kind == "up", _build.H100_SMS)
+        split_min = 2 if variant == "splitall" else _build.RES_SPLIT_MIN_CHUNKS
+        split = variant not in ("whole", "trim", "trimnoepi") and p.stages >= split_min
+        assert p.smem_bytes <= _build.SMEM_MAX and (p.tail > 0) == split
+        assert p.n_tile == (64 if variant == "nt64" else own.n_tile)
+        assert p.ctas == p.cluster * min(66, max(p.items - p.tail, p.tail_clusters))
+        if variant in ("base", "nomma", "nosplit", "noepi", "nostream"):
+            assert p == own
 
 
 # -- the phase weights kept per weight version

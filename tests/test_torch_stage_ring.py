@@ -340,20 +340,21 @@ def test_the_plan_mirrors_the_c_constants():
     assert f"constexpr int kNarrowStages = {_build.NARROW_STAGES};" in CONV_GN_MISH
     assert f"constexpr int kProjChunks = {_build.PROJ_CHUNKS};" in CONV_GN_MISH
     assert f"stage_cluster(int row_tiles) {{ return row_tiles > 1 ? {_build.STAGE_CLUSTER} : 1; }}" in CONV_GN_MISH
-    assert "*ctas = cs * (used < clusters ? used : clusters);" in CONV_GN_MISH
+    assert "*ctas = cs * (used < clusters ? used : clusters);" in STAGE_RING
+    assert "return walk_plan(items, chunks, cs, sms, kSplitTail, split, ctas);" in CONV_GN_MISH
     assert ("if (s.cluster != a.cs || ctas != want || s.tail != a.split.tail || "
             "s.tail_clusters != a.split.tail_clusters ||\n      s.max_parts != a.split.max_parts)\n"
             "    return cudaErrorInvalidValue;") in CONV_GN_MISH
     # the split: its constants, the workspace's bytes (a slot of 192 x NT
     # floats per tail item, part and rank) and the launch's check of them
-    assert f"constexpr int kSplitMinChunks = {_build.SPLIT_MIN_CHUNKS};" in CONV_GN_MISH
-    assert f"constexpr int kSplitParts = {_build.SPLIT_PARTS};" in CONV_GN_MISH
+    assert f"constexpr int kSplitMinChunks = {_build.SPLIT_MIN_CHUNKS};" in STAGE_RING
+    assert f"constexpr int kSplitParts = {_build.SPLIT_PARTS};" in STAGE_RING
     assert "constexpr bool kSplitTail = true;" in CONV_GN_MISH
-    assert "return size_t(s.tail) * s.max_parts * cs * kTileRows * nt * 4;" in CONV_GN_MISH
+    assert "return size_t(s.tail) * s.max_parts * cs * kTileRows * nt * 4;" in STAGE_RING
     assert "s.work_bytes < static_cast<long long>(stage_work_bytes(a.split, a.cs, nt))" in CONV_GN_MISH
     assert "s.n_counters < a.split.tail * a.cs" in CONV_GN_MISH
-    assert "int range_of(int j, int total, int ranges) { return ((j + 1) * ranges - 1) / total; }" in CONV_GN_MISH
-    assert "int range_start(int k, int total, int ranges) { return k * total / ranges; }" in CONV_GN_MISH
+    assert "int range_of(int j, int total, int ranges) { return ((j + 1) * ranges - 1) / total; }" in STAGE_RING
+    assert "int range_start(int k, int total, int ranges) { return k * total / ranges; }" in STAGE_RING
     assert [n for n, _ in _build.StageLaunch._fields_] == [
         "samples", "n_tile", "cluster", "smem_bytes", "ctas", "tail", "tail_clusters", "max_parts", "work",
         "counters", "work_bytes", "n_counters"]
@@ -363,11 +364,12 @@ def test_the_plan_mirrors_the_c_constants():
     # no conv tile in shared memory, no z through device memory, no barrier
     # between a tile's epilogue and the next tile's loads; the only atomics
     # are a split tile's counter's (counted in with acquire and release at
-    # the device's scope, reset by its finisher)
+    # the device's scope, reset by its finisher: finish_split, which the
+    # resampling kernel's split shares)
     for gone in ("tile_bytes", "tile_stats", "kSpillZ", "kDeep"):
         assert gone not in CONV_GN_MISH, gone
     assert not re.search(r"\bepi\b|\bred\.", CONV_GN_MISH)
-    code = re.sub(r"//[^\n]*", "", CONV_GN_MISH)
+    code = re.sub(r"//[^\n]*", "", CONV_GN_MISH + STAGE_RING)
     assert re.findall(r"\batomic[A-Z]\w*\(|\batom\.[\w.]+", code) == ["atom.acq_rel.gpu.global.add.s32", "atomicExch("]
     assert not hasattr(_build, "DEEP_STAGES")
     # the stage reads staged planes; stage_weights is a launch of its own

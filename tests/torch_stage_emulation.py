@@ -215,7 +215,7 @@ def tile_stats(zt, ns, T, og, gpt, eps):
 
 
 class SplitTile:
-    """finish_split of conv_gn_mish.cuh for one split tile of ``parts``
+    """finish_split of stage_ring.cuh for one split tile of ``parts``
     parts, on numpy: the tile's workspace slots and arrival counter. A part
     stores its partial sums in its slot and counts itself in; the one that
     finds the counter at parts - 1 is last: it resets the counter to 0 and
